@@ -158,6 +158,24 @@ def test_mha_weights_path():
     assert ctx.features["attn"].shape == (2, 2, 17, 17)
 
 
+@pytest.mark.parametrize("d", [80, 40])
+def test_attention_weights_round_the_scale_like_jax(d):
+    """bf16, d = 80 or 40, where d ** -0.5 is not a bf16 number: the scale is
+    rounded to bf16 before the product, as in the JAX package. Bar 1e-5:
+    scores that round differently in the two frameworks' bf16 matmuls move
+    a weight by a few 1e-6; an unrounded scale moves them by about 2e-3."""
+    from tfimm_tpu.ops.attention import _attention_weights as jax_weights
+    from tfimm_tpu_torch.ops.attention import _attention_weights
+
+    q, k = _x(14, 2, 3, 50, d), _x(15, 2, 3, 50, d)
+    want = jax_weights(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                       scale=d ** -0.5)
+    got = _attention_weights(torch.from_numpy(q).bfloat16(),
+                             torch.from_numpy(k).bfloat16(), d ** -0.5)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
 def test_dropout_and_drop_path_take_an_explicit_generator():
     x = torch.ones(64, 3, 8)
     for fn in (dropout, drop_path):

@@ -28,8 +28,11 @@ def _attention_weights(q: torch.Tensor, k: torch.Tensor,
     """Softmax attention weights (f32). q, k: (..., N, d).
 
     The score matrix is stored in the compute dtype; the softmax runs in
-    float32 whatever that dtype is.
+    float32 whatever that dtype is. The scale is rounded to q's dtype before
+    the product, as in the JAX package (``q * jnp.asarray(scale, q.dtype)``);
+    this matters where ``d ** -0.5`` is not a bf16 number (d = 80).
     """
+    scale = torch.tensor(scale, dtype=q.dtype).item()
     scores = torch.matmul(q * scale, k.transpose(-1, -2))
     return torch.softmax(scores.float(), dim=-1)
 

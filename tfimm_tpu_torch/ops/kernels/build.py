@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``*.cu`` file under ``tfimm_tpu_torch/csrc/`` is compiled by ``nvcc``
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Every ``*.cu`` file under ``tfimm_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.
 The build happens at the first CUDA call, never at import, so the package
 imports on a machine without ``nvcc``. It is keyed by a hash of the sources
 and the flags, and lands in ``tfimm_tpu_torch/_build/`` (listed in
@@ -27,7 +28,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -66,7 +67,29 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_fused_mha_fwd.restype = ctypes.c_int
+    lib.tfimm_fused_mha_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, g, dqkv
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 (B, H, N) row sum, row delta
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_fused_mha_bwd.restype = ctypes.c_int
     return lib
+
+
+def _run_all(cmds):
+    """Start every command at once, wait for all, raise on the first that
+    failed. Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def kernel_library(verbose: bool = False):
@@ -80,16 +103,19 @@ def kernel_library(verbose: bool = False):
         so = out_dir / "libtfimm_kernels.so"
         if not so.is_file():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libtfimm_kernels.{os.getpid()}.so"
-            cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", str(tmp), *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
+            nvcc, pid = find_nvcc(), os.getpid()
+            ptxas = ["-Xptxas", "-v"] if verbose else []
+            objs = [out_dir / f"{src.stem}.{pid}.o" for src in _sources()]
+            report = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
+                                str(src)]
+                               for src, obj in zip(_sources(), objs)])
+            tmp = out_dir / f"libtfimm_kernels.{pid}.so"
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+            for obj in objs:
+                obj.unlink()
             if verbose:
-                print(proc.stdout + proc.stderr, flush=True)
+                print(report, flush=True)
             os.replace(tmp, so)
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib

@@ -18,15 +18,15 @@ from typing import Optional, Set
 
 import torch
 
-__all__ = ["SOFTMAX_CLAMP", "softmax_nomax", "on_cuda", "log_dispatch",
-           "capture_dispatches", "launch_counts", "count_launch",
-           "reset_launch_counts"]
+__all__ = ["SOFTMAX_CLAMP", "softmax_nomax", "softmax_clamp_grad_mask",
+           "on_cuda", "log_dispatch", "capture_dispatches", "launch_counts",
+           "count_launch", "reset_launch_counts"]
 
 SOFTMAX_CLAMP = 80.0
 
 _dispatch_log: Optional[Set[str]] = None
 
-launch_counts = {"fused_mha": 0}
+launch_counts = {"fused_mha": 0, "fused_mha_bwd": 0}
 
 
 def count_launch(name: str) -> None:
@@ -70,3 +70,10 @@ def softmax_nomax(s: torch.Tensor) -> torch.Tensor:
     ``tfimm_tpu/ops/pallas/dispatch.py · softmax_nomax``)."""
     e = torch.exp(torch.clamp(s, max=SOFTMAX_CLAMP))
     return e / e.sum(dim=-1, keepdim=True)
+
+
+def softmax_clamp_grad_mask(s: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
+    """The exact VJP companion of ``softmax_nomax``: where the clamp
+    saturated (``s >= 80``) the derivative with respect to ``s`` is zero, so
+    the score cotangent ``ds`` is kept only where ``s < 80``."""
+    return torch.where(s < SOFTMAX_CLAMP, ds, torch.zeros_like(ds))

@@ -1,0 +1,4 @@
+from tfimm_tpu_torch.train.problems.classification import (  # noqa: F401
+    ClassificationConfig,
+    ClassificationProblem,
+)

@@ -13,8 +13,10 @@ which ends the run with a non-zero exit code on failure:
    of the main path and at the edges of its coverage, in bf16 and in f32
    with TF32 off: ``fused_mha`` within 2e-2 (bf16) and 1e-5 (f32),
    ``fused_mha_bwd`` within 2e-2 and 1e-4 of the largest plain value.
-   Kernel and plain times at the ViT-B shapes (CUDA events, median of 50
-   runs after warm-up).
+   Kernel and plain times at the ViT-B shapes (CUDA events around 20
+   back-to-back calls, median of 5 such runs after warm-up), and the time of the one PyTorch call that computes
+   the same function, ``F.scaled_dot_product_attention`` (for the backward:
+   that call's backward alone), on the same q, k, v.
 3. The serving path: ``create_model("vit_base_patch16_224")`` in bf16 with
    seeded random weights answers 5 requests of 128 uint8 NHWC images through
    ``create_preprocessing`` and ``model.predict``. Every request must launch
@@ -28,6 +30,20 @@ which ends the run with a non-zero exit code on failure:
    agree with the same weights in f32 through the plain attention. Then the
    step time, a ``torch.profiler`` split of the step's device time, and
    ``time_model(..., target="backprop", batch_size=64)``.
+5. ``convnext_mlp`` against its plain version on the card at ConvNeXt-B's
+   four stage shapes at batch 128 and at the edges of its coverage (C = 96,
+   C = 12, M = 98), in bf16 and in f32 with TF32 off, within 2e-2 and 1e-5
+   of the largest plain value. At the stage shapes, kernel, plain and
+   cuBLAS-floor times (the two ``F.linear`` products alone), each with its
+   rate and its share of the bound.
+6. The ConvNeXt serving path: ``create_model("convnext_base")`` in bf16
+   with seeded random weights (layer-scale gammas near 1) answers 5
+   requests of 128 uint8 224x224 NHWC images through
+   ``create_preprocessing`` and ``model.predict``. Every request must
+   launch ``convnext_mlp`` once per block (36) and no attention kernel;
+   logits must be finite and non-zero, and agree on 16 images with the same
+   weights in f32 through the eager composition (autograd recording). Then
+   a ``torch.profiler`` split of one request's device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -60,9 +76,27 @@ TRAIN_BATCH = 64
 TRAIN_STEPS = 6
 BWD_SHAPES = [(TRAIN_BATCH, 197, 12, 64), *EDGE_SHAPES]
 CLAMP_SHAPE = (2, 197, 12, 64)
-# Device-time groups of a training step, by kernel name (first match).
-KERNEL_GROUPS = [("fused_mha_bwd", ("fused_mha_bwd",)),
+CONVNEXT = "convnext_base"
+# (M, C, H) of ConvNeXt-B's four stages at batch 128 and 224x224, and the
+# number of blocks of each that a request runs.
+CONVNEXT_STAGES = [(401408, 128, 512), (100352, 256, 1024),
+                   (25088, 512, 2048), (6272, 1024, 4096)]
+CONVNEXT_DEPTHS = (3, 3, 27, 3)
+# ConvNeXt-T's C = 96, C = 12 (no multiple of 8), M = 98 = 2 * 7 * 7.
+CONVNEXT_EDGES = [(6272, 96, 384), (200, 12, 48), (98, 512, 2048),
+                  (98, 1024, 4096)]
+CONVNEXT_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+CONVNEXT_CHECK_IMAGES = 16
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+# Device-time groups of a training step or a request, by kernel name (first
+# match).
+KERNEL_GROUPS = [("convnext_mlp", ("mlp_gemm", "row_stats")),
+                 ("fused_mha_bwd", ("fused_mha_bwd",)),
                  ("fused_mha fwd", ("fused_mha_fwd",)),
+                 ("depthwise conv (cuDNN)", ("depthwise", "fprop", "conv2d",
+                                             "convolution")),
                  ("GEMMs (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "splitk")),
                  ("optimizer (foreach)", ("multi_tensor_apply",)),
                  ("memcpy/memset", ("memcpy", "memset"))]
@@ -83,22 +117,41 @@ def run(cmd) -> str:
     return (proc.stdout + proc.stderr).strip()
 
 
-def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Median of ``iters`` single-launch times, CUDA events, after warm-up."""
+def cuda_time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``iters``
+    back-to-back calls, so that the host enqueues ahead of the device and
+    its own work per call stays out of the time; the median of ``repeats``
+    such runs, after warm-up."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, what bounds it): the larger of the bytes over the card's memory
+    rate and the operations over its bf16 tensor-core peak."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def heads(qkv, nb_heads):
+    """Contiguous q, k, v (B, H, N, d) from packed qkv (B, N, 3 * H * d)."""
+    b, n, three_d = qkv.shape
+    parts = qkv.reshape(b, n, 3, nb_heads, three_d // 3 // nb_heads)
+    return [t.contiguous() for t in parts.permute(2, 0, 3, 1, 4)]
 
 
 def mha_input(b, n, h, d, dtype, seed, clamp=False):
@@ -116,6 +169,7 @@ def mha_input(b, n, h, d, dtype, seed, clamp=False):
 
 def phase_kernels(report):
     import torch
+    import torch.nn.functional as F
 
     from tfimm_tpu_torch.ops.kernels.fused_mha import fused_mha, fused_mha_reference
 
@@ -142,9 +196,17 @@ def phase_kernels(report):
                 report["ms"] = cuda_time_ms(lambda: fused_mha(qkv, h, scale))
                 report["plain_ms"] = cuda_time_ms(
                     lambda: fused_mha_reference(qkv, h, scale))
+                # qkv read once, out written once; q k^T and p v.
+                report["bound_ms"], report["bound_by"] = bound(
+                    2 * b * n * 4 * h * d, 4 * b * h * n * n * d)
+                q, k, v = heads(qkv, h)
+                report["library_ms"] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
                 print(f"fused_mha bf16 {MHA_SHAPES[0]}: kernel "
-                      f"{report['ms']!r} ms, plain {report['plain_ms']!r} ms",
-                      flush=True)
+                      f"{report['ms']!r} ms, plain {report['plain_ms']!r} ms, "
+                      f"scaled_dot_product_attention {report['library_ms']!r} "
+                      f"ms, bound {report['bound_ms']!r} ms "
+                      f"({report['bound_by']})", flush=True)
 
 
 def unmasked_bwd(qkv, g, nb_heads, scale):
@@ -170,6 +232,7 @@ def unmasked_bwd(qkv, g, nb_heads, scale):
 
 def phase_backward_kernel(report):
     import torch
+    import torch.nn.functional as F
 
     from tfimm_tpu_torch.ops.kernels.fused_mha import (
         fused_mha_bwd,
@@ -209,23 +272,43 @@ def phase_backward_kernel(report):
                 report["ms"] = cuda_time_ms(lambda: fused_mha_bwd(qkv, g, h, scale))
                 report["plain_ms"] = cuda_time_ms(
                     lambda: fused_mha_bwd_reference(qkv, g, h, scale))
+                # qkv and g read once, dqkv written once; s = q k^T again
+                # and the four products of the backward.
+                report["bound_ms"], report["bound_by"] = bound(
+                    2 * b * n * 7 * h * d, 10 * b * h * n * n * d)
+                q, k, v = [t.requires_grad_() for t in heads(qkv, h)]
+                out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+                gh = g.reshape(b, n, h, d).transpose(1, 2).contiguous()
+                report["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+                    out, (q, k, v), gh, retain_graph=True))
                 print(f"fused_mha_bwd bf16 {BWD_SHAPES[0]}: kernel "
-                      f"{report['ms']!r} ms, plain {report['plain_ms']!r} ms",
+                      f"{report['ms']!r} ms, plain {report['plain_ms']!r} ms, "
+                      f"scaled_dot_product_attention backward "
+                      f"{report['library_ms']!r} ms, bound "
+                      f"{report['bound_ms']!r} ms ({report['bound_by']})",
                       flush=True)
 
 
-def seeded_state_dict(model, seed: int):
+def seeded_state_dict(model, seed: int, std: float = 0.02):
     """Every parameter drawn from a seeded normal, in f32 on the CPU: the
-    norm weights around 1, the rest with std 0.02. The heads, which start at
-    zero, then give non-zero logits."""
+    LayerNorm weights and ConvNeXt's layer-scale gammas around 1, the rest
+    with std ``std``. The heads, which start at zero, then give non-zero
+    logits, and the MLP branch of a ConvNeXt block does not vanish, as it
+    would at gamma's init value of 1e-6."""
     import torch
 
+    from tfimm_tpu_torch.ops.norm import LayerNorm
+
+    near_one = {f"{name}.weight" for name, module in model.named_modules()
+                if isinstance(module, LayerNorm)}
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, p in model.state_dict().items():
         r = torch.randn(p.shape, generator=g)
-        is_norm_weight = name.endswith("weight") and "norm" in name
-        sd[name] = 1.0 + 0.1 * r if is_norm_weight else 0.02 * r
+        if name in near_one or name.endswith("gamma"):
+            sd[name] = 1.0 + 0.1 * r
+        else:
+            sd[name] = std * r
     return sd
 
 
@@ -264,8 +347,8 @@ def phase_slice(reports, gpu_line):
         outputs.append(logits)
     launches = dispatch.launch_counts["fused_mha"]
     bwd_launches = dispatch.launch_counts["fused_mha_bwd"]
-    reports["fused_mha"]["launches_by_path"] = {"serve": launches}
-    reports["fused_mha_bwd"]["launches_by_path"] = {"serve": bwd_launches}
+    for name, report in reports.items():
+        report["launches_by_path"]["serve"] = dispatch.launch_counts[name]
     check(launches == REQUESTS * nb_blocks,
           f"fused_mha launches {launches} != {REQUESTS * nb_blocks}")
     check(bwd_launches == 0,
@@ -296,6 +379,13 @@ def phase_slice(reports, gpu_line):
         check(rel < 5e-2, f"{name} rel err {rel} >= 5e-2")
 
 
+def expected(**counts) -> dict:
+    """Launch counts of every kernel: ``counts``, and 0 for the others."""
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    return {**dict.fromkeys(dispatch.launch_counts, 0), **counts}
+
+
 def train_config() -> dict:
     """ViT-B/16 at batch 64, bf16 mixed precision, AdamW at lr 1e-4, 6
     epochs of one step each on the same 64 synthetic images."""
@@ -323,7 +413,8 @@ def train_config() -> dict:
 
 def device_split(fn, steps: int = 3):
     """``torch.profiler`` over ``steps`` calls of ``fn``: the wall time of a
-    call under the profiler and its device time by kernel group (ms)."""
+    call under the profiler, its device time by kernel group and by kernel
+    name (ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -334,15 +425,18 @@ def device_split(fn, steps: int = 3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {}
+    groups, names = {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = evt.name.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), OTHER_KERNELS)
-        groups[group] = groups.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
-    return wall_ms / steps, {g: ms / steps for g, ms in groups.items()}
+        ms = evt.time_range.elapsed_us() / 1e3
+        groups[group] = groups.get(group, 0.0) + ms
+        names[evt.name] = names.get(evt.name, 0.0) + ms
+    return (wall_ms / steps, {g: ms / steps for g, ms in groups.items()},
+            {n: ms / steps for n, ms in names.items()})
 
 
 def phase_train(reports, gpu_line):
@@ -381,8 +475,9 @@ def phase_train(reports, gpu_line):
     for it, (loss, seconds, rose) in enumerate(steps):
         print(f"train step {it}: loss {loss!r}, {seconds!r} s, launches {rose}",
               flush=True)
-        check(rose == {"fused_mha": nb_blocks, "fused_mha_bwd": nb_blocks},
-              f"step {it} launched {rose}, expected {nb_blocks} of each kernel")
+        check(rose == expected(fused_mha=nb_blocks, fused_mha_bwd=nb_blocks),
+              f"step {it} launched {rose}, expected {nb_blocks} of each "
+              f"attention kernel")
         check(math.isfinite(loss), f"step {it}: loss {loss}")
     check(steps[-1][0] < steps[0][0],
           f"the loss did not fall: {steps[0][0]} -> {steps[-1][0]}")
@@ -421,11 +516,10 @@ def phase_train(reports, gpu_line):
         return loss.item(), {n: params[n].grad.float() for n in names}, rose
 
     loss_k, grads_k, rose = loss_and_grads(pp(images).to(torch.bfloat16), False)
-    check(rose == {"fused_mha": nb_blocks, "fused_mha_bwd": nb_blocks},
+    check(rose == expected(fused_mha=nb_blocks, fused_mha_bwd=nb_blocks),
           f"the bf16 step launched {rose}")
     loss_r, grads_r, rose = loss_and_grads(pp(images), True)
-    check(rose == {"fused_mha": 0, "fused_mha_bwd": 0},
-          f"the f32 reference went through the kernels: {rose}")
+    check(rose == expected(), f"the f32 reference went through the kernels: {rose}")
     rel = abs(loss_k - loss_r) / abs(loss_r)
     print(f"train loss: bf16 kernel path {loss_k!r} vs f32 plain path "
           f"{loss_r!r}, rel err {rel!r} (bar 2e-2)", flush=True)
@@ -439,7 +533,7 @@ def phase_train(reports, gpu_line):
         check(ref.abs().max().item() > 0, f"{name}: zero reference gradient")
 
     batch = (images.cpu().numpy(), labels.cpu().numpy())
-    wall_ms, groups = device_split(lambda: problem.train_step(batch, 0))
+    wall_ms, groups, _ = device_split(lambda: problem.train_step(batch, 0))
     busy_ms = sum(groups.values())
     # The profiler slows the host down, so the idle share is taken against
     # the mean step time of steps 2-N measured without it.
@@ -453,6 +547,184 @@ def phase_train(reports, gpu_line):
                        samples=3)
     print(f"time_model {MODEL} backprop bs{TRAIN_BATCH} bf16: {img_s!r} img/s "
           f"on {gpu_line}", flush=True)
+
+
+def convnext_inputs(m, c, hidden, dtype, seed):
+    """Seeded inputs of ``convnext_mlp`` on the card: x and shortcut
+    normal, the LN weight and gamma near 1, the weights scaled so that both
+    products are of unit size."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    return (rnd(m, c).to(dtype), rnd(m, c).to(dtype),
+            rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+            rnd(hidden, c, scale=c ** -0.5).to(dtype), rnd(hidden, scale=0.1),
+            rnd(c, hidden, scale=hidden ** -0.5).to(dtype),
+            rnd(c, scale=0.1), rnd(c, scale=0.1, shift=1.0))
+
+
+def convnext_mlp_bound(m, c, hidden):
+    """x and shortcut read once, out written once, both weights read once
+    (bf16), the f32 vectors; the two products."""
+    nbytes = 2 * (3 * m * c + 2 * c * hidden) + 4 * (4 * c + hidden)
+    return bound(nbytes, 4 * m * c * hidden)
+
+
+def phase_convnext_kernel(report):
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
+        convnext_mlp,
+        convnext_mlp_reference,
+    )
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = CONVNEXT_TOL[str(dtype).split(".")[1]]
+        for i, (m, c, hidden) in enumerate(CONVNEXT_STAGES + CONVNEXT_EDGES):
+            args = convnext_inputs(m, c, hidden, dtype, seed=300 + i)
+            got = convnext_mlp(*args, 1e-6).float()
+            ref = convnext_mlp_reference(*args, 1e-6).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            bar = tol * ref.abs().max().item()
+            ok = err <= bar and bool(torch.isfinite(got).all())
+            print(f"convnext_mlp {str(dtype):15s} M={m} C={c} H={hidden}: "
+                  f"max_abs_err={err!r} bar={bar!r} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"convnext_mlp disagrees with its plain version "
+                  f"({dtype}, {(m, c, hidden)}): {err} > {bar}")
+            if dtype == torch.bfloat16 and i < len(CONVNEXT_STAGES):
+                worst = max(worst, err)
+            del args, got, ref
+    report["max_abs_err"] = worst
+
+    # Per stage shape, then per request (each stage's times its blocks).
+    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    bound_by = {}
+    for (m, c, hidden), depth in zip(CONVNEXT_STAGES, CONVNEXT_DEPTHS):
+        args = convnext_inputs(m, c, hidden, torch.bfloat16, seed=400)
+        x, w1, w2 = args[0], args[4], args[6]
+        h = torch.randn(m, hidden, device="cuda").to(torch.bfloat16)
+        t = {"ms": cuda_time_ms(lambda: convnext_mlp(*args, 1e-6)),
+             "plain_ms": cuda_time_ms(
+                 lambda: convnext_mlp_reference(*args, 1e-6), iters=5),
+             "fc1_ms": cuda_time_ms(lambda: F.linear(x, w1)),
+             "fc2_ms": cuda_time_ms(lambda: F.linear(h, w2))}
+        t["cublas_floor_ms"] = t["fc1_ms"] + t["fc2_ms"]
+        t["bound_ms"], by = convnext_mlp_bound(m, c, hidden)
+        bound_by[by] = bound_by.get(by, 0.0) + depth * t["bound_ms"]
+        tflop = 4 * m * c * hidden / 1e12
+        for key, what in (("ms", "kernel"), ("plain_ms", "plain"),
+                          ("cublas_floor_ms", "cuBLAS floor")):
+            print(f"convnext_mlp bf16 M={m} C={c} H={hidden}: {what} "
+                  f"{t[key]!r} ms, {tflop / (t[key] / 1e3)!r} TFLOP/s, "
+                  f"{t['bound_ms'] / t[key]!r} of the bound", flush=True)
+        print(f"convnext_mlp bf16 M={m} C={c} H={hidden}: F.linear fc1 "
+              f"{t['fc1_ms']!r} ms, fc2 {t['fc2_ms']!r} ms; bound "
+              f"{t['bound_ms']!r} ms ({by}); {depth} blocks a request",
+              flush=True)
+        for key in keys:
+            totals[key] += depth * t[key]
+        del args, x, w1, w2, h
+    report.update(totals)
+    report["bound_by"] = max(bound_by, key=bound_by.get)
+    report["library_ms"] = None
+    print(f"convnext_mlp per ConvNeXt-B bs{BATCH} request ({sum(CONVNEXT_DEPTHS)} calls): kernel "
+          f"{totals['ms']!r} ms, plain {totals['plain_ms']!r} ms, cuBLAS floor "
+          f"{totals['cublas_floor_ms']!r} ms, bound {totals['bound_ms']!r} ms "
+          f"({report['bound_by']})", flush=True)
+
+
+def phase_convnext_slice(reports, gpu_line):
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(CONVNEXT, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    sd = seeded_state_dict(model, seed=2, std=0.05)
+    model.load_state_dict(sd)
+    pp = tfm.create_preprocessing(CONVNEXT, dtype=torch.bfloat16, device="cuda")
+    nb_blocks = sum(model.cfg.nb_blocks)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    seconds, outputs = [], []
+    for img in requests:
+        before = dict(dispatch.launch_counts)
+        t0 = time.perf_counter()
+        logits = model.predict(pp(img))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        check(rose == expected(convnext_mlp=nb_blocks),
+              f"one ConvNeXt request launched {rose}, expected convnext_mlp "
+              f"{nb_blocks} times and nothing else")
+        check(tuple(logits.shape) == (BATCH, model.cfg.nb_classes),
+              f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        check(bool(logits.abs().max() > 0), "all-zero logits")
+        outputs.append(logits)
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_convnext"] = dispatch.launch_counts[name]
+    img_s = [BATCH / s for s in seconds[1:]]
+    request_ms = statistics.median(seconds[1:]) * 1e3
+    print(f"slice {CONVNEXT} bs{BATCH} bf16: request seconds {seconds!r}",
+          flush=True)
+    print(f"slice {CONVNEXT} bs{BATCH} bf16: {statistics.median(img_s)!r} img/s "
+          f"(median of requests 2-{REQUESTS}; range {min(img_s)!r}-"
+          f"{max(img_s)!r}) on {gpu_line}", flush=True)
+
+    # The same weights in f32 through the eager composition: with autograd
+    # recording the parameters, every block declines the kernel.
+    x = requests[0][:CONVNEXT_CHECK_IMAGES]
+    with torch.inference_mode():
+        feats = model.forward(pp(x), features_only=True)
+    model32 = tfm.create_model(CONVNEXT, device="cuda", dtype=torch.float32,
+                               seed=0)
+    model32.load_state_dict(sd)
+    pp32 = tfm.create_preprocessing(CONVNEXT, dtype=torch.float32,
+                                    device="cuda")
+    before = dict(dispatch.launch_counts)
+    with torch.enable_grad():
+        ref_logits, ref_feats = model32(pp32(x), return_features=True)
+    check(dispatch.launch_counts == before,
+          "the f32 eager reference launched a kernel")
+    for name, got, want in (
+            ("forward_features", feats, ref_feats["conv_features"]),
+            ("logits", outputs[0][:CONVNEXT_CHECK_IMAGES], ref_logits)):
+        want = want.detach()
+        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+        print(f"slice {CONVNEXT} {name}: bf16 kernel path vs f32 eager path "
+              f"rel err {rel!r} (bar 5e-2)", flush=True)
+        check(rel < 5e-2, f"{CONVNEXT} {name} rel err {rel} >= 5e-2")
+    del model32, ref_logits, ref_feats
+
+    img = requests[1]
+    wall_ms, groups, names = device_split(lambda: model.predict(pp(img)),
+                                          steps=2)
+    busy_ms = sum(groups.values())
+    print(f"{CONVNEXT} request profile: device busy {busy_ms!r} ms per request; "
+          f"wall {wall_ms!r} ms under the profiler, {request_ms!r} ms without; "
+          f"device idle share {1.0 - busy_ms / request_ms!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{CONVNEXT} request profile: {group}: {ms!r} ms per request",
+              flush=True)
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"{CONVNEXT} request profile kernel: {ms!r} ms {name[:150]}",
+              flush=True)
 
 
 def main() -> int:
@@ -492,11 +764,24 @@ def main() -> int:
             "fused_mha_bwd": {"name": "fused_mha_bwd", "route": "cuda",
                               "source": "tfimm_tpu_torch/csrc/fused_mha_bwd.cu",
                               "replaces": "tfimm_tpu/ops/pallas/fused_mha.py:267"},
+            "convnext_mlp": {"name": "convnext_mlp", "route": "cuda",
+                             "source": "tfimm_tpu_torch/csrc/convnext_mlp.cu",
+                             "replaces": "tfimm_tpu/ops/pallas/convnext_mlp.py:90"},
         }
+        reports["fused_mha"]["work"] = f"bf16 (B, N, H, d) = {MHA_SHAPES[0]}"
+        reports["fused_mha_bwd"]["work"] = f"bf16 (B, N, H, d) = {BWD_SHAPES[0]}"
+        reports["convnext_mlp"]["work"] = (
+            f"bf16, one {CONVNEXT} bs{BATCH} request: " + " + ".join(
+                f"{n} x (M, C, H) = {shape}"
+                for n, shape in zip(CONVNEXT_DEPTHS, CONVNEXT_STAGES)))
+        for report in reports.values():
+            report["launches_by_path"] = {}
         phase_kernels(reports["fused_mha"])
         phase_backward_kernel(reports["fused_mha_bwd"])
         phase_slice(reports, gpu_line)
         phase_train(reports, gpu_line)
+        phase_convnext_kernel(reports["convnext_mlp"])
+        phase_convnext_slice(reports, gpu_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -504,9 +789,13 @@ def main() -> int:
     kernels = []
     for report in reports.values():
         report["launches"] = sum(report["launches_by_path"].values())
-        kernels.append({k: report[k] for k in (
-            "name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms")})
+        entry = {k: report[k] for k in (
+            "name", "route", "source", "replaces", "work", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        if "cublas_floor_ms" in report:
+            entry["cublas_floor_ms"] = report["cublas_floor_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@ without one. This file imports no JAX, so it also runs where JAX is absent:
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 
 Each CUDA kernel is held against its plain PyTorch version on the card.
-Forward: 2e-2 in bf16 (the kernel rounds p to bf16 before p @ v), 1e-5 in
+fused_mha forward: 2e-2 in bf16 (the kernel rounds p to bf16 before p @ v), 1e-5 in
 f32 with TF32 off (same math, another summation order). Backward:
 max|diff| <= 2e-2 * max|plain| in bf16 (the kernel rounds p and ds to bf16
 before their products), 1e-4 * max|plain| in f32 with TF32 off (sums in
@@ -14,7 +14,12 @@ another order).
 import pytest
 import torch
 
+from tfimm_tpu_torch.ops.conv import DepthwiseConv2d
 from tfimm_tpu_torch.ops.kernels import dispatch
+from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
+    convnext_mlp,
+    convnext_mlp_reference,
+)
 from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha,
     fused_mha_bwd,
@@ -96,3 +101,62 @@ def test_fused_mha_gives_a_gradient_through_the_kernels(card):
     assert dispatch.launch_counts["fused_mha_bwd"] == counts["fused_mha_bwd"] + 1
     want = fused_mha_bwd_reference(qkv, g, h, d ** -0.5)
     assert (x.grad - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# convnext_mlp: (M, C, H) at the four ConvNeXt-B stages (M cut to a few
+# thousand rows), ConvNeXt-T's C = 96, the golden fixture's C = 12 (not a
+# multiple of 8), and an odd M = 2 * 7 * 7. Bars: bf16 max|diff| <= 2e-2 *
+# max|plain| (the plain version rounds z and h to bf16 at the same places;
+# the sums run in another order, so a rounding may land on the other side);
+# f32 with TF32 off <= 1e-5 * max|plain|.
+CONVNEXT_SHAPES = [(3136, 128, 512), (2048, 256, 1024), (1568, 512, 2048),
+                   (392, 1024, 4096), (3136, 96, 384), (200, 12, 48),
+                   (98, 1024, 4096)]
+
+
+def _convnext_inputs(m, c, hidden, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device=device) * scale + shift
+
+    return (rnd(m, c).to(dtype), rnd(m, c).to(dtype), rnd(c, scale=0.1, shift=1.0),
+            rnd(c, scale=0.1), rnd(hidden, c, scale=c ** -0.5).to(dtype),
+            rnd(hidden, scale=0.1), rnd(c, hidden, scale=hidden ** -0.5).to(dtype),
+            rnd(c, scale=0.1), rnd(c, scale=0.1, shift=1.0))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("m,c,hidden", CONVNEXT_SHAPES)
+def test_convnext_mlp_kernel_matches_plain(card, m, c, hidden, dtype, tol):
+    args = _convnext_inputs(m, c, hidden, dtype, card, seed=m + c)
+    before = dispatch.launch_counts["convnext_mlp"]
+    got = convnext_mlp(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["convnext_mlp"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, c)
+    want = convnext_mlp_reference(*args, 1e-6).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+def test_convnext_mlp_kernel_refuses_what_it_does_not_take(card):
+    args = _convnext_inputs(64, 128, 512, torch.float32, card, seed=0)
+    with pytest.raises(ValueError):
+        convnext_mlp(args[0].half(), args[1].half(), *args[2:])
+    with pytest.raises(ValueError):   # mixed devices
+        convnext_mlp(*args[:4], args[4].cpu(), *args[5:])
+    with pytest.raises(ValueError):   # w1 of the wrong shape
+        convnext_mlp(*args[:4], args[4][:, :64], *args[5:])
+
+
+def test_depthwise_conv_keeps_nhwc_without_a_copy(card):
+    # cuDNN takes the channels-last view of the NHWC input as it is and
+    # returns a channels-last result, so the NHWC view of the output is
+    # contiguous and convnext_mlp reads its (M, C) rows without a copy.
+    conv = DepthwiseConv2d(128).to(card, torch.bfloat16)
+    x = torch.randn(4, 56, 56, 128, device=card).to(torch.bfloat16)
+    y = conv(x)
+    assert y.shape == x.shape and y.is_contiguous()
+    assert y.reshape(-1, 128).data_ptr() == y.data_ptr()

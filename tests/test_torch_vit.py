@@ -136,7 +136,7 @@ def test_registry_matches_jax():
     for pattern in ("vit_*", "deit_*"):
         assert (tfimm_tpu_torch.list_models(pattern)
                 == tfimm_tpu.list_models(pattern, module="vit")), pattern
-    assert len(tfimm_tpu_torch.list_models()) == 36
+    assert len(tfimm_tpu_torch.list_models(module="vit")) == 36
 
 
 def test_factory_checks():

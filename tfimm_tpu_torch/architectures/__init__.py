@@ -1,3 +1,4 @@
 """Architecture zoo. Importing this package fills the model registry."""
 
+from tfimm_tpu_torch.architectures.convnext import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.vit import *  # noqa: F401,F403

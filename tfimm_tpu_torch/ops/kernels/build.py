@@ -75,6 +75,19 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_fused_mha_bwd.restype = ctypes.c_int
+    lib.tfimm_convnext_mlp.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # x, shortcut
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 ln weight, ln bias
+        ctypes.c_void_p, ctypes.c_void_p,  # w1, f32 b1
+        ctypes.c_void_p, ctypes.c_void_p,  # w2, f32 b2
+        ctypes.c_void_p,  # f32 gamma
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scratch h, mean, rstd
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, C, H
+        ctypes.c_float, ctypes.c_int,  # eps, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_convnext_mlp.restype = ctypes.c_int
     return lib
 
 

@@ -20,13 +20,13 @@ import torch
 
 __all__ = ["SOFTMAX_CLAMP", "softmax_nomax", "softmax_clamp_grad_mask",
            "on_cuda", "log_dispatch", "capture_dispatches", "launch_counts",
-           "count_launch", "reset_launch_counts"]
+           "count_launch", "reset_launch_counts", "launch"]
 
 SOFTMAX_CLAMP = 80.0
 
 _dispatch_log: Optional[Set[str]] = None
 
-launch_counts = {"fused_mha": 0, "fused_mha_bwd": 0}
+launch_counts = {"fused_mha": 0, "fused_mha_bwd": 0, "convnext_mlp": 0}
 
 
 def count_launch(name: str) -> None:
@@ -36,6 +36,20 @@ def count_launch(name: str) -> None:
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call kernel ``name``'s C entry point ``fn`` on the current stream of
+    the first argument's device (tensors are passed as their data pointers),
+    raise on a non-zero cudaError, and count the launch."""
+    device = args[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    count_launch(name)
 
 
 def log_dispatch(name: str) -> None:

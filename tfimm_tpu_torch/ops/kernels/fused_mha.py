@@ -26,7 +26,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tfimm_tpu_torch.ops.kernels.dispatch import (
-    count_launch,
+    launch,
     log_dispatch,
     on_cuda,
     softmax_clamp_grad_mask,
@@ -113,19 +113,6 @@ def _check_kernel_input(name: str, qkv: torch.Tensor, nb_heads: int) -> None:
         raise ValueError(f"{name}: qkv must be 16-byte aligned")
 
 
-def _launch(name: str, fn, *args) -> None:
-    """Call a kernel's C entry point on the current stream; raise on a
-    non-zero cudaError."""
-    device = args[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
-    count_launch(name)
-
-
 def _fused_mha_forward(qkv: torch.Tensor, nb_heads: int,
                        scale: float) -> torch.Tensor:
     if qkv.device.type == "cpu":
@@ -138,7 +125,7 @@ def _fused_mha_forward(qkv: torch.Tensor, nb_heads: int,
     out = torch.empty((b, n, dim), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or n == 0:
         return out
-    _launch("fused_mha", kernel_library().tfimm_fused_mha_fwd, qkv, out, b, n,
+    launch("fused_mha", kernel_library().tfimm_fused_mha_fwd, qkv, out, b, n,
             nb_heads, dim // nb_heads, float(scale), _DTYPE_CODES[qkv.dtype])
     return out
 
@@ -167,7 +154,7 @@ def fused_mha_bwd(qkv: torch.Tensor, g: torch.Tensor, nb_heads: int,
     row_sum = torch.empty((b, nb_heads, n), dtype=torch.float32,
                           device=qkv.device)
     row_delta = torch.empty_like(row_sum)
-    _launch("fused_mha_bwd", kernel_library().tfimm_fused_mha_bwd, qkv, g,
+    launch("fused_mha_bwd", kernel_library().tfimm_fused_mha_bwd, qkv, g,
             dqkv, row_sum, row_delta, b, n, nb_heads, three_d // 3 // nb_heads,
             float(scale), _DTYPE_CODES[qkv.dtype])
     return dqkv

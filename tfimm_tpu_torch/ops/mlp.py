@@ -1,4 +1,5 @@
-"""Transformer MLP; mirror of ``MLP`` in tfimm_tpu/ops/mlp.py."""
+"""Transformer MLP and its 1x1-conv form; mirror of ``MLP`` and ``ConvMLP``
+in tfimm_tpu/ops/mlp.py."""
 
 from __future__ import annotations
 
@@ -9,9 +10,10 @@ import torch.nn as nn
 
 from tfimm_tpu_torch.core import current_context
 from tfimm_tpu_torch.ops.basic import Dense, act_layer_factory
+from tfimm_tpu_torch.ops.conv import Conv2d
 from tfimm_tpu_torch.ops.stochastic import dropout
 
-__all__ = ["MLP"]
+__all__ = ["MLP", "ConvMLP"]
 
 
 class MLP(nn.Module):
@@ -35,3 +37,22 @@ class MLP(nn.Module):
         x = dropout(x, self.drop_rate, ctx.training, ctx.generator)
         x = self.fc2(x)
         return dropout(x, self.drop_rate, ctx.training, ctx.generator)
+
+
+class ConvMLP(nn.Module):
+    """MLP as 1x1 convs on NHWC maps (ConvNeXt's conv-MLP blocks).
+    Parameters: fc1.weight (H, C, 1, 1), fc1.bias, fc2.*."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 act_layer: str = "gelu", drop_rate: float = 0.0, *,
+                 weight_std: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = Conv2d(in_features, hidden_features, 1,
+                          weight_std=weight_std, generator=generator)
+        self.fc2 = Conv2d(hidden_features, in_features, 1,
+                          weight_std=weight_std, generator=generator)
+        self.act = act_layer_factory(act_layer)
+        self.drop_rate = drop_rate
+
+    forward = MLP.forward

@@ -5,7 +5,8 @@
 timm's module paths, so a flattened JAX path maps to a state-dict key by a
 leaf rename, plus a layout transpose for ``kernel`` leaves:
 
-    kernel -> weight    2-D (in, out) -> (out, in); 4-D HWIO -> OIHW;
+    kernel -> weight    2-D (in, out) -> (out, in); 4-D HWIO -> OIHW
+                        (a depthwise (kh, kw, 1, C) -> (C, 1, kh, kw));
                         3-D WIO -> OIW
     scale  -> weight
     mean   -> running_mean

@@ -44,6 +44,27 @@ which ends the run with a non-zero exit code on failure:
    logits must be finite and non-zero, and agree on 16 images with the same
    weights in f32 through the eager composition (autograd recording). Then
    a ``torch.profiler`` split of one request's device time.
+7. ``window_mha`` and ``swin_block`` against their plain versions on the
+   card at Swin-T's stage shapes at batch 128 (shifted and unshifted) and
+   at the edges of their coverage (N = 144, d = 8, 16 and 64, an odd
+   window count), in bf16 and in f32 with TF32 off, within 2e-2 of the
+   largest plain value in bf16 and 1e-5 (``window_mha``) or 1e-4
+   (``swin_block``) in f32. Two controls: with the shift mask left out of
+   the plain version a shifted stage-1 block, and with the bias left out
+   the stage-1 attention, must miss the bar by far. Kernel, plain and
+   library times: ``window_mha`` at Swin-T's stage 4 beside
+   ``F.scaled_dot_product_attention`` with the float mask; ``swin_block``
+   at stages 1-3 beside the cuBLAS floor of its four ``F.linear``
+   products. Beside each, the block run per op (cuBLAS, ``window_mha``,
+   eager LayerNorm), at stages 1-3 and at stage 4, where the gate sends
+   Swin-T's blocks that way, as CUDA-event and profiler device times.
+8. The Swin serving path: ``create_model("swin_tiny_patch4_window7_224")``
+   in bf16 with seeded random weights answers 5 requests of 128 uint8
+   224x224 NHWC images. Every request must launch ``swin_block`` 10 times
+   (stages 1-3) and ``window_mha`` twice (stage 4), and nothing else;
+   logits must be finite and non-zero and agree on 16 images with the same
+   weights in f32 through the eager composition. Then a
+   ``torch.profiler`` split of one request's device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -87,12 +108,36 @@ CONVNEXT_EDGES = [(6272, 96, 384), (200, 12, 48), (98, 512, 2048),
                   (98, 1024, 4096)]
 CONVNEXT_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 CONVNEXT_CHECK_IMAGES = 16
+SWIN = "swin_tiny_patch4_window7_224"
+# (BW, N, C, H, map side) of Swin-T's stages 1-3 at batch 128, each run by
+# one unshifted and one shifted block of a pair, and the blocks of each
+# that a request runs; then the stage-4 attention, unshifted (its 7x7 map is
+# one window).
+SWIN_STAGES = [(8192, 49, 96, 3, 56), (2048, 49, 192, 6, 28),
+               (512, 49, 384, 12, 14)]
+SWIN_DEPTHS = (2, 2, 6)
+SWIN_STAGE4 = (128, 49, 768, 24, 7)
+# Window 12 (N = 144), d = 16, d = 64, d = 8 with window 4 (the hf_swin
+# fixture), an odd window count.
+SWIN_EDGES = [(32, 144, 128, 4, 24), (64, 49, 64, 4, 14), (64, 49, 256, 4, 0),
+              (64, 16, 16, 2, 8), (3, 49, 96, 3, 0)]
+SWIN_TOL = {"window_mha": {"bfloat16": 2e-2, "float32": 1e-5},
+            "swin_block": {"bfloat16": 2e-2, "float32": 1e-4}}
+# Launches of one Swin-T request: the 10 blocks of stages 1-3 through
+# swin_block, the 2 attentions of stage 4 through window_mha.
+SWIN_LAUNCHES = {"swin_block": 10, "window_mha": 2}
+# A control must miss its bar by at least this factor.
+CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # Device-time groups of a training step or a request, by kernel name (first
 # match).
-KERNEL_GROUPS = [("convnext_mlp", ("mlp_gemm", "row_stats")),
+KERNEL_GROUPS = [("swin_block (GEMMs, row statistics)",
+                  ("swin_gemm", "swin_row_stats")),
+                 ("window attention (window_mha.cu; within swin_block at "
+                  "stages 1-3)", ("window_mha",)),
+                 ("convnext_mlp", ("mlp_gemm", "row_stats")),
                  ("fused_mha_bwd", ("fused_mha_bwd",)),
                  ("fused_mha fwd", ("fused_mha_fwd",)),
                  ("depthwise conv (cuDNN)", ("depthwise", "fprop", "conv2d",
@@ -291,8 +336,8 @@ def phase_backward_kernel(report):
 
 def seeded_state_dict(model, seed: int, std: float = 0.02):
     """Every parameter drawn from a seeded normal, in f32 on the CPU: the
-    LayerNorm weights and ConvNeXt's layer-scale gammas around 1, the rest
-    with std ``std``. The heads, which start at zero, then give non-zero
+    LayerNorm weights and ConvNeXt's layer-scale gammas around 1, Swin's
+    relative-position bias tables with std 0.3, the rest with std ``std``. The heads, which start at zero, then give non-zero
     logits, and the MLP branch of a ConvNeXt block does not vanish, as it
     would at gamma's init value of 1e-6."""
     import torch
@@ -307,6 +352,8 @@ def seeded_state_dict(model, seed: int, std: float = 0.02):
         r = torch.randn(p.shape, generator=g)
         if name in near_one or name.endswith("gamma"):
             sd[name] = 1.0 + 0.1 * r
+        elif name.endswith("relative_position_bias_table"):
+            sd[name] = 0.3 * r   # a small table would hide the bias
         else:
             sd[name] = std * r
     return sd
@@ -437,6 +484,17 @@ def device_split(fn, steps: int = 3):
         names[evt.name] = names.get(evt.name, 0.0) + ms
     return (wall_ms / steps, {g: ms / steps for g, ms in groups.items()},
             {n: ms / steps for n, ms in names.items()})
+
+
+def device_ms(fn, steps: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' device
+    times under ``torch.profiler`` over ``steps`` calls, over ``steps``. It
+    leaves out the gaps in which the device waits for the host, which CUDA
+    events around back-to-back calls count where a call's host work is
+    longer than its device work."""
+    fn()
+    _, groups, _ = device_split(fn, steps=steps)
+    return sum(groups.values())
 
 
 def phase_train(reports, gpu_line):
@@ -727,6 +785,342 @@ def phase_convnext_slice(reports, gpu_line):
               flush=True)
 
 
+def swin_inputs(bw, n, c, h, side, shifted, dtype, seed):
+    """Seeded inputs of ``swin_block`` and ``window_mha`` on the card: x and
+    a packed qkv normal, the LayerNorm weights near 1, the matrices scaled
+    so that every product is of unit size, a bias (H, N, N) of std 0.5 (a
+    small table would hide a kernel that drops it) and, for a shifted block
+    on a map of more than one window, the model's shift mask."""
+    import torch
+
+    from tfimm_tpu_torch.architectures.swin import _attention_mask
+    from tfimm_tpu_torch.ops.kernels.swin_block import SwinBlockParams
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    hid = 4 * c
+    params = SwinBlockParams(
+        rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+        rnd(3 * c, c, scale=c ** -0.5).to(dtype), rnd(3 * c, scale=0.1),
+        rnd(c, c, scale=c ** -0.5).to(dtype), rnd(c, scale=0.1),
+        rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+        rnd(hid, c, scale=c ** -0.5).to(dtype), rnd(hid, scale=0.1),
+        rnd(c, hid, scale=hid ** -0.5).to(dtype), rnd(c, scale=0.1))
+    ws = math.isqrt(n)
+    mask = None
+    if shifted and side > ws:
+        mask = torch.from_numpy(_attention_mask((side, side), ws, ws // 2))
+        mask = mask.to("cuda")
+    return (rnd(bw, n, c).to(dtype), rnd(bw, n, 3 * c).to(dtype), params,
+            rnd(h, n, n, scale=0.5), mask)
+
+
+def held(got, ref, tol):
+    """(max abs err, bar = tol * max|ref|, within the bar and finite)."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    bar = tol * ref.float().abs().max().item()
+    return err, bar, err <= bar and bool(torch.isfinite(got).all())
+
+
+def swin_block_bound(bw, n, c, h, nb_win):
+    """x read and out written once (bf16), the four matrices (bf16), the
+    f32 vectors, the bias and the mask of ``nb_win`` windows (0 without);
+    the four products and the attention's two."""
+    m = bw * n
+    nbytes = (2 * (2 * m * c + 12 * c * c) + 4 * 13 * c
+              + 4 * (h + nb_win) * n * n)
+    return bound(nbytes, 24 * m * c * c + 4 * m * n * c)
+
+
+def per_op_block(params, c, h, side, shifted, dtype):
+    """A ``SwinTransformerBlock`` on the card holding the tensors of
+    ``params``, and a call that runs it per op, as the model runs the blocks
+    its gate declines: in training mode (all rates 0) the gate declines the
+    block kernel, and under ``no_grad`` the attention takes ``window_mha``.
+    Returns the call and the (B, side^2, C) tokens it takes."""
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.architectures.swin import SwinTransformerBlock
+    from tfimm_tpu_torch.core import Context
+
+    ws = tfm.model_config(SWIN).window_size
+    blk = SwinTransformerBlock(tfm.model_config(SWIN), (side, side), c, h,
+                               0.0, ws // 2 if shifted else 0)
+    blk = blk.to("cuda", dtype)
+    with torch.no_grad():
+        for dst, src in zip(
+                (blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight,
+                 blk.attn.qkv.bias, blk.attn.proj.weight, blk.attn.proj.bias,
+                 blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight,
+                 blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias),
+                params):
+            dst.copy_(src)
+    tokens = torch.randn(BATCH, side * side, c, device="cuda").to(dtype)
+
+    def run():
+        with Context(training=True), torch.no_grad():
+            return blk(tokens)
+
+    return run
+
+
+def compare_paths(what, kernel, per_op):
+    """Print the block kernel's time and the per-op block's, each as CUDA
+    events around back-to-back calls and as device time."""
+    times = {name: (cuda_time_ms(fn), device_ms(fn))
+             for name, fn in (("swin_block", kernel), ("per-op", per_op))}
+    print(f"{what}: " + "; ".join(
+        f"{name} {ev!r} ms between events, {dev!r} ms device"
+        for name, (ev, dev) in times.items())
+        + " (per-op: cuBLAS, window_mha, eager LayerNorm)", flush=True)
+
+
+def phase_swin_kernels(reports):
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.swin_block import (
+        swin_block,
+        swin_block_reference,
+    )
+    from tfimm_tpu_torch.ops.kernels.window_mha import (
+        window_mha,
+        window_mha_reference,
+    )
+
+    cases = ([(shape, shifted) for shape in SWIN_STAGES
+              for shifted in (False, True)] + [(SWIN_STAGE4, False)]
+             + [(shape, shape[4] > 0) for shape in SWIN_EDGES])
+    worst = {"window_mha": 0.0, "swin_block": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, ((bw, n, c, h, side), shifted) in enumerate(cases):
+            x, qkv, params, bias, mask = swin_inputs(bw, n, c, h, side,
+                                                     shifted, dtype, 500 + i)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            scale = (c // h) ** -0.5
+            what = (f"{dname:8s} BW={bw} N={n} C={c} H={h}"
+                    f"{' shifted' if mask is not None else ''}")
+            outs = {}
+            for name, kernel, plain, args in (
+                    ("window_mha", window_mha, window_mha_reference,
+                     (q, k, v, bias, mask)),
+                    ("swin_block", swin_block, swin_block_reference,
+                     (x, params, bias, mask))):
+                got = kernel(*args, nb_heads=h, scale=scale)
+                ref = plain(*args, nb_heads=h, scale=scale)
+                torch.cuda.synchronize()
+                err, bar, ok = held(got, ref, SWIN_TOL[name][dname])
+                print(f"{name} {what}: max_abs_err={err!r} bar={bar!r} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"{name} disagrees with its plain version ({what}): "
+                      f"{err} > {bar}")
+                if dtype == torch.bfloat16 and (bw, n, c, h, side) in (
+                        SWIN_STAGES + [SWIN_STAGE4]):
+                    worst[name] = max(worst[name], err)
+                outs[name] = (got, bar)
+            if dtype == torch.bfloat16 and mask is not None and i == 1:
+                # Controls on the shifted stage-1 block: the plain versions
+                # without the mask, and the attention without the bias, must
+                # land far outside the bar.
+                got, bar = outs["swin_block"]
+                far = (got.float() - swin_block_reference(
+                    x, params, bias, None, nb_heads=h, scale=scale).float())
+                far = far.abs().max().item()
+                print(f"swin_block control {what}: without the mask off by "
+                      f"{far!r}, {far / bar!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bar, "swin_block: leaving the "
+                      "mask out stays within the bar")
+                got, bar = outs["window_mha"]
+                far = (got.float() - window_mha_reference(
+                    q, k, v, torch.zeros_like(bias), mask, nb_heads=h,
+                    scale=scale).float()).abs().max().item()
+                print(f"window_mha control {what}: without the bias off by "
+                      f"{far!r}, {far / bar!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bar, "window_mha: leaving the "
+                      "bias out stays within the bar")
+            del x, qkv, q, k, v, params, bias, mask, outs, got, ref
+    for name, err in worst.items():
+        reports[name]["max_abs_err"] = err
+
+    # window_mha where the main path runs it: Swin-T's stage 4.
+    report = reports["window_mha"]
+    bw, n, c, h, side = SWIN_STAGE4
+    _, qkv, _, bias, _ = swin_inputs(bw, n, c, h, side, False, torch.bfloat16,
+                                     600)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    scale = (c // h) ** -0.5
+    # One call's host work (checks, allocation, launch) is about as long as
+    # its device work, so the kernel's time is its device time under the
+    # profiler; the CUDA-event time of back-to-back calls is printed beside.
+    events_ms = cuda_time_ms(
+        lambda: window_mha(q, k, v, bias, nb_heads=h, scale=scale))
+    report["ms"] = device_ms(
+        lambda: window_mha(q, k, v, bias, nb_heads=h, scale=scale), steps=20)
+    report["plain_ms"] = cuda_time_ms(
+        lambda: window_mha_reference(q, k, v, bias, nb_heads=h, scale=scale))
+    # q, k, v read once, out written once, the f32 bias; q k^T and p v.
+    report["bound_ms"], report["bound_by"] = bound(
+        2 * 4 * bw * n * c + 4 * h * n * n, 4 * bw * n * n * c)
+    qh, kh, vh = heads(qkv, h)
+    attn_mask = bias.to(torch.bfloat16)[None]
+    report["library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=attn_mask, scale=scale))
+    print(f"window_mha bf16 {SWIN_STAGE4[:4]}: kernel {report['ms']!r} ms "
+          f"device ({events_ms!r} ms between events), "
+          f"plain {report['plain_ms']!r} ms, scaled_dot_product_attention "
+          f"(float mask) {report['library_ms']!r} ms, bound "
+          f"{report['bound_ms']!r} ms ({report['bound_by']})", flush=True)
+    del qkv, q, k, v, qh, kh, vh
+    x, _, params, bias, _ = swin_inputs(bw, n, c, h, side, False,
+                                        torch.bfloat16, 601)
+    compare_paths(f"stage-4 block bf16 BW={bw} C={c} H={h}",
+                  lambda: swin_block(x, params, bias, nb_heads=h, scale=scale),
+                  per_op_block(params, c, h, side, False, torch.bfloat16))
+    del x, params, bias
+
+    # swin_block where the main path runs it: stages 1-3, per stage shape,
+    # then per request (each stage's times its blocks, half of them shifted).
+    report = reports["swin_block"]
+    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    for (bw, n, c, h, side), depth in zip(SWIN_STAGES, SWIN_DEPTHS):
+        m = bw * n
+        tflop = (24 * m * c * c + 4 * m * n * c) / 1e12
+        for shifted in (False, True):
+            x, _, params, bias, mask = swin_inputs(bw, n, c, h, side, shifted,
+                                                   torch.bfloat16, 700)
+            scale = (c // h) ** -0.5
+            t = {"ms": cuda_time_ms(lambda: swin_block(
+                     x, params, bias, mask, nb_heads=h, scale=scale)),
+                 "plain_ms": cuda_time_ms(lambda: swin_block_reference(
+                     x, params, bias, mask, nb_heads=h, scale=scale), iters=5)}
+            nb_win = 0 if mask is None else mask.shape[0]
+            t["bound_ms"], by = swin_block_bound(bw, n, c, h, nb_win)
+            for key in ("ms", "plain_ms"):
+                print(f"swin_block bf16 BW={bw} C={c} H={h}"
+                      f"{' shifted' if shifted else ''}: "
+                      f"{'kernel' if key == 'ms' else 'plain'} {t[key]!r} ms, "
+                      f"{tflop / (t[key] / 1e3)!r} TFLOP/s, "
+                      f"{t['bound_ms'] / t[key]!r} of the bound "
+                      f"{t['bound_ms']!r} ms ({by})", flush=True)
+            for key in ("ms", "plain_ms", "bound_ms"):
+                totals[key] += depth // 2 * t[key]
+            compare_paths(
+                f"swin_block bf16 BW={bw} C={c} H={h}"
+                f"{' shifted' if shifted else ''}",
+                lambda: swin_block(x, params, bias, mask, nb_heads=h,
+                                   scale=scale),
+                per_op_block(params, c, h, side, shifted, torch.bfloat16))
+        w_qkv, w_proj, w1, w2 = params.w_qkv, params.w_proj, params.w1, params.w2
+        h1 = torch.randn(m, c, device="cuda").to(torch.bfloat16)
+        mid = torch.randn(m, 4 * c, device="cuda").to(torch.bfloat16)
+        floor = (cuda_time_ms(lambda: F.linear(h1, w_qkv))
+                 + cuda_time_ms(lambda: F.linear(h1, w_proj))
+                 + cuda_time_ms(lambda: F.linear(h1, w1))
+                 + cuda_time_ms(lambda: F.linear(mid, w2)))
+        print(f"swin_block bf16 BW={bw} C={c}: cuBLAS floor (four F.linear) "
+              f"{floor!r} ms, {24 * m * c * c / 1e12 / (floor / 1e3)!r} "
+              f"TFLOP/s; {depth} blocks a request", flush=True)
+        totals["cublas_floor_ms"] += depth * floor
+        del x, params, bias, mask, h1, mid
+    report.update(totals)
+    report["bound_by"] = "operations"
+    report["library_ms"] = totals["cublas_floor_ms"]
+    print(f"swin_block per {SWIN} bs{BATCH} request ({sum(SWIN_DEPTHS)} calls): "
+          f"kernel {totals['ms']!r} ms, plain {totals['plain_ms']!r} ms, cuBLAS "
+          f"floor {totals['cublas_floor_ms']!r} ms, bound "
+          f"{totals['bound_ms']!r} ms (operations)", flush=True)
+
+
+def phase_swin_slice(reports, gpu_line):
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(SWIN, device="cuda", dtype=torch.bfloat16, seed=0)
+    sd = seeded_state_dict(model, seed=4, std=0.05)
+    model.load_state_dict(sd)
+    pp = tfm.create_preprocessing(SWIN, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    seconds, outputs = [], []
+    for img in requests:
+        before = dict(dispatch.launch_counts)
+        t0 = time.perf_counter()
+        logits = model.predict(pp(img))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        check(rose == expected(**SWIN_LAUNCHES),
+              f"one Swin request launched {rose}, expected {SWIN_LAUNCHES} "
+              f"and nothing else")
+        check(tuple(logits.shape) == (BATCH, model.cfg.nb_classes),
+              f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        check(bool(logits.abs().max() > 0), "all-zero logits")
+        outputs.append(logits)
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_swin"] = dispatch.launch_counts[name]
+    img_s = [BATCH / s for s in seconds[1:]]
+    request_ms = statistics.median(seconds[1:]) * 1e3
+    print(f"slice {SWIN} bs{BATCH} bf16: request seconds {seconds!r}",
+          flush=True)
+    print(f"slice {SWIN} bs{BATCH} bf16: {statistics.median(img_s)!r} img/s "
+          f"(median of requests 2-{REQUESTS}; range {min(img_s)!r}-"
+          f"{max(img_s)!r}) on {gpu_line}", flush=True)
+
+    # The same weights in f32 through the eager composition: with autograd
+    # recording the parameters, every block declines both kernels.
+    x = requests[0][:CONVNEXT_CHECK_IMAGES]
+    with torch.inference_mode():
+        feats = model.forward(pp(x), features_only=True)
+    model32 = tfm.create_model(SWIN, device="cuda", dtype=torch.float32,
+                               seed=0)
+    model32.load_state_dict(sd)
+    pp32 = tfm.create_preprocessing(SWIN, dtype=torch.float32, device="cuda")
+    before = dict(dispatch.launch_counts)
+    with torch.enable_grad():
+        ref_logits, ref_feats = model32(pp32(x), return_features=True)
+    check(dispatch.launch_counts == before,
+          "the f32 eager reference launched a kernel")
+    for name, got, want in (
+            ("forward_features", feats, ref_feats["features"]),
+            ("logits", outputs[0][:CONVNEXT_CHECK_IMAGES], ref_logits)):
+        want = want.detach()
+        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+        print(f"slice {SWIN} {name}: bf16 kernel path vs f32 eager path "
+              f"rel err {rel!r} (bar 5e-2)", flush=True)
+        check(rel < 5e-2, f"{SWIN} {name} rel err {rel} >= 5e-2")
+    del model32, ref_logits, ref_feats
+
+    img = requests[1]
+    wall_ms, groups, names = device_split(lambda: model.predict(pp(img)),
+                                          steps=2)
+    busy_ms = sum(groups.values())
+    print(f"{SWIN} request profile: device busy {busy_ms!r} ms per request; "
+          f"wall {wall_ms!r} ms under the profiler, {request_ms!r} ms without; "
+          f"device idle share {1.0 - busy_ms / request_ms!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{SWIN} request profile: {group}: {ms!r} ms per request",
+              flush=True)
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"{SWIN} request profile kernel: {ms!r} ms {name[:150]}",
+              flush=True)
+
+
 def main() -> int:
     if not (REPO / "tfimm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -767,6 +1161,12 @@ def main() -> int:
             "convnext_mlp": {"name": "convnext_mlp", "route": "cuda",
                              "source": "tfimm_tpu_torch/csrc/convnext_mlp.cu",
                              "replaces": "tfimm_tpu/ops/pallas/convnext_mlp.py:90"},
+            "window_mha": {"name": "window_mha", "route": "cuda",
+                           "source": "tfimm_tpu_torch/csrc/window_mha.cu",
+                           "replaces": "tfimm_tpu/ops/pallas/window_mha.py:225"},
+            "swin_block": {"name": "swin_block", "route": "cuda",
+                           "source": "tfimm_tpu_torch/csrc/swin_block.cu",
+                           "replaces": "tfimm_tpu/ops/pallas/swin_block.py:103"},
         }
         reports["fused_mha"]["work"] = f"bf16 (B, N, H, d) = {MHA_SHAPES[0]}"
         reports["fused_mha_bwd"]["work"] = f"bf16 (B, N, H, d) = {BWD_SHAPES[0]}"
@@ -774,6 +1174,12 @@ def main() -> int:
             f"bf16, one {CONVNEXT} bs{BATCH} request: " + " + ".join(
                 f"{n} x (M, C, H) = {shape}"
                 for n, shape in zip(CONVNEXT_DEPTHS, CONVNEXT_STAGES)))
+        reports["window_mha"]["work"] = (
+            f"bf16 (BW, N, C, H) = {SWIN_STAGE4[:4]}, no mask")
+        reports["swin_block"]["work"] = (
+            f"bf16, one {SWIN} bs{BATCH} request: " + " + ".join(
+                f"{n} x (BW, N, C, H) = {shape[:4]}, half shifted"
+                for n, shape in zip(SWIN_DEPTHS, SWIN_STAGES)))
         for report in reports.values():
             report["launches_by_path"] = {}
         phase_kernels(reports["fused_mha"])
@@ -782,6 +1188,8 @@ def main() -> int:
         phase_train(reports, gpu_line)
         phase_convnext_kernel(reports["convnext_mlp"])
         phase_convnext_slice(reports, gpu_line)
+        phase_swin_kernels(reports)
+        phase_swin_slice(reports, gpu_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -8,12 +8,18 @@ fused_mha forward: 2e-2 in bf16 (the kernel rounds p to bf16 before p @ v), 1e-5
 f32 with TF32 off (same math, another summation order). Backward:
 max|diff| <= 2e-2 * max|plain| in bf16 (the kernel rounds p and ds to bf16
 before their products), 1e-4 * max|plain| in f32 with TF32 off (sums in
-another order).
+another order). window_mha and swin_block: 2e-2 * max|plain| in bf16 (the
+plain version rounds at the same places, the sums run in another order, so
+a rounding may land on the other side); in f32 1e-5 * max|plain| for
+window_mha and 1e-4 * max|plain| for swin_block, whose four products and
+two LayerNorms each sum in another order.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from tfimm_tpu_torch.architectures.swin import _attention_mask
 from tfimm_tpu_torch.ops.conv import DepthwiseConv2d
 from tfimm_tpu_torch.ops.kernels import dispatch
 from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
@@ -25,6 +31,15 @@ from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha_bwd,
     fused_mha_bwd_reference,
     fused_mha_reference,
+)
+from tfimm_tpu_torch.ops.kernels.swin_block import (
+    SwinBlockParams,
+    swin_block,
+    swin_block_reference,
+)
+from tfimm_tpu_torch.ops.kernels.window_mha import (
+    window_mha,
+    window_mha_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +175,108 @@ def test_depthwise_conv_keeps_nhwc_without_a_copy(card):
     y = conv(x)
     assert y.shape == x.shape and y.is_contiguous()
     assert y.reshape(-1, 128).data_ptr() == y.data_ptr()
+
+
+# window_mha and swin_block: (BW, N, C, H, map side or 0 for no mask). Swin-T's
+# stage 1 (cut to 2 images) shifted and stage 4 unshifted, window 12 (N =
+# 144) shifted, d = 16, d = 64, d = 8 with N = 16 (the hf_swin fixture),
+# d = 24 (no power of two), d = 128, and an odd window count.
+WINDOW_SHAPES = [(128, 49, 96, 3, 56), (128, 49, 768, 24, 0),
+                 (8, 144, 128, 4, 24), (16, 49, 64, 4, 0), (8, 49, 256, 4, 14),
+                 (8, 16, 16, 2, 8), (4, 49, 72, 3, 0), (4, 49, 256, 2, 0),
+                 (3, 49, 96, 3, 0)]
+
+
+def _window_geometry(n, side, nb_heads, device, gen):
+    """A bias of std 0.5 (a small table would hide a kernel that drops it)
+    and, for ``side`` > 0, the shifted-window mask of a side x side map."""
+    bias = 0.5 * torch.randn(nb_heads, n, n, generator=gen, device=device)
+    mask = None
+    if side:
+        ws = int(round(n ** 0.5))
+        mask = torch.from_numpy(_attention_mask((side, side), ws, ws // 2))
+        mask = mask.to(device)
+    return bias, mask
+
+
+def _bw(bw, mask):
+    return bw if mask is None else mask.shape[0] * max(1, bw // mask.shape[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("bw,n,c,h,side", WINDOW_SHAPES)
+def test_window_mha_kernel_matches_plain(card, bw, n, c, h, side, dtype, tol):
+    gen = torch.Generator(device=card).manual_seed(bw + n + c)
+    bias, mask = _window_geometry(n, side, h, card, gen)
+    bw = _bw(bw, mask)
+    # q, k, v as the three slices of a packed qkv, read through its strides.
+    qkv = torch.randn(bw, n, 3 * c, generator=gen, device=card).to(dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    scale = (c // h) ** -0.5
+    before = dispatch.launch_counts["window_mha"]
+    got = window_mha(q, k, v, bias, mask, nb_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["window_mha"] == before + 1
+    assert got.dtype == dtype and got.shape == (bw, n, c)
+    want = window_mha_reference(q, k, v, bias, mask, nb_heads=h,
+                                scale=scale).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+def _block_inputs(bw, n, c, h, side, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale + shift
+
+    bias, mask = _window_geometry(n, side, h, device, gen)
+    bw = _bw(bw, mask)
+    hid = 4 * c
+    params = SwinBlockParams(
+        rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+        rnd(3 * c, c, scale=c ** -0.5).to(dtype), rnd(3 * c, scale=0.1),
+        rnd(c, c, scale=c ** -0.5).to(dtype), rnd(c, scale=0.1),
+        rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+        rnd(hid, c, scale=c ** -0.5).to(dtype), rnd(hid, scale=0.1),
+        rnd(c, hid, scale=hid ** -0.5).to(dtype), rnd(c, scale=0.1))
+    return rnd(bw, n, c).to(dtype), params, bias, mask
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("bw,n,c,h,side", WINDOW_SHAPES)
+def test_swin_block_kernel_matches_plain(card, bw, n, c, h, side, dtype, tol):
+    x, params, bias, mask = _block_inputs(bw, n, c, h, side, dtype, card,
+                                          seed=bw + c)
+    scale = (c // h) ** -0.5
+    before = dispatch.launch_counts["swin_block"]
+    got = swin_block(x, params, bias, mask, nb_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["swin_block"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = swin_block_reference(x, params, bias, mask, nb_heads=h,
+                                scale=scale).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+def test_window_kernels_refuse_what_they_do_not_take(card):
+    x, params, bias, _ = _block_inputs(4, 49, 96, 3, 0, torch.float32, card, 0)
+    with pytest.raises(ValueError):   # N > 144
+        q = torch.zeros(2, 169, 96, device=card)
+        window_mha(q, q, q, torch.zeros(3, 169, 169, device=card), nb_heads=3,
+                   scale=1.0)
+    with pytest.raises(ValueError):   # d = 12, no multiple of 8
+        window_mha(x, x, x, torch.zeros(8, 49, 49, device=card), nb_heads=8,
+                   scale=1.0)
+    with pytest.raises(ValueError):   # mixed devices
+        window_mha(x, x, x.cpu(), bias, nb_heads=3, scale=1.0)
+    with pytest.raises(ValueError):   # w1 of the wrong shape
+        swin_block(x, params._replace(w1=params.w1[:, :48]), bias, nb_heads=3,
+                   scale=1.0)
+    with pytest.raises(ValueError):   # not contiguous
+        swin_block(x[:, ::2], params, bias[:, ::2, ::2], nb_heads=3, scale=1.0)
+    assert np.isfinite(swin_block(x, params, bias, nb_heads=3,
+                                  scale=1.0).cpu().numpy()).all()

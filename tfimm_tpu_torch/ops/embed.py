@@ -13,20 +13,29 @@ import torch
 import torch.nn as nn
 
 from tfimm_tpu_torch.ops.conv import Conv2d
+from tfimm_tpu_torch.ops.norm import norm_layer_factory
 
 __all__ = ["PatchEmbeddings"]
 
 
 class PatchEmbeddings(nn.Module):
-    """Conv patchify: (B, H, W, C) -> (B, N, D) tokens and the grid shape."""
+    """Conv patchify: (B, H, W, C) -> (B, N, D) tokens and the grid shape,
+    with an optional norm after the flatten (Swin's ``patch_norm``; its
+    parameters are ``norm.*``)."""
 
     def __init__(self, patch_size: int, embed_dim: int, in_channels: int = 3,
-                 *, generator: Optional[torch.Generator] = None):
+                 norm_layer: Optional[str] = None, *,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.proj = Conv2d(in_channels, embed_dim, patch_size,
                            weight_std=0.02, generator=generator)
+        self.norm = (norm_layer_factory(norm_layer)(embed_dim) if norm_layer
+                     else None)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
         x = self.proj(x)
         grid = (x.shape[1], x.shape[2])
-        return x.reshape(x.shape[0], grid[0] * grid[1], x.shape[-1]), grid
+        x = x.reshape(x.shape[0], grid[0] * grid[1], x.shape[-1])
+        if self.norm is not None:
+            x = self.norm(x)
+        return x, grid

@@ -88,6 +88,37 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_convnext_mlp.restype = ctypes.c_int
+    lib.tfimm_window_mha.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+        ctypes.c_int64, ctypes.c_int64,  # q batch and row strides
+        ctypes.c_int64, ctypes.c_int64,  # k batch and row strides
+        ctypes.c_int64, ctypes.c_int64,  # v batch and row strides
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 bias (H, N, N), mask or NULL
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # BW, N, H, d
+        ctypes.c_int,  # nb_windows of the mask
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_window_mha.restype = ctypes.c_int
+    lib.tfimm_swin_block.argtypes = [
+        ctypes.c_void_p,  # x
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 ln1 weight, bias
+        ctypes.c_void_p, ctypes.c_void_p,  # w_qkv, f32 b_qkv
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 bias (H, N, N), mask or NULL
+        ctypes.c_void_p, ctypes.c_void_p,  # w_proj, f32 b_proj
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 ln2 weight, bias
+        ctypes.c_void_p, ctypes.c_void_p,  # w1, f32 b1
+        ctypes.c_void_p, ctypes.c_void_p,  # w2, f32 b2
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scratch qkv, attn, x2
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scratch hid, mean, rstd
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # BW, N, C
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, hidden, nb_windows
+        ctypes.c_float, ctypes.c_float, ctypes.c_int,  # eps, scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_swin_block.restype = ctypes.c_int
     return lib
 
 

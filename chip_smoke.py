@@ -63,8 +63,29 @@ which ends the run with a non-zero exit code on failure:
    224x224 NHWC images. Every request must launch ``swin_block`` 10 times
    (stages 1-3) and ``window_mha`` twice (stage 4), and nothing else;
    logits must be finite and non-zero and agree on 16 images with the same
-   weights in f32 through the eager composition. Then a
-   ``torch.profiler`` split of one request's device time.
+   weights in f32 on the CPU through the plain versions (which launch
+   nothing). Then a ``torch.profiler`` split of one request's device time.
+9. ``window_mha_bwd`` against its plain version on the card at Swin-T's
+   four training shapes at batch 64 (stages 1-3 unshifted and shifted,
+   stage 4 unshifted) and at the forward's edges, in bf16 and in f32 with
+   TF32 off: dq, dk, dv and dbias within 2e-2 and 1e-4 of the largest plain
+   value. Two controls on the shifted stage-1 input must miss the bar by
+   ``CONTROL_FACTOR``: dbias against the plain version without the mask,
+   and the backward against the plain version without the bias. Two calls
+   must give a bit-identical dbias. Per stage: kernel, plain and bound
+   times, and the backward alone of ``F.scaled_dot_product_attention``
+   with the bias (and mask) as a float mask that requires grad.
+10. The Swin training path: ``tfimm_tpu_torch.train.run`` trains Swin-T at
+   batch 64 in bf16 mixed precision with AdamW (lr 1e-3, weight decay
+   0.05), label smoothing 0.1, mixup 0.8, cutmix 1.0 and drop path 0.2
+   for 6 steps on one fixed synthetic batch. Every step must launch
+   ``window_mha`` and ``window_mha_bwd`` 12 times each and nothing else;
+   every loss must be finite, and the mean of the last two below the first
+   (mixup changes the targets from step to step). With seeded weights, one
+   step's loss and two gradients on 8 images through the bf16 kernels must
+   agree with the same weights in f32 on the CPU through the plain
+   versions. Then the rate over steps 2-6, a ``torch.profiler`` split of
+   one step and ``time_model(..., target="backprop", batch_size=64)``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -126,6 +147,19 @@ SWIN_TOL = {"window_mha": {"bfloat16": 2e-2, "float32": 1e-5},
 # Launches of one Swin-T request: the 10 blocks of stages 1-3 through
 # swin_block, the 2 attentions of stage 4 through window_mha.
 SWIN_LAUNCHES = {"swin_block": 10, "window_mha": 2}
+# (BW, N, C, H, map side) of Swin-T's four stages in training at batch 64,
+# and the blocks of each that a step runs (half of those of stages 1-3
+# shifted); the stage-4 map is one window, so its blocks are unshifted.
+SWIN_TRAIN_BATCH = 64
+SWIN_TRAIN_STAGES = [(4096, 49, 96, 3, 56), (1024, 49, 192, 6, 28),
+                     (256, 49, 384, 12, 14), (64, 49, 768, 24, 7)]
+SWIN_TRAIN_DEPTHS = (2, 2, 6, 2)
+# The backward's bar: in bf16 the kernel rounds p and ds to bf16 before
+# their products; in f32 it sums in another order, dbias over every window.
+WINDOW_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Launches of one Swin-T training step: every block per op.
+SWIN_TRAIN_LAUNCHES = {"window_mha": 12, "window_mha_bwd": 12}
+SWIN_CHECK_IMAGES = 8
 # A control must miss its bar by at least this factor.
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
@@ -135,6 +169,8 @@ PEAK_BYTES_S = 3.35e12
 # match).
 KERNEL_GROUPS = [("swin_block (GEMMs, row statistics)",
                   ("swin_gemm", "swin_row_stats")),
+                 ("window attention backward (window_mha_bwd.cu)",
+                  ("window_mha_bwd", "dbias_sum")),
                  ("window attention (window_mha.cu; within swin_block at "
                   "stages 1-3)", ("window_mha",)),
                  ("convnext_mlp", ("mlp_gemm", "row_stats")),
@@ -474,7 +510,10 @@ def device_split(fn, steps: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, names = {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # User annotations (the optimizer's step range) span kernels that
+        # are counted on their own.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         name = evt.name.lower()
         group = next((g for g, keys in KERNEL_GROUPS
@@ -497,16 +536,14 @@ def device_ms(fn, steps: int = 10) -> float:
     return sum(groups.values())
 
 
-def phase_train(reports, gpu_line):
-    import torch
-
+def run_watched(config):
+    """``train.run(config)`` with every step it takes watched: its loss, its
+    wall time (the step ends by reading the loss, which synchronises) and
+    its kernel launches. Returns (trainer, steps, the run's launch counts);
+    the counts start at 0 just before the run."""
     import tfimm_tpu_torch.train as ttrain
     from tfimm_tpu_torch.ops.kernels import dispatch
-    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
-    from tfimm_tpu_torch.utils.profile import time_model
 
-    # Watch every step the trainer takes: its loss, its wall time (the step
-    # ends by reading the loss, which synchronises) and its kernel launches.
     steps = []
     problem_cls = ttrain.ClassificationProblem
     train_step = problem_cls.train_step
@@ -522,10 +559,21 @@ def phase_train(reports, gpu_line):
     problem_cls.train_step = watched_step
     try:
         dispatch.reset_launch_counts()
-        trainer = ttrain.run(train_config(), parse_cmdline_args=False)
+        trainer = ttrain.run(config, parse_cmdline_args=False)
         counts = dict(dispatch.launch_counts)
     finally:
         problem_cls.train_step = train_step
+    return trainer, steps, counts
+
+
+def phase_train(reports, gpu_line):
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
+    from tfimm_tpu_torch.utils.profile import time_model
+
+    trainer, steps, counts = run_watched(train_config())
     problem = trainer.problem
     nb_blocks = problem.model.cfg.nb_blocks
     check(len(steps) == TRAIN_STEPS, f"{len(steps)} training steps, "
@@ -1082,27 +1130,27 @@ def phase_swin_slice(reports, gpu_line):
           f"(median of requests 2-{REQUESTS}; range {min(img_s)!r}-"
           f"{max(img_s)!r}) on {gpu_line}", flush=True)
 
-    # The same weights in f32 through the eager composition: with autograd
-    # recording the parameters, every block declines both kernels.
+    # The same weights in f32 on the CPU, where every kernel wrapper runs
+    # its plain version and launches nothing.
     x = requests[0][:CONVNEXT_CHECK_IMAGES]
     with torch.inference_mode():
         feats = model.forward(pp(x), features_only=True)
-    model32 = tfm.create_model(SWIN, device="cuda", dtype=torch.float32,
+    model32 = tfm.create_model(SWIN, device="cpu", dtype=torch.float32,
                                seed=0)
     model32.load_state_dict(sd)
-    pp32 = tfm.create_preprocessing(SWIN, dtype=torch.float32, device="cuda")
+    pp32 = tfm.create_preprocessing(SWIN, dtype=torch.float32, device="cpu")
     before = dict(dispatch.launch_counts)
-    with torch.enable_grad():
-        ref_logits, ref_feats = model32(pp32(x), return_features=True)
+    with torch.inference_mode():
+        ref_logits, ref_feats = model32(pp32(x.cpu()), return_features=True)
     check(dispatch.launch_counts == before,
-          "the f32 eager reference launched a kernel")
+          "the f32 CPU reference launched a kernel")
     for name, got, want in (
             ("forward_features", feats, ref_feats["features"]),
             ("logits", outputs[0][:CONVNEXT_CHECK_IMAGES], ref_logits)):
-        want = want.detach()
-        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
-        print(f"slice {SWIN} {name}: bf16 kernel path vs f32 eager path "
-              f"rel err {rel!r} (bar 5e-2)", flush=True)
+        got = got.float().cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"slice {SWIN} {name}: bf16 kernel path vs f32 plain path on "
+              f"the CPU rel err {rel!r} (bar 5e-2)", flush=True)
         check(rel < 5e-2, f"{SWIN} {name} rel err {rel} >= 5e-2")
     del model32, ref_logits, ref_feats
 
@@ -1119,6 +1167,326 @@ def phase_swin_slice(reports, gpu_line):
     for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{SWIN} request profile kernel: {ms!r} ms {name[:150]}",
               flush=True)
+
+
+def window_bwd_inputs(bw, n, c, h, side, shifted, dtype, seed):
+    """Seeded inputs of ``window_mha_bwd`` on the card: a packed qkv and g
+    normal, a bias (H, N, N) of std 0.5 and, for a shifted block on a map
+    of more than one window, the model's shift mask."""
+    import torch
+
+    from tfimm_tpu_torch.architectures.swin import _attention_mask
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ws = math.isqrt(n)
+    mask = None
+    if shifted and side > ws:
+        mask = torch.from_numpy(_attention_mask((side, side), ws, ws // 2))
+        mask = mask.to("cuda")
+    return (torch.randn(bw, n, 3 * c, generator=g, device="cuda").to(dtype),
+            torch.randn(bw, n, c, generator=g, device="cuda").to(dtype),
+            0.5 * torch.randn(h, n, n, generator=g, device="cuda"), mask)
+
+
+def window_bwd_plain(qkv, g, bias, mask, h, scale):
+    """The plain backward as (dq, dk, dv, dbias)."""
+    from tfimm_tpu_torch.ops.kernels.window_mha import window_mha_bwd_reference
+
+    c = qkv.shape[-1] // 3
+    return window_mha_bwd_reference(qkv[..., :c], qkv[..., c:2 * c],
+                                    qkv[..., 2 * c:], bias, mask, g,
+                                    nb_heads=h, scale=scale)
+
+
+def window_bwd_bound(bw, n, c, h, nb_win):
+    """q, k, v, g read and dq, dk, dv written once (bf16), the f32 bias, the
+    mask of ``nb_win`` windows (0 without) and dbias; five products of
+    2 BW H N^2 d operations."""
+    nbytes = 2 * 7 * bw * n * c + 4 * (2 * h + nb_win) * n * n
+    return bound(nbytes, 10 * bw * n * n * c)
+
+
+def sdpa_backward_ms(qkv, g, bias, mask, h, scale):
+    """(ms, backend) of the backward alone of
+    ``F.scaled_dot_product_attention`` with the bias (plus the mask) as a
+    float mask that requires grad: dq, dk, dv and the bias's gradient, summed
+    over the windows by the broadcast's backward. The first SDPA backend
+    (memory-efficient, then math) that returns a mask gradient is timed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    bw, n, _ = qkv.shape
+    q, k, v = [t.requires_grad_() for t in heads(qkv, h)]
+    gh = g.reshape(bw, n, h, -1).transpose(1, 2).contiguous()
+    leaf = bias.clone().requires_grad_()
+    failures = []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                m = leaf.to(qkv.dtype)[None]
+                if mask is not None:
+                    nb_win = mask.shape[0]
+                    m = (m[None] + mask.to(qkv.dtype)[None, :, None]).expand(
+                        bw // nb_win, nb_win, h, n, n).reshape(bw, h, n, n)
+                out = F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                     scale=scale)
+                grads = torch.autograd.grad(out, (q, k, v, leaf), gh,
+                                            retain_graph=True)
+                check(grads[3] is not None, "no mask gradient")
+                return cuda_time_ms(lambda: torch.autograd.grad(
+                    out, (q, k, v, leaf), gh, retain_graph=True),
+                    iters=10), backend.name
+        except (RuntimeError, SmokeFailure) as e:
+            failures.append(f"{backend.name}: {str(e).splitlines()[0][:120]}")
+    print(f"window_mha_bwd: no SDPA backend gave a mask gradient: {failures}",
+          flush=True)
+    return None, None
+
+
+def phase_window_bwd_kernel(report, gpu_line):
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.window_mha import window_mha_bwd
+
+    cases = ([(shape, shifted) for shape in SWIN_TRAIN_STAGES[:3]
+              for shifted in (False, True)] + [(SWIN_TRAIN_STAGES[3], False)]
+             + [(shape, shape[4] > 0) for shape in SWIN_EDGES])
+    names = ("dq", "dk", "dv", "dbias")
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        tol = WINDOW_BWD_TOL[dname]
+        for i, ((bw, n, c, h, side), shifted) in enumerate(cases):
+            qkv, g, bias, mask = window_bwd_inputs(bw, n, c, h, side, shifted,
+                                                   dtype, 800 + i)
+            scale = (c // h) ** -0.5
+            what = (f"{dname:8s} BW={bw} N={n} C={c} H={h}"
+                    f"{' shifted' if mask is not None else ''}")
+            dqkv, dbias = window_mha_bwd(qkv, g, bias, mask, nb_heads=h,
+                                         scale=scale)
+            got = (dqkv[..., :c], dqkv[..., c:2 * c], dqkv[..., 2 * c:], dbias)
+            ref = window_bwd_plain(qkv, g, bias, mask, h, scale)
+            torch.cuda.synchronize()
+            bars = []
+            for name, a, b in zip(names, got, ref):
+                err, bar, ok = held(a, b, tol)
+                bars.append(bar)
+                print(f"window_mha_bwd {what} {name}: max_abs_err={err!r} "
+                      f"bar={bar!r} {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"window_mha_bwd {name} disagrees with its plain "
+                      f"version ({what}): {err} > {bar}")
+                if dtype == torch.bfloat16 and (bw, n, c, h, side) in \
+                        SWIN_TRAIN_STAGES:
+                    worst = max(worst, err)
+            if dtype == torch.bfloat16 and i == 1:
+                # Controls on the shifted stage-1 input.
+                no_mask = window_bwd_plain(qkv, g, bias, None, h, scale)
+                far = (dbias - no_mask[3]).abs().max().item()
+                print(f"window_mha_bwd control {what}: dbias without the mask "
+                      f"off by {far!r}, {far / bars[3]!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bars[3], "window_mha_bwd: "
+                      "leaving the mask out of dbias stays within the bar")
+                no_bias = window_bwd_plain(qkv, g, torch.zeros_like(bias),
+                                           mask, h, scale)
+                misses = [(a.float() - b.float()).abs().max().item() / bar
+                          for a, b, bar in zip(got, no_bias, bars)]
+                print(f"window_mha_bwd control {what}: without the bias "
+                      f"{dict(zip(names, misses))} bars off", flush=True)
+                check(max(misses[:3]) > CONTROL_FACTOR, "window_mha_bwd: "
+                      "leaving the bias out stays within the bar")
+                again = window_mha_bwd(qkv, g, bias, mask, nb_heads=h,
+                                       scale=scale)
+                same = (torch.equal(again[1], dbias)
+                        and torch.equal(again[0], dqkv))
+                print(f"window_mha_bwd {what}: a second call gives a "
+                      f"bit-identical dbias and dqkv: {same}", flush=True)
+                check(same, "window_mha_bwd is not deterministic")
+                del no_mask, no_bias, again
+            del qkv, g, bias, mask, dqkv, dbias, got, ref
+    report["max_abs_err"] = worst
+
+    # Per stage shape, then per training step (each stage's times its
+    # blocks, half of those of stages 1-3 shifted).
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    bound_by, backends = {}, set()
+    for (bw, n, c, h, side), depth in zip(SWIN_TRAIN_STAGES,
+                                          SWIN_TRAIN_DEPTHS):
+        shifts = (False, True) if side > math.isqrt(n) else (False,)
+        for shifted in shifts:
+            qkv, g, bias, mask = window_bwd_inputs(
+                bw, n, c, h, side, shifted, torch.bfloat16, 900)
+            scale = (c // h) ** -0.5
+
+            def kernel():
+                return window_mha_bwd(qkv, g, bias, mask, nb_heads=h,
+                                      scale=scale)
+
+            events_ms = cuda_time_ms(kernel)
+            t = {"ms": device_ms(kernel, steps=20),
+                 "plain_ms": cuda_time_ms(
+                     lambda: window_bwd_plain(qkv, g, bias, mask, h, scale),
+                     iters=5)}
+            nb_win = 0 if mask is None else mask.shape[0]
+            t["bound_ms"], by = window_bwd_bound(bw, n, c, h, nb_win)
+            t["library_ms"], backend = sdpa_backward_ms(qkv, g, bias, mask,
+                                                        h, scale)
+            backends.add(backend)
+            blocks = depth // len(shifts)
+            bound_by[by] = bound_by.get(by, 0.0) + blocks * t["bound_ms"]
+            print(f"window_mha_bwd bf16 BW={bw} C={c} H={h}"
+                  f"{' shifted' if mask is not None else ''}: kernel "
+                  f"{t['ms']!r} ms device ({events_ms!r} ms between events), "
+                  f"{t['bound_ms'] / t['ms']!r} of the bound "
+                  f"{t['bound_ms']!r} ms ({by}); plain {t['plain_ms']!r} ms; "
+                  f"scaled_dot_product_attention backward ({backend}) "
+                  f"{t['library_ms']!r} ms; {blocks} blocks a step; on "
+                  f"{gpu_line}", flush=True)
+            for key in keys:
+                if t[key] is None or totals[key] is None:
+                    totals[key] = None
+                else:
+                    totals[key] += blocks * t[key]
+            del qkv, g, bias, mask
+    report.update(totals)
+    report["bound_by"] = max(bound_by, key=bound_by.get)
+    print(f"window_mha_bwd per {SWIN} bs{SWIN_TRAIN_BATCH} training step "
+          f"({sum(SWIN_TRAIN_DEPTHS)} calls): kernel {totals['ms']!r} ms, "
+          f"plain {totals['plain_ms']!r} ms, SDPA backward "
+          f"({'/'.join(map(str, sorted(backends, key=str)))}) "
+          f"{totals['library_ms']!r} ms, bound {totals['bound_ms']!r} ms "
+          f"({report['bound_by']}) on {gpu_line}", flush=True)
+
+
+def swin_train_config() -> dict:
+    """Swin-T at batch 64 with the Swin paper's ImageNet-1K recipe (AdamW at
+    weight decay 0.05, label smoothing 0.1, mixup 0.8, cutmix 1.0, drop path
+    0.2), bf16 mixed precision, lr 1e-3, 6 epochs of one step each on the
+    same 64 synthetic images."""
+    data = {"batch_size": SWIN_TRAIN_BATCH, "nb_samples": SWIN_TRAIN_BATCH,
+            "input_size": (224, 224), "nb_classes": 1000, "seed": 0}
+    return {
+        "trainer_class": "Trainer",
+        "trainer": {"validation_before_training": False,
+                    "display_loss_every_it": 1},
+        "problem_class": "ClassificationProblem",
+        "problem": {"model_class": "ModelFactory",
+                    "model": {"model_name": SWIN, "drop_path_rate": 0.2},
+                    "optimizer_class": "OptimizerFactory",
+                    "optimizer": {"optimizer": "adamw", "weight_decay": 0.05,
+                                  "lr_schedule_class": "LRConstFactory",
+                                  "lr_schedule": {"lr": 1e-3}},
+                    "mixed_precision": True, "label_smoothing": 0.1,
+                    "mixup_alpha": 0.8, "cutmix_alpha": 1.0},
+        "train_dataset_class": "SyntheticDataset", "train_dataset": data,
+        "timekeeping_class": "Timekeeping",
+        "timekeeping": {"nb_epochs": TRAIN_STEPS,
+                        "batch_size": SWIN_TRAIN_BATCH,
+                        "nb_samples_per_epoch": SWIN_TRAIN_BATCH},
+        "device": "cuda",
+    }
+
+
+def phase_swin_train(reports, gpu_line):
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
+    from tfimm_tpu_torch.utils.profile import time_model
+
+    trainer, steps, counts = run_watched(swin_train_config())
+    problem = trainer.problem
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} Swin training steps, "
+          f"expected {TRAIN_STEPS}")
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"swin train step {it}: loss {loss!r}, {seconds!r} s, launches "
+              f"{rose}", flush=True)
+        check(rose == expected(**SWIN_TRAIN_LAUNCHES),
+              f"Swin step {it} launched {rose}, expected "
+              f"{SWIN_TRAIN_LAUNCHES} and nothing else")
+        check(math.isfinite(loss), f"Swin step {it}: loss {loss}")
+    losses = [loss for loss, _, _ in steps]
+    # Mixup and cutmix change the targets every step, so one step's loss
+    # may rise; the mean of the last two must lie below the first.
+    last = (losses[-1] + losses[-2]) / 2
+    print(f"swin train loss: first {losses[0]!r}, mean of the last two "
+          f"{last!r}", flush=True)
+    check(last < losses[0], f"the Swin loss did not fall: {losses}")
+    for name, report in reports.items():
+        report["launches_by_path"]["train_swin"] = counts[name]
+    timed = [s for _, s, _ in steps[1:]]
+    step_s = sum(timed) / len(timed)
+    print(f"train {SWIN} bs{SWIN_TRAIN_BATCH} bf16 mixed precision adamw "
+          f"mixup/cutmix: {SWIN_TRAIN_BATCH * len(timed) / sum(timed)!r} img/s "
+          f"({len(timed)} steps 2-{TRAIN_STEPS} in {sum(timed) * 1e3!r} ms; "
+          f"median step {statistics.median(timed) * 1e3!r} ms, slowest "
+          f"{max(timed) * 1e3!r} ms) on {gpu_line}", flush=True)
+
+    # One step's loss and gradients with seeded weights, no mixup, in eval
+    # mode (drop path off): bf16 through the kernels on the card against
+    # f32 through the plain versions on the CPU.
+    model, pp = problem.model, problem.preprocessing
+    sd = seeded_state_dict(model, seed=6, std=0.05)
+    model.load_state_dict(sd)
+    model.eval()
+    images, labels = next(iter(trainer.train_ds))
+    images = torch.as_tensor(images[:SWIN_CHECK_IMAGES])
+    labels = torch.as_tensor(labels[:SWIN_CHECK_IMAGES])
+    names = ("layers.0.blocks.1.attn.relative_position_bias_table",
+             "layers.0.blocks.0.attn.qkv.weight")
+
+    def loss_and_grads(m, x, y):
+        m.zero_grad(set_to_none=True)
+        before = dict(dispatch.launch_counts)
+        loss = cross_entropy_loss(m(x).float(), y)
+        loss.backward()
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        params = dict(m.named_parameters())
+        return loss.item(), {n: params[n].grad.float().cpu() for n in names}, rose
+
+    loss_k, grads_k, rose = loss_and_grads(
+        model, pp(images.to("cuda")).to(torch.bfloat16), labels.to("cuda"))
+    check(rose == expected(**SWIN_TRAIN_LAUNCHES),
+          f"the bf16 Swin step launched {rose}")
+    model32 = tfm.create_model(SWIN, device="cpu", dtype=torch.float32, seed=0)
+    model32.load_state_dict(sd)
+    model32.eval()
+    pp32 = tfm.create_preprocessing(SWIN, dtype=torch.float32, device="cpu")
+    loss_r, grads_r, rose = loss_and_grads(model32, pp32(images), labels)
+    check(rose == expected(), f"the f32 CPU reference launched {rose}")
+    rel = abs(loss_k - loss_r) / abs(loss_r)
+    print(f"swin train loss: bf16 kernel path {loss_k!r} vs f32 plain path on "
+          f"the CPU {loss_r!r}, rel err {rel!r} (bar 2e-2)", flush=True)
+    check(rel < 2e-2, f"Swin loss rel err {rel} >= 2e-2")
+    for name in names:
+        ref = grads_r[name]
+        rel = ((grads_k[name] - ref).abs().max() / ref.abs().max()).item()
+        print(f"swin train grad {name}: max|diff| / max|ref| {rel!r} "
+              f"(bar 1e-1)", flush=True)
+        check(rel < 1e-1, f"{name} gradient rel err {rel} >= 1e-1")
+        check(ref.abs().max().item() > 0, f"{name}: zero reference gradient")
+    del model32, grads_r
+
+    batch = next(iter(trainer.train_ds))
+    wall_ms, groups, kernel_names = device_split(
+        lambda: problem.train_step(batch, 0))
+    busy_ms = sum(groups.values())
+    print(f"swin train step profile: device busy {busy_ms!r} ms per step; wall "
+          f"{wall_ms!r} ms under the profiler, {step_s * 1e3!r} ms without; "
+          f"device idle share {1.0 - busy_ms / (step_s * 1e3)!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"swin train step profile: {group}: {ms!r} ms per step",
+              flush=True)
+    for name, ms in sorted(kernel_names.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"swin train step profile kernel: {ms!r} ms {name[:150]}",
+              flush=True)
+
+    img_s = time_model(SWIN, target="backprop", batch_size=SWIN_TRAIN_BATCH,
+                       samples=3)
+    print(f"time_model {SWIN} backprop bs{SWIN_TRAIN_BATCH} bf16: {img_s!r} "
+          f"img/s on {gpu_line}", flush=True)
 
 
 def main() -> int:
@@ -1167,6 +1535,10 @@ def main() -> int:
             "swin_block": {"name": "swin_block", "route": "cuda",
                            "source": "tfimm_tpu_torch/csrc/swin_block.cu",
                            "replaces": "tfimm_tpu/ops/pallas/swin_block.py:103"},
+            "window_mha_bwd": {
+                "name": "window_mha_bwd", "route": "cuda",
+                "source": "tfimm_tpu_torch/csrc/window_mha_bwd.cu",
+                "replaces": "tfimm_tpu/ops/pallas/window_mha.py:417"},
         }
         reports["fused_mha"]["work"] = f"bf16 (B, N, H, d) = {MHA_SHAPES[0]}"
         reports["fused_mha_bwd"]["work"] = f"bf16 (B, N, H, d) = {BWD_SHAPES[0]}"
@@ -1180,6 +1552,12 @@ def main() -> int:
             f"bf16, one {SWIN} bs{BATCH} request: " + " + ".join(
                 f"{n} x (BW, N, C, H) = {shape[:4]}, half shifted"
                 for n, shape in zip(SWIN_DEPTHS, SWIN_STAGES)))
+        reports["window_mha_bwd"]["work"] = (
+            f"bf16, one {SWIN} bs{SWIN_TRAIN_BATCH} training step: "
+            + " + ".join(f"{n} x (BW, N, C, H) = {shape[:4]}"
+                         for n, shape in zip(SWIN_TRAIN_DEPTHS,
+                                             SWIN_TRAIN_STAGES))
+            + ", half of stages 1-3 shifted")
         for report in reports.values():
             report["launches_by_path"] = {}
         phase_kernels(reports["fused_mha"])
@@ -1190,6 +1568,8 @@ def main() -> int:
         phase_convnext_slice(reports, gpu_line)
         phase_swin_kernels(reports)
         phase_swin_slice(reports, gpu_line)
+        phase_window_bwd_kernel(reports["window_mha_bwd"], gpu_line)
+        phase_swin_train(reports, gpu_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -12,7 +12,10 @@ another order). window_mha and swin_block: 2e-2 * max|plain| in bf16 (the
 plain version rounds at the same places, the sums run in another order, so
 a rounding may land on the other side); in f32 1e-5 * max|plain| for
 window_mha and 1e-4 * max|plain| for swin_block, whose four products and
-two LayerNorms each sum in another order.
+two LayerNorms each sum in another order. window_mha_bwd: dq, dk, dv and
+dbias each within 2e-2 * max|plain| in bf16 (the kernel rounds p and ds to
+bf16 before their products) and 1e-4 * max|plain| in f32 (sums in another
+order; dbias sums over every window).
 """
 
 import numpy as np
@@ -39,6 +42,9 @@ from tfimm_tpu_torch.ops.kernels.swin_block import (
 )
 from tfimm_tpu_torch.ops.kernels.window_mha import (
     window_mha,
+    window_mha_bwd,
+    window_mha_bwd_reference,
+    window_mha_packed,
     window_mha_reference,
 )
 
@@ -280,3 +286,78 @@ def test_window_kernels_refuse_what_they_do_not_take(card):
         swin_block(x[:, ::2], params, bias[:, ::2, ::2], nb_heads=3, scale=1.0)
     assert np.isfinite(swin_block(x, params, bias, nb_heads=3,
                                   scale=1.0).cpu().numpy()).all()
+
+
+def _bwd_inputs(bw, n, c, h, side, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bias, mask = _window_geometry(n, side, h, device, gen)
+    bw = _bw(bw, mask)
+    qkv = torch.randn(bw, n, 3 * c, generator=gen, device=device).to(dtype)
+    g = torch.randn(bw, n, c, generator=gen, device=device).to(dtype)
+    return qkv, g, bias, mask
+
+
+# The backward's tile shapes beside the forward's: N = 144 with d = 64 and
+# d = 128 (the largest shared-memory plan, whose tiles drop their padding).
+BWD_SHAPES = WINDOW_SHAPES + [(8, 144, 256, 4, 24), (8, 144, 256, 2, 24)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("bw,n,c,h,side", BWD_SHAPES)
+def test_window_mha_bwd_kernel_matches_plain(card, bw, n, c, h, side, dtype,
+                                             tol):
+    qkv, g, bias, mask = _bwd_inputs(bw, n, c, h, side, dtype, card,
+                                     seed=bw + n + c + 1)
+    scale = (c // h) ** -0.5
+    before = dispatch.launch_counts["window_mha_bwd"]
+    dqkv, dbias = window_mha_bwd(qkv, g, bias, mask, nb_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["window_mha_bwd"] == before + 1
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    assert dbias.dtype == torch.float32 and dbias.shape == bias.shape
+    want = window_mha_bwd_reference(qkv[..., :c], qkv[..., c:2 * c],
+                                    qkv[..., 2 * c:], bias, mask, g,
+                                    nb_heads=h, scale=scale)
+    got = (dqkv[..., :c], dqkv[..., c:2 * c], dqkv[..., 2 * c:], dbias)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item(), (name, err)
+
+
+def test_window_mha_bwd_dbias_is_deterministic(card):
+    qkv, g, bias, mask = _bwd_inputs(512, 49, 96, 3, 56, torch.bfloat16,
+                                     card, seed=3)
+    runs = [window_mha_bwd(qkv, g, bias, mask, nb_heads=3, scale=32 ** -0.5)
+            for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0], runs[1][0])
+
+
+def test_window_mha_packed_gives_gradients_through_the_kernels(card):
+    qkv, g, bias, mask = _bwd_inputs(128, 49, 96, 3, 56, torch.bfloat16, card,
+                                     seed=4)
+    counts = dict(dispatch.launch_counts)
+    x, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    window_mha_packed(x, b, mask, nb_heads=3, scale=32 ** -0.5).backward(g)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["window_mha"] == counts["window_mha"] + 1
+    assert (dispatch.launch_counts["window_mha_bwd"]
+            == counts["window_mha_bwd"] + 1)
+    dqkv, dbias = window_mha_bwd(qkv, g, bias, mask, nb_heads=3,
+                                 scale=32 ** -0.5)
+    assert torch.equal(x.grad, dqkv) and torch.equal(b.grad, dbias)
+
+
+def test_window_mha_bwd_refuses_what_it_does_not_take(card):
+    qkv, g, bias, _ = _bwd_inputs(4, 49, 96, 3, 0, torch.float32, card, 0)
+    with pytest.raises(ValueError):   # g not contiguous
+        window_mha_bwd(qkv, g.transpose(0, 1).contiguous().transpose(0, 1),
+                       bias, nb_heads=3, scale=1.0)
+    with pytest.raises(ValueError):   # g of another dtype
+        window_mha_bwd(qkv, g.bfloat16(), bias, nb_heads=3, scale=1.0)
+    with pytest.raises(ValueError):   # d = 12, no multiple of 8
+        window_mha_bwd(qkv, g, torch.zeros(8, 49, 49, device=card),
+                       nb_heads=8, scale=1.0)
+    with pytest.raises(ValueError):   # mixed devices
+        window_mha_bwd(qkv, g, bias.cpu(), nb_heads=3, scale=1.0)

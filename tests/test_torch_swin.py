@@ -153,13 +153,13 @@ def test_window_attention_matches_jax(monkeypatch, shift, dtype, bar):
     x = np.random.default_rng(3).normal(size=(8, 49, 64)).astype(np.float32)
     jx, tx = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
     mask = port.attn_mask
-    # The JAX package on its XLA path against the port's eager path (autograd
-    # recording the parameters) ...
+    # The JAX package on its XLA path against the port's eager composition
+    # ...
     with jax_capture() as jax_seen:
         want = blk.attn(p, jx, mask=blk.attn_mask)
     assert not jax_seen
     with capture_dispatches() as seen:
-        got = port.attn(tx, mask=mask)
+        got = port.attn.forward_eager(tx, mask=mask)
     assert seen == set()
     assert _rel(got, want.astype(jnp.float32)) < bar
     # ... and through its window_mha kernel in interpret mode against the
@@ -177,8 +177,8 @@ def test_window_attention_matches_jax(monkeypatch, shift, dtype, bar):
 @pytest.mark.parametrize("shift", [0, 3])
 def test_unfused_block_matches_jax(monkeypatch, shift):
     # In training (all rates 0, so deterministic) both packages run the
-    # block per op; their attention takes window_mha where autograd does not
-    # record (the JAX package: in interpret mode).
+    # block per op with their attention through window_mha (the JAX
+    # package: in interpret mode).
     blk, params, port = _jax_block(shift, seed=10 + shift)
     x = np.random.default_rng(4).normal(size=(2, 196, 64)).astype(np.float32)
     monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
@@ -189,12 +189,17 @@ def test_unfused_block_matches_jax(monkeypatch, shift):
         got = port(torch.from_numpy(x))
     assert seen == {"window_mha"}
     assert _rel(got, want) < 1e-4
-    # The JAX XLA path against the port's eager path.
+    # The JAX XLA path against the port's eager composition.
     monkeypatch.delenv("TFIMM_TPU_PALLAS_INTERPRET")
     with JaxContext(training=False):
         want = blk(params, jnp.asarray(x))
     with capture_dispatches() as seen:
-        got = port(torch.from_numpy(x))   # autograd records the parameters
+        got = port(torch.from_numpy(x))   # autograd records: per op
+    assert seen == {"window_mha"}
+    assert _rel(got, want) < 1e-4
+    monkeypatch.setattr(port.attn, "forward", port.attn.forward_eager)
+    with capture_dispatches() as seen:
+        got = port(torch.from_numpy(x))
     assert seen == set()
     assert _rel(got, want) < 1e-4
     with capture_dispatches() as seen, torch.no_grad():
@@ -273,35 +278,48 @@ def test_window_resident_stage_matches_per_block():
     torch.testing.assert_close(resident, per_block, rtol=0, atol=0)
 
 
-def test_gradients_match_jax():
-    # In training every block takes the eager composition (no kernel
-    # backward), as the JAX package's gates do; rates 0 keep both
-    # deterministic.
+def test_gradients_match_jax(monkeypatch):
+    # In training every block runs per op in both packages, its attention
+    # through window_mha and its backward kernel (the JAX package's Pallas
+    # forward and backward in interpret mode, the port's plain versions);
+    # rates 0 keep both deterministic. The bias tables' gradients are the
+    # kernels' dbias, scattered through the relative-position index.
+    monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
     jm, params, tm, x = _pair(seed=9)
     w = np.random.default_rng(10).normal(size=(2, 7)).astype(np.float32)
 
     def loss(p):
         return jnp.sum(jm.apply(p, jnp.asarray(x), training=True) * w)
 
-    want = state_dict_from_jax(jax.grad(loss)(params))
+    with jax_capture() as jax_seen:
+        want = state_dict_from_jax(jax.grad(loss)(params))
+    assert any(s.startswith("window_mha") for s in jax_seen), jax_seen
     tm.train()
+    counts = dict(dispatch.launch_counts)
     with capture_dispatches() as seen:
         (tm(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
-    assert seen == set()
+    assert seen == {"window_mha"}
+    assert dispatch.launch_counts == counts   # CPU: plain versions
     for name, p in tm.named_parameters():
         assert _rel(p.grad, want[name].numpy()) < 1e-4, name
+    table = "layers.0.blocks.1.attn.relative_position_bias_table"
+    assert np.abs(want[table].numpy()).max() > 0
 
 
 def test_gate_takes_the_eager_composition_under_autograd():
+    # Where autograd records, the block kernel (no backward) declines and
+    # every block runs per op with its attention through window_mha, which
+    # trains through its backward; only live attention dropout in training
+    # sends the attention to the eager composition, as in the JAX package.
     _, _, tm, x = _pair(seed=11)
     xt = torch.from_numpy(x)
     with capture_dispatches() as seen:
         tm(xt)                   # eval, but autograd records the parameters
-    assert seen == set()
+    assert seen == {"window_mha"}
     tm.requires_grad_(False)
     with capture_dispatches() as seen:
-        tm(xt.clone().requires_grad_())  # autograd records the input
-    assert seen == set()
+        out = tm(xt.clone().requires_grad_())  # autograd records the input
+    assert seen == {"window_mha"} and out.grad_fn is not None
     with capture_dispatches() as seen, torch.no_grad():
         tm(xt)
     assert seen == {"swin_window_resident_stage", "swin_block"}
@@ -309,6 +327,16 @@ def test_gate_takes_the_eager_composition_under_autograd():
     with capture_dispatches() as seen, torch.no_grad():
         tm(xt, generator=torch.Generator().manual_seed(0))
     assert seen == {"window_mha"}   # training: per op, attention kernel
+    dropping = tfimm_tpu_torch.create_model(NAME, device="cpu",
+                                            **dict(SMALL, attn_drop_rate=0.1))
+    dropping.train()
+    with capture_dispatches() as seen:
+        dropping(xt, generator=torch.Generator().manual_seed(0))
+    assert seen == set()
+    dropping.eval()
+    with capture_dispatches() as seen:
+        dropping(xt)
+    assert seen == {"window_mha"}
 
 
 def test_swin_tiny_dispatch(monkeypatch):
@@ -323,7 +351,7 @@ def test_swin_tiny_dispatch(monkeypatch):
         monkeypatch.setattr(port_swin, name, wrapped)
 
     watch("swin_block", port_swin.swin_block)
-    watch("window_mha", port_swin.window_mha)
+    watch("window_mha_packed", port_swin.window_mha_packed)
     for dtype in (torch.float32, torch.bfloat16):
         calls.clear()
         tm = tfimm_tpu_torch.create_model(NAME, device="cpu", dtype=dtype)
@@ -335,7 +363,7 @@ def test_swin_tiny_dispatch(monkeypatch):
         assert calls == ([("swin_block", (128, 49, 96))] * 2
                          + [("swin_block", (32, 49, 192))] * 2
                          + [("swin_block", (8, 49, 384))] * 6
-                         + [("window_mha", (2, 49, 768))] * 2), dtype
+                         + [("window_mha_packed", (2, 49, 3 * 768))] * 2), dtype
 
 
 def test_golden_hf_swin():

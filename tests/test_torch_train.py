@@ -28,12 +28,18 @@ import yaml
 
 import tfimm_tpu.train as jtrain
 import tfimm_tpu_torch.train as ttrain
+from tfimm_tpu.architectures.swin import SwinTransformer as JaxSwin
+from tfimm_tpu.architectures.swin import SwinTransformerConfig as JaxSwinConfig
 from tfimm_tpu.architectures.vit import ViT as JaxViT
 from tfimm_tpu.architectures.vit import ViTConfig as JaxViTConfig
 from tfimm_tpu.models import registry as jax_registry
+from tfimm_tpu.ops.pallas.dispatch import capture_dispatches as jax_capture
 from tfimm_tpu.parallel.step import cross_entropy_loss as jax_ce
 from tfimm_tpu.train import optimizers as jopt
+from tfimm_tpu.train import transforms as jtransforms
 from tfimm_tpu.utils.tree import flatten_params
+from tfimm_tpu_torch.architectures.swin import SwinTransformer
+from tfimm_tpu_torch.architectures.swin import SwinTransformerConfig
 from tfimm_tpu_torch.architectures.vit import ViT, ViTConfig
 from tfimm_tpu_torch.models import registry as torch_registry
 from tfimm_tpu_torch.ops.kernels import dispatch
@@ -43,6 +49,7 @@ from tfimm_tpu_torch.parallel.step import (
     make_train_step,
 )
 from tfimm_tpu_torch.train import optimizers as topt
+from tfimm_tpu_torch.train import transforms as ttransforms
 from tfimm_tpu_torch.utils.convert import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -367,6 +374,210 @@ def test_run_matches_jax_step_for_step(small_vit, monkeypatch):
             assert _rel(got, want) < 1e-5
 
 
+# -- mixup and cutmix ------------------------------------------------------------------
+
+def _jax_draw(key, mixup, h, w):
+    """The draws ``jtransforms.Mixup(key, ...)`` makes, as the port's
+    ``MixupDraw``: the same key splits and the same jax.random calls."""
+    k_apply, k_switch, k_lam, k_box = jax.random.split(key, 4)
+    if mixup.cutmix_alpha == 0.0:
+        use_cutmix = False
+    elif mixup.mixup_alpha == 0.0:
+        use_cutmix = True
+    else:
+        use_cutmix = bool(jax.random.bernoulli(k_switch, mixup.switch_prob))
+    alpha = (mixup.cutmix_alpha if use_cutmix else mixup.mixup_alpha) or 1.0
+    ky, kx = jax.random.split(k_box)
+    return ttransforms.MixupDraw(
+        apply=bool(jax.random.bernoulli(k_apply, mixup.prob)),
+        use_cutmix=use_cutmix,
+        lam=float(jax.random.beta(k_lam, alpha, alpha)),
+        cy=float(jax.random.uniform(ky, (), minval=0.0, maxval=float(h))),
+        cx=float(jax.random.uniform(kx, (), minval=0.0, maxval=float(w))))
+
+
+_MIX_CASES = {"mixup": dict(mixup_alpha=0.8, cutmix_alpha=0.0),
+              "cutmix": dict(mixup_alpha=0.0, cutmix_alpha=1.0),
+              "both": dict(mixup_alpha=0.8, cutmix_alpha=1.0),
+              "rarely": dict(mixup_alpha=0.8, cutmix_alpha=1.0, prob=0.3)}
+
+
+@pytest.mark.parametrize("case", sorted(_MIX_CASES))
+def test_mixup_matches_jax_given_the_same_draws(case):
+    """The blend, the cutmix box, the exact box-fraction lambda and the
+    smoothed soft labels, over 8 keys (so both modes, and with prob=0.3
+    batches left alone, come up)."""
+    kwargs = dict(_MIX_CASES[case], label_smoothing=0.1)
+    jmix = jtransforms.Mixup(nb_classes=5, **kwargs)
+    tmix = ttransforms.Mixup(nb_classes=5, **kwargs)
+    rng = np.random.default_rng(4)
+    images = rng.uniform(0, 255, size=(6, 12, 10, 3)).astype(np.float32)
+    labels = rng.integers(0, 5, size=(6,))
+    seen = set()
+    for i in range(8):
+        key = jax.random.PRNGKey(i)
+        draw = _jax_draw(key, jmix, 12, 10)
+        seen.add((draw.apply, draw.use_cutmix))
+        want_x, want_y = jmix(key, jnp.asarray(images), jnp.asarray(labels))
+        got_x, got_y = tmix.mix(torch.from_numpy(images),
+                                torch.from_numpy(labels), draw)
+        assert got_x.dtype == torch.float32 and got_y.shape == (6, 5)
+        assert _rel(got_x, want_x) < 1e-6, (i, draw)
+        assert _rel(got_y, want_y) < 1e-6, (i, draw)
+    if case == "both":
+        assert {(True, False), (True, True)} <= seen
+    if case == "rarely":
+        assert (False, True) in seen or (False, False) in seen
+
+
+def test_box_mask_and_smooth_one_hot_match_jax():
+    for i, lam in enumerate([0.05, 0.3, 0.5, 0.77, 0.99]):
+        key = jax.random.PRNGKey(10 + i)
+        want_mask, want_frac = jtransforms._box_mask(key, 14, 9,
+                                                     jnp.float32(lam))
+        ky, kx = jax.random.split(key)
+        cy = float(jax.random.uniform(ky, (), minval=0.0, maxval=14.0))
+        cx = float(jax.random.uniform(kx, (), minval=0.0, maxval=9.0))
+        mask, frac = ttransforms.box_mask(14, 9, lam, cy, cx)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want_mask))
+        assert frac == float(want_frac) and 0.0 < frac < 1.0
+    labels = np.array([0, 3, 4, 1])
+    for smoothing in (0.0, 0.1):
+        want = jtransforms.smooth_one_hot(jnp.asarray(labels), 5, smoothing)
+        got = ttransforms.smooth_one_hot(torch.from_numpy(labels), 5, smoothing)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_random_flip_horizontal_flips_each_image_or_not():
+    images = torch.arange(8 * 2 * 5 * 3, dtype=torch.float32).reshape(8, 2, 5, 3)
+    got = ttransforms.random_flip_horizontal(images,
+                                             torch.Generator().manual_seed(1))
+    flipped = torch.rand(8, generator=torch.Generator().manual_seed(1)) < 0.5
+    assert 0 < int(flipped.sum()) < 8
+    for i in range(8):
+        want = images[i].flip(1) if flipped[i] else images[i]
+        torch.testing.assert_close(got[i], want, rtol=0, atol=0)
+
+
+def test_mixup_train_step_matches_jax(small_vit, monkeypatch):
+    """Mixup 0.8, cutmix 1.0 and label smoothing 0.1 in both problems, the
+    port's draws set to the ones the JAX problem makes from its keys: the
+    same losses over 4 steps, and the same parameters after them."""
+    mix = dict(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1)
+    jcfg, tcfg = _problem_cfgs("sgd", 0.05, 0.0)
+    tk = dict(nb_epochs=1, batch_size=4, nb_samples_per_epoch=12)
+    jp = jtrain.ClassificationProblem(dataclasses.replace(jcfg, **mix),
+                                      timekeeping=jtrain.Timekeeping(**tk))
+    params = _seeded(jp.params, 6)
+    jp.params = jp.model.params = params
+    jp.opt_state = jp.tx.init(params)
+    tp = ttrain.ClassificationProblem(dataclasses.replace(tcfg, **mix),
+                                      timekeeping=ttrain.Timekeeping(**tk),
+                                      device="cpu")
+    tp.model.load_state_dict(state_dict_from_jax(params))
+    # The JAX problem splits its key into (key, step, mixup) every step.
+    keys, draws = [jax.random.PRNGKey(0)], []
+
+    def jax_draw(self, rng, h, w):
+        keys[0], _, mix_key = jax.random.split(keys[0], 3)
+        draws.append(_jax_draw(mix_key, jp._mixup.__wrapped__, h, w))
+        return draws[-1]
+
+    monkeypatch.setattr(ttransforms.Mixup, "draw", jax_draw)
+    for it, batch in enumerate(_batches(8, 4)):
+        want, _ = jp.train_step(batch, it)
+        got, logs = tp.train_step(batch, it)
+        assert _rel(got, want) < 1e-5, (it, draws[-1])
+    assert {d.use_cutmix for d in draws if d.apply} == {False, True}
+    want_params = state_dict_from_jax(jp.params)
+    for name, p in tp.model.state_dict().items():
+        assert _rel(p, want_params[name]) < 1e-4, name
+
+
+# -- Swin through run() ------------------------------------------------------------------
+
+SWIN_NAME = "train_parity_swin"
+SWIN_SMALL = dict(input_size=(56, 56), embed_dim=64, nb_heads=(2, 4),
+                  nb_blocks=(2, 2), nb_classes=7, drop_path_rate=0.0)
+
+
+@pytest.fixture
+def small_swin(monkeypatch):
+    """A small Swin under SWIN_NAME in both model registries, for one test."""
+    for reg, cls, cfg_cls in ((jax_registry, JaxSwin, JaxSwinConfig),
+                              (torch_registry, SwinTransformer,
+                               SwinTransformerConfig)):
+        monkeypatch.setitem(reg._model_class, SWIN_NAME, cls)
+        monkeypatch.setitem(reg._model_config, SWIN_NAME,
+                            cfg_cls(name=SWIN_NAME, **SWIN_SMALL))
+    return SWIN_NAME
+
+
+def test_run_trains_swin_step_for_step_with_jax(small_swin, monkeypatch):
+    """run() of a small Swin from the same config dict in both packages,
+    the JAX package's Pallas window_mha forward and backward in interpret
+    mode, the port's plain versions through its autograd Function: the same
+    per-step losses and validation accuracies, SGD with momentum, all rates
+    0. The port starts from the JAX model's initial parameters with the
+    bias tables redrawn at std 0.3 (their init of std 0.02 would hide
+    them)."""
+    monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
+    jm = jtrain.ModelFactory(jtrain.ModelConfig(model_name=SWIN_NAME))()[0]
+    rng = np.random.default_rng(12)
+    init = {k: (torch.from_numpy(0.3 * rng.normal(size=tuple(v.shape)).astype(
+                np.float32)) if k.endswith("relative_position_bias_table")
+                else v) for k, v in state_dict_from_jax(jm.params).items()}
+    jinit = jm.params
+    for j, stage in jinit["layers"].items():
+        for i, blk in stage["blocks"].items():
+            blk["attn"]["relative_position_bias_table"] = jnp.asarray(init[
+                f"layers.{j}.blocks.{i}.attn.relative_position_bias_table"])
+    jfactory, tfactory = jtrain.ModelFactory.__call__, ttrain.ModelFactory.__call__
+
+    def jax_with_init(self):
+        model, pp = jfactory(self)
+        model.params = jinit
+        return model, pp
+
+    def torch_with_init(self, device):
+        model, pp = tfactory(self, device)
+        model.load_state_dict(init)
+        return model, pp
+
+    monkeypatch.setattr(jtrain.ModelFactory, "__call__", jax_with_init)
+    monkeypatch.setattr(ttrain.ModelFactory, "__call__", torch_with_init)
+    seen = {"jax": [], "torch": []}
+    for key, pkg in (("jax", jtrain), ("torch", ttrain)):
+        cls = pkg.ClassificationProblem
+
+        def record(method, key=key):
+            def wrapped(self, *args):
+                out = method(self, *args)
+                seen[key].append(out[0] if isinstance(out, tuple) else out)
+                return out
+            return wrapped
+
+        monkeypatch.setattr(cls, "train_step", record(cls.train_step))
+        monkeypatch.setattr(cls, "validation", record(cls.validation))
+    cfg = _run_cfg()
+    cfg["problem"]["model"]["model_name"] = SWIN_NAME
+    for part in ("train_dataset", "val_dataset"):
+        cfg[part] = dict(cfg[part], input_size=(56, 56))
+    cfg["timekeeping"]["nb_epochs"] = 2
+    with jax_capture() as jax_seen:
+        jtrain.run(cfg, parse_cmdline_args=False)
+    assert any(s.startswith("window_mha") for s in jax_seen), jax_seen
+    with dispatch.capture_dispatches() as port_seen:
+        ttrain.run(dict(cfg, device="cpu"), parse_cmdline_args=False)
+    assert "window_mha" in port_seen
+    assert len(seen["torch"]) == len(seen["jax"]) == 4 + 3
+    for got, want in zip(seen["torch"], seen["jax"]):
+        if isinstance(want, dict):
+            assert got == want
+        else:
+            assert _rel(got, want) < 1e-5
+
+
 # -- (g) configs ---------------------------------------------------------------------
 
 def _flat(pkg, cfg):
@@ -410,10 +621,6 @@ def test_parse_args_and_dump_config_match_jax(small_vit, tmp_path):
 def test_what_is_not_ported_raises(small_vit, monkeypatch):
     jcfg, tcfg = _problem_cfgs("sgd", 0.05, 0.0)
     tk = ttrain.Timekeeping(1, 4, 12)
-    for change, match in ((dict(mixup_alpha=0.2), "item 13"),):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.ClassificationProblem(dataclasses.replace(tcfg, **change),
-                                         timekeeping=tk, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         ttrain.ClassificationProblem(tcfg, timekeeping=tk, mesh="data:1",
                                      device="cpu")

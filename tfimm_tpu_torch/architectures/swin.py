@@ -12,9 +12,14 @@ hand-written kernel on the card, its plain version on the CPU) where the
 block's gate takes it, and a stage whose every block takes it keeps its
 activation in the window layout from its first block to its last, with one
 token gather between blocks (``ops/window_gather.py``). A block the gate
-declines runs per op, with its attention through ``window_mha``. Where
-autograd records, every block runs the eager composition with the JAX
-package's XLA roundings: neither kernel has a backward.
+declines runs per op, with its attention through ``window_mha`` on the
+packed qkv. The whole-block kernel has no backward, so in training and
+where autograd records every block runs per op, as the JAX package's gates
+and its stage-level custom VJP make it; the attention then trains through
+``window_mha`` and its backward kernel ``window_mha_bwd``. Only live
+attention dropout in training, or a shape the kernel does not take, sends
+the attention to its eager composition (``WindowAttention.forward_eager``),
+which keeps the JAX package's XLA roundings.
 
 Paper: Swin Transformer, https://arxiv.org/abs/2103.14030.
 """
@@ -37,7 +42,7 @@ from tfimm_tpu_torch.ops.embed import PatchEmbeddings
 from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
 from tfimm_tpu_torch.ops.kernels.swin_block import SwinBlockParams, swin_block
 from tfimm_tpu_torch.ops.kernels.window_mha import (
-    window_mha,
+    window_mha_packed,
     window_mha_supports,
 )
 from tfimm_tpu_torch.ops.mlp import MLP
@@ -198,46 +203,50 @@ class WindowAttention(nn.Module):
         return bias.reshape(n, n, self.nb_heads).permute(2, 0, 1)
 
     def _kernel_ok(self, x: torch.Tensor) -> bool:
-        """The JAX package takes its window_mha kernel unless attention
-        dropout is live; the port's kernel has no backward, so it also
-        declines where autograd records."""
+        """The JAX package's gate: the window_mha kernel (differentiable,
+        through its backward kernel) unless attention dropout is live in
+        training; and a shape the kernel takes."""
         _, n, c = x.shape
         if current_context().training and self.attn_drop_rate > 0.0:
             return False
-        return (window_mha_supports(n, c, self.nb_heads)
-                and not _autograd_records(x, self))
+        return window_mha_supports(n, c, self.nb_heads)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self._kernel_ok(x):
+            return self.forward_eager(x, mask)
+        log_dispatch("window_mha")
+        out = window_mha_packed(self.qkv(x), self.relative_position_bias(),
+                                mask, nb_heads=self.nb_heads, scale=self.scale)
+        return self._project(out)
+
+    def forward_eager(self, x: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The JAX package's XLA path: the scale rounded to q's dtype, the
+        scores and the bias and mask adds in the dtype, the softmax in f32,
+        attention dropout."""
         bw, n, c = x.shape  # (B * nb_windows, ws^2, C)
         h = self.nb_heads
         ctx = current_context()
-        qkv = self.qkv(x)
-        if self._kernel_ok(x):
-            log_dispatch("window_mha")
-            out = window_mha(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                             self.relative_position_bias(), mask, nb_heads=h,
-                             scale=self.scale)
-        else:
-            # The JAX package's XLA path: the scale rounded to q's dtype, the
-            # scores and the bias and mask adds in the dtype, the softmax in
-            # f32.
-            qkv = qkv.reshape(bw, n, 3, h, self.head_dim)
-            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-            scale = torch.tensor(self.scale, dtype=q.dtype).item()
-            attn = torch.matmul(q * scale, k.transpose(-1, -2))
-            attn = attn + self.relative_position_bias().to(attn.dtype)[None]
-            if mask is not None:
-                nb_win = mask.shape[0]
-                attn = (attn.reshape(-1, nb_win, h, n, n)
-                        + mask.to(attn.dtype)[None, :, None])
-                attn = attn.reshape(-1, h, n, n)
-            attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-            attn = dropout(attn, self.attn_drop_rate, ctx.training,
-                           ctx.generator)
-            out = torch.matmul(attn, v).transpose(1, 2).reshape(bw, n, c)
-        out = self.proj(out)
-        return dropout(out, self.proj_drop_rate, ctx.training, ctx.generator)
+        qkv = self.qkv(x).reshape(bw, n, 3, h, self.head_dim)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        scale = torch.tensor(self.scale, dtype=q.dtype).item()
+        attn = torch.matmul(q * scale, k.transpose(-1, -2))
+        attn = attn + self.relative_position_bias().to(attn.dtype)[None]
+        if mask is not None:
+            nb_win = mask.shape[0]
+            attn = (attn.reshape(-1, nb_win, h, n, n)
+                    + mask.to(attn.dtype)[None, :, None])
+            attn = attn.reshape(-1, h, n, n)
+        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        attn = dropout(attn, self.attn_drop_rate, ctx.training, ctx.generator)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(bw, n, c)
+        return self._project(out)
+
+    def _project(self, out: torch.Tensor) -> torch.Tensor:
+        ctx = current_context()
+        return dropout(self.proj(out), self.proj_drop_rate, ctx.training,
+                       ctx.generator)
 
 
 class SwinTransformerBlock(nn.Module):
@@ -401,9 +410,9 @@ class SwinTransformerStage(nn.Module):
         return unpack_windows(flat, h, w, ws, self.blocks[-1].shift_size)
 
     def forward(self, x: torch.Tensor, stage_idx: int) -> torch.Tensor:
-        # Where autograd records, a block declines the kernel and the stage
-        # runs the per-block eager composition, as the JAX package's custom
-        # VJP of the window-resident stage runs it under differentiation.
+        # Where autograd records, a block declines the block kernel and the
+        # stage runs per block, as the JAX package's custom VJP of the
+        # window-resident stage does under differentiation.
         if not current_context().capture_features and self._resident_applies(x):
             log_dispatch("swin_window_resident_stage")
             x = self._window_resident(x)

@@ -101,6 +101,19 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_window_mha.restype = ctypes.c_int
+    lib.tfimm_window_mha_bwd.argtypes = [
+        ctypes.c_void_p,  # qkv
+        ctypes.c_int64, ctypes.c_int64,  # qkv batch and row strides
+        ctypes.c_void_p,  # g
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 bias (H, N, N), mask or NULL
+        ctypes.c_void_p,  # dqkv
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch partials, dbias
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # BW, N, H, d
+        ctypes.c_int, ctypes.c_int,  # nb_windows of the mask, windows per block
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_window_mha_bwd.restype = ctypes.c_int
     lib.tfimm_swin_block.argtypes = [
         ctypes.c_void_p,  # x
         ctypes.c_void_p, ctypes.c_void_p,  # f32 ln1 weight, bias

@@ -7,10 +7,14 @@ softmax cross-entropy (or the binary loss) plus optional L2 weight decay,
 backward, optimizer update, and the optional EMA of the parameters. No loss
 scaling is needed for bf16.
 
+Mixup and cutmix (``train/transforms.py``) blend the raw images in f32
+before the preprocessing, as the JAX package does, and hand soft labels to
+the loss; their per-batch draws come from a seeded ``numpy`` generator the
+problem owns (the JAX package draws them with ``jax.random`` in its step).
+
 The problem runs on the device it is given; a CUDA device without a card
-raises, there is no CPU fallback. Mixup/cutmix (``train/transforms.py``),
-meshes and ``save_model`` are not ported yet (ROADMAP.md, queue A, items
-13, 14 and 12).
+raises, there is no CPU fallback. Meshes and ``save_model`` are not ported
+yet (ROADMAP.md, queue A, items 14 and 12).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch.func import functional_call
 from tfimm_tpu_torch.parallel.step import cross_entropy_loss, make_train_step
 from tfimm_tpu_torch.train.interface import ProblemBase
 from tfimm_tpu_torch.train.registry import cfg_serializable, get_class
+from tfimm_tpu_torch.train.transforms import Mixup
 
 __all__ = ["ClassificationConfig", "ClassificationProblem"]
 
@@ -44,7 +49,7 @@ class ClassificationConfig:
     mixed_precision: bool = False  # bf16 compute, f32 parameters
     # Weight averaging: keep an EMA of the params, validate with it.
     ema_decay: float = 0.0  # 0 = disabled; typical 0.9998
-    # Mixup/cutmix; 0/0 = disabled (not ported yet).
+    # Mixup/cutmix on the device (train/transforms.py); 0/0 = disabled.
     mixup_alpha: float = 0.0
     cutmix_alpha: float = 0.0
     mixup_prob: float = 1.0
@@ -84,10 +89,6 @@ class ClassificationProblem(ProblemBase):
         if mesh is not None:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md, queue A, item 14)")
-        if cfg.mixup_alpha or cfg.cutmix_alpha:
-            raise NotImplementedError(
-                "mixup/cutmix (train/transforms.py) is not ported yet "
-                "(ROADMAP.md, queue A, item 13)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -105,6 +106,14 @@ class ClassificationProblem(ProblemBase):
         self.optimizer, self.lr_schedule = opt_factory(self.model.parameters())
         self.epoch = 0
         self._generator = torch.Generator(device=self.device).manual_seed(0)
+
+        self._mixup = None
+        if cfg.mixup_alpha or cfg.cutmix_alpha:
+            self._mixup = Mixup(
+                nb_classes=self.model.cfg.nb_classes,
+                mixup_alpha=cfg.mixup_alpha, cutmix_alpha=cfg.cutmix_alpha,
+                prob=cfg.mixup_prob, label_smoothing=cfg.label_smoothing)
+            self._mixup_rng = np.random.default_rng(0)
 
         self.ema_params = None
         if cfg.ema_decay:
@@ -131,6 +140,11 @@ class ClassificationProblem(ProblemBase):
         images, labels = data
         images = torch.as_tensor(images, device=self.device)
         labels = torch.as_tensor(labels, device=self.device)
+        if self._mixup is not None:
+            # On the raw images: blending commutes with the affine
+            # (img - mean) / std preprocessing of the step.
+            images, labels = self._mixup(self._mixup_rng, images.float(),
+                                         labels)
         metrics = self._train_step((images, labels), self._generator)
         if self.ema_params is not None:
             d = self.cfg.ema_decay

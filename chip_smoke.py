@@ -86,9 +86,47 @@ which ends the run with a non-zero exit code on failure:
    agree with the same weights in f32 on the CPU through the plain
    versions. Then the rate over steps 2-6, a ``torch.profiler`` split of
    one step and ``time_model(..., target="backprop", batch_size=64)``.
+11. ``talking_head_attention`` against its plain version on the card at
+   CaiT-S24's shape at batch 128 (N = 196, H = 8, d = 48) and at the edges
+   of its coverage (H = 4; H = 6 with N = 576; H = 16 with N = 784; H = 2
+   with d = 8; H = 10 with d = 72), in bf16 and in f32 with TF32 off,
+   within 2e-2 and 1e-5 of the largest plain value. Two controls must miss
+   the bar by
+   ``CONTROL_FACTOR``: the plain version without the pre-softmax mix, and
+   with w_w transposed. Kernel, plain and bound times, and the cuBLAS floor
+   (the batched q k^T and p v products alone: no PyTorch call mixes heads).
+12. The CaiT serving path: ``create_model("cait_s24_224")`` in bf16 with
+   seeded random weights (layer scales near 1, head mixes at std 0.3)
+   answers 5 requests of 128 uint8 224x224 NHWC images. Every request must
+   launch ``talking_head_attention`` 24 times and nothing else (the
+   class-attention blocks have no kernel); logits must be finite and
+   non-zero and agree on 16 images with the same weights in f32 on the CPU
+   through the plain version. Then a ``torch.profiler`` split of one
+   request.
+13. ``talking_head_attention_bwd`` against its plain version at the
+   training shape (batch 64) and the edges: dq, dk, dv, dw_l, dw_w and db_w
+   within 2e-2 (bf16) and 1e-4 (f32) of the largest plain value, db_l
+   exactly 0; the plain backward with w_w transposed must miss the bar by
+   ``CONTROL_FACTOR``; two calls must be bit-identical. Kernel, plain and
+   bound times, and the cuBLAS floor of the backward's five products.
+14. The CaiT training path: ``tfimm_tpu_torch.train.run`` trains CaiT-S24
+   at batch 64 in bf16 mixed precision with the DeiT recipe the CaiT paper
+   trains with (AdamW at weight decay 0.05, label smoothing 0.1, mixup 0.8,
+   cutmix 1.0, drop path 0.1, no attention dropout), lr 1e-3, for 6 steps.
+   Every step must launch ``talking_head_attention`` and its backward 24
+   times each and nothing else; the losses must be finite and the mean of
+   the last two below the first; one seeded step on 8 images, bf16 on the
+   card against f32 on the CPU: the loss within 2e-2, a ``proj_l`` and a
+   qkv weight gradient within 1e-1. Then the rate over steps 2-6, a
+   profile of one step and ``time_model(..., target="backprop")``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --phases 11,13
+
+runs phase 1 and the phases named (2-14) alone, for a quicker look at one
+path, and lists only the kernels those phases measured in full.
 """
 
 from __future__ import annotations
@@ -160,6 +198,24 @@ WINDOW_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Launches of one Swin-T training step: every block per op.
 SWIN_TRAIN_LAUNCHES = {"window_mha": 12, "window_mha_bwd": 12}
 SWIN_CHECK_IMAGES = 8
+CAIT = "cait_s24_224"
+# (B, N, H, d) of cait_s24_224's talking-head attention at batch 128, then
+# the edges: cait_xxs (H = 4), cait_xs24_384 (H = 6, N = 576),
+# cait_m48_448 (H = 16, N = 784, batch 2), the golden fixture's H = 2, d = 8,
+# and more than 8 heads above d = 64 (H = 10, d = 72).
+CAIT_SHAPES = [(128, 196, 8, 48), (16, 196, 4, 48), (4, 576, 6, 48),
+               (2, 784, 16, 48), (16, 16, 2, 8), (2, 50, 10, 72)]
+CAIT_TRAIN_BATCH = 64
+CAIT_BWD_SHAPES = [(CAIT_TRAIN_BATCH, 196, 8, 48), *CAIT_SHAPES[1:]]
+# The forward's bar: the kernel rounds the mixed probabilities once, as its
+# plain version does; the backward's: f32 throughout, summed in another
+# order (the mix gradients over every entry of the batch).
+CAIT_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+CAIT_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+CAIT_LAUNCHES = {"talking_head_attention": 24}
+CAIT_TRAIN_LAUNCHES = {"talking_head_attention": 24,
+                       "talking_head_attention_bwd": 24}
+CAIT_CHECK_IMAGES = 16
 # A control must miss its bar by at least this factor.
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
@@ -167,7 +223,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # Device-time groups of a training step or a request, by kernel name (first
 # match).
-KERNEL_GROUPS = [("swin_block (GEMMs, row statistics)",
+KERNEL_GROUPS = [("talking-head attention backward (cait_attention_bwd.cu)",
+                  ("rows_kernel", "keys_kernel", "mix_sum_kernel")),
+                 ("talking-head attention (cait_attention.cu)",
+                  ("talking_head_fwd",)),
+                 ("swin_block (GEMMs, row statistics)",
                   ("swin_gemm", "swin_row_stats")),
                  ("window attention backward (window_mha_bwd.cu)",
                   ("window_mha_bwd", "dbias_sum")),
@@ -372,10 +432,11 @@ def phase_backward_kernel(report):
 
 def seeded_state_dict(model, seed: int, std: float = 0.02):
     """Every parameter drawn from a seeded normal, in f32 on the CPU: the
-    LayerNorm weights and ConvNeXt's layer-scale gammas around 1, Swin's
-    relative-position bias tables with std 0.3, the rest with std ``std``. The heads, which start at zero, then give non-zero
-    logits, and the MLP branch of a ConvNeXt block does not vanish, as it
-    would at gamma's init value of 1e-6."""
+    LayerNorm weights and the layer-scale gammas (ConvNeXt, CaiT) around 1,
+    Swin's relative-position bias tables and CaiT's (H, H) head mixes with
+    std 0.3, the rest with std ``std``. The heads, which start at zero, then
+    give non-zero logits, and the branches of a ConvNeXt or CaiT block do
+    not vanish, as they would at gamma's init value of 1e-5 or 1e-6."""
     import torch
 
     from tfimm_tpu_torch.ops.norm import LayerNorm
@@ -386,10 +447,11 @@ def seeded_state_dict(model, seed: int, std: float = 0.02):
     sd = {}
     for name, p in model.state_dict().items():
         r = torch.randn(p.shape, generator=g)
-        if name in near_one or name.endswith("gamma"):
+        if name in near_one or name.rsplit(".", 1)[-1].startswith("gamma"):
             sd[name] = 1.0 + 0.1 * r
-        elif name.endswith("relative_position_bias_table"):
-            sd[name] = 0.3 * r   # a small table would hide the bias
+        elif name.endswith(("relative_position_bias_table", "proj_l.weight",
+                            "proj_w.weight")):
+            sd[name] = 0.3 * r   # a small table or mix would hide it
         else:
             sd[name] = std * r
     return sd
@@ -1489,7 +1551,399 @@ def phase_swin_train(reports, gpu_line):
           f"img/s on {gpu_line}", flush=True)
 
 
-def main() -> int:
+def cait_inputs(b, n, h, d, dtype, seed):
+    """Seeded inputs of the talking-head kernels on the card: qkv and g
+    normal, the (H, H) mixes random (std 0.5, not symmetric), b_l of unit
+    size (the softmax ignores it) and b_w of std 0.02: a larger b_w makes
+    its term b_w[h] colsum(v_h), a sum over N keys, dwarf the attention, and
+    the bar, relative to the largest value, would then hide a wrong mix."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    return (rnd(b, n, 3 * h * d).to(dtype), rnd(h, h, scale=0.5), rnd(h),
+            rnd(h, h, scale=0.5), rnd(h, scale=0.02),
+            rnd(b, n, h * d).to(dtype))
+
+
+def cait_bound(b, n, h, d, backward=False):
+    """bf16 qkv (and g) read and out (dqkv) written once; the per-head
+    products (2 forward, 5 backward, of 2 B H N^2 d operations each) and
+    the two (H, H) mixes of every entry (2 B N^2 H^2 each)."""
+    dim = h * d
+    if backward:
+        return bound(2 * 7 * b * n * dim, 10 * b * h * n * n * d
+                     + 4 * b * n * n * h * h)
+    return bound(2 * 4 * b * n * dim, 4 * b * h * n * n * d
+                 + 4 * b * n * n * h * h)
+
+
+def cait_floor_ms(qkv, g, h, backward=False):
+    """The batched cuBLAS products of the same attention without the mixes,
+    over (B H, N, d): q k^T and p v, and for the backward q k^T, g v^T,
+    p^T g, ds k and ds^T q."""
+    import torch
+
+    b, n, three_d = qkv.shape
+    q, k, v = [t.reshape(b * h, n, -1) for t in heads(qkv, h)]
+    p = torch.randn(b * h, n, n, device="cuda").to(qkv.dtype)
+    if not backward:
+        return (cuda_time_ms(lambda: torch.matmul(q, k.transpose(1, 2)))
+                + cuda_time_ms(lambda: torch.matmul(p, v)))
+    gh = g.reshape(b, n, h, -1).transpose(1, 2).reshape(b * h, n, -1)
+    return (cuda_time_ms(lambda: torch.matmul(q, k.transpose(1, 2)))
+            + cuda_time_ms(lambda: torch.matmul(gh, v.transpose(1, 2)))
+            + cuda_time_ms(lambda: torch.matmul(p.transpose(1, 2), gh))
+            + cuda_time_ms(lambda: torch.matmul(p, k))
+            + cuda_time_ms(lambda: torch.matmul(p.transpose(1, 2), q)))
+
+
+def phase_cait_kernel(report, gpu_line):
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.cait_attention import (
+        talking_head_attention,
+        talking_head_attention_reference,
+    )
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (b, n, h, d) in enumerate(CAIT_SHAPES):
+            qkv, wl, bl, ww, bw, _ = cait_inputs(b, n, h, d, dtype, 1100 + i)
+            scale = d ** -0.5
+            what = f"{dname:8s} B={b} N={n} H={h} d={d}"
+            got = talking_head_attention(qkv, wl, bl, ww, bw, nb_heads=h,
+                                         scale=scale)
+            ref = talking_head_attention_reference(qkv, wl, bl, ww, bw,
+                                                   nb_heads=h, scale=scale)
+            torch.cuda.synchronize()
+            err, bar, ok = held(got, ref, CAIT_TOL[dname])
+            print(f"talking_head_attention {what}: max_abs_err={err!r} "
+                  f"bar={bar!r} {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"talking_head_attention disagrees with its plain "
+                  f"version ({what}): {err} > {bar}")
+            if dtype == torch.bfloat16 and i == 0:
+                report["max_abs_err"] = err
+                # Controls: the plain version without the pre-softmax mix,
+                # and with w_w transposed, must miss the bar by far.
+                eye = torch.eye(h, device="cuda")
+                for name, args in (
+                        ("without the pre-softmax mix",
+                         (qkv, eye, torch.zeros_like(bl), ww, bw)),
+                        ("with w_w transposed", (qkv, wl, bl, ww.t(), bw))):
+                    far = (got.float() - talking_head_attention_reference(
+                        *args, nb_heads=h, scale=scale).float())
+                    far = far.abs().max().item()
+                    print(f"talking_head_attention control {what}: {name} "
+                          f"off by {far!r}, {far / bar!r} bars", flush=True)
+                    check(far > CONTROL_FACTOR * bar, f"talking_head_attention:"
+                          f" the plain version {name} stays within the bar")
+            del qkv, got, ref
+
+    b, n, h, d = CAIT_SHAPES[0]
+    qkv, wl, bl, ww, bw, _ = cait_inputs(b, n, h, d, torch.bfloat16, 1200)
+    scale = d ** -0.5
+    report["ms"] = cuda_time_ms(lambda: talking_head_attention(
+        qkv, wl, bl, ww, bw, nb_heads=h, scale=scale))
+    report["plain_ms"] = cuda_time_ms(lambda: talking_head_attention_reference(
+        qkv, wl, bl, ww, bw, nb_heads=h, scale=scale), iters=5)
+    report["bound_ms"], report["bound_by"] = cait_bound(b, n, h, d)
+    report["library_ms"] = None   # no one PyTorch call mixes heads
+    report["cublas_floor_ms"] = cait_floor_ms(qkv, None, h)
+    print(f"talking_head_attention bf16 {CAIT_SHAPES[0]}: kernel "
+          f"{report['ms']!r} ms, {report['bound_ms'] / report['ms']!r} of the "
+          f"bound {report['bound_ms']!r} ms ({report['bound_by']}); plain "
+          f"{report['plain_ms']!r} ms; cuBLAS floor (batched q k^T and p v "
+          f"alone) {report['cublas_floor_ms']!r} ms; on {gpu_line}", flush=True)
+
+
+def phase_cait_slice(reports, gpu_line):
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(CAIT, device="cuda", dtype=torch.bfloat16, seed=0)
+    sd = seeded_state_dict(model, seed=7, std=0.05)
+    model.load_state_dict(sd)
+    pp = tfm.create_preprocessing(CAIT, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    seconds, outputs = [], []
+    for img in requests:
+        before = dict(dispatch.launch_counts)
+        t0 = time.perf_counter()
+        logits = model.predict(pp(img))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        check(rose == expected(**CAIT_LAUNCHES),
+              f"one CaiT request launched {rose}, expected {CAIT_LAUNCHES} "
+              f"and nothing else")
+        check(tuple(logits.shape) == (BATCH, model.cfg.nb_classes),
+              f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        check(bool(logits.abs().max() > 0), "all-zero logits")
+        outputs.append(logits)
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_cait"] = dispatch.launch_counts[name]
+    img_s = [BATCH / s for s in seconds[1:]]
+    request_ms = statistics.median(seconds[1:]) * 1e3
+    print(f"slice {CAIT} bs{BATCH} bf16: request seconds {seconds!r}",
+          flush=True)
+    print(f"slice {CAIT} bs{BATCH} bf16: {statistics.median(img_s)!r} img/s "
+          f"(median of requests 2-{REQUESTS}; range {min(img_s)!r}-"
+          f"{max(img_s)!r}) on {gpu_line}", flush=True)
+
+    # The same weights in f32 on the CPU, where the kernel wrapper runs its
+    # plain version and launches nothing.
+    x = requests[0][:CAIT_CHECK_IMAGES]
+    with torch.inference_mode():
+        feats = model.forward(pp(x), features_only=True)
+    model32 = tfm.create_model(CAIT, device="cpu", dtype=torch.float32, seed=0)
+    model32.load_state_dict(sd)
+    pp32 = tfm.create_preprocessing(CAIT, dtype=torch.float32, device="cpu")
+    before = dict(dispatch.launch_counts)
+    with torch.inference_mode():
+        ref_logits, ref_feats = model32(pp32(x.cpu()), return_features=True)
+    check(dispatch.launch_counts == before,
+          "the f32 CPU reference launched a kernel")
+    for name, got, want in (
+            ("forward_features", feats, ref_feats["features"]),
+            ("logits", outputs[0][:CAIT_CHECK_IMAGES], ref_logits)):
+        got = got.float().cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"slice {CAIT} {name}: bf16 kernel path vs f32 plain path on "
+              f"the CPU rel err {rel!r} (bar 5e-2)", flush=True)
+        check(rel < 5e-2, f"{CAIT} {name} rel err {rel} >= 5e-2")
+    del model32, ref_logits, ref_feats
+
+    img = requests[1]
+    wall_ms, groups, names = device_split(lambda: model.predict(pp(img)),
+                                          steps=2)
+    busy_ms = sum(groups.values())
+    print(f"{CAIT} request profile: device busy {busy_ms!r} ms per request; "
+          f"wall {wall_ms!r} ms under the profiler, {request_ms!r} ms without; "
+          f"device idle share {1.0 - busy_ms / request_ms!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{CAIT} request profile: {group}: {ms!r} ms per request",
+              flush=True)
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"{CAIT} request profile kernel: {ms!r} ms {name[:150]}",
+              flush=True)
+
+
+def phase_cait_bwd_kernel(report, gpu_line):
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.cait_attention import (
+        talking_head_attention_bwd,
+        talking_head_attention_bwd_reference,
+    )
+
+    names = ("dq", "dk", "dv", "dw_l", "dw_w", "db_w")
+
+    def pieces(grads, dim):
+        dqkv, dwl, _, dww, dbw = grads
+        return (dqkv[..., :dim], dqkv[..., dim:2 * dim], dqkv[..., 2 * dim:],
+                dwl, dww, dbw)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (b, n, h, d) in enumerate(CAIT_BWD_SHAPES):
+            args = cait_inputs(b, n, h, d, dtype, 1300 + i)
+            scale = d ** -0.5
+            what = f"{dname:8s} B={b} N={n} H={h} d={d}"
+            got = talking_head_attention_bwd(*args, nb_heads=h, scale=scale)
+            ref = talking_head_attention_bwd_reference(*args, nb_heads=h,
+                                                       scale=scale)
+            torch.cuda.synchronize()
+            check(torch.equal(got[2], torch.zeros_like(got[2])),
+                  "talking_head_attention_bwd: db_l is not exactly 0")
+            bars = []
+            for name, a, w in zip(names, pieces(got, h * d),
+                                  pieces(ref, h * d)):
+                err, bar, ok = held(a, w, CAIT_BWD_TOL[dname])
+                bars.append(bar)
+                print(f"talking_head_attention_bwd {what} {name}: "
+                      f"max_abs_err={err!r} bar={bar!r} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"talking_head_attention_bwd {name} disagrees with "
+                      f"its plain version ({what}): {err} > {bar}")
+                if dtype == torch.bfloat16 and i == 0:
+                    report["max_abs_err"] = max(report.get("max_abs_err", 0.0),
+                                                err)
+            if dtype == torch.bfloat16 and i == 0:
+                # Control: the plain backward with w_w transposed.
+                qkv, wl, bl, ww, bw, g = args
+                wrong = pieces(talking_head_attention_bwd_reference(
+                    qkv, wl, bl, ww.t(), bw, g, nb_heads=h, scale=scale), h * d)
+                misses = [(a.float() - w.float()).abs().max().item() / bar
+                          for a, w, bar in zip(pieces(got, h * d), wrong, bars)]
+                print(f"talking_head_attention_bwd control {what}: with w_w "
+                      f"transposed {dict(zip(names, misses))} bars off",
+                      flush=True)
+                check(max(misses) > CONTROL_FACTOR, "talking_head_attention_"
+                      "bwd: w_w transposed stays within the bar")
+                again = talking_head_attention_bwd(*args, nb_heads=h,
+                                                   scale=scale)
+                same = all(torch.equal(a, w) for a, w in zip(again, got))
+                print(f"talking_head_attention_bwd {what}: a second call is "
+                      f"bit-identical: {same}", flush=True)
+                check(same, "talking_head_attention_bwd is not deterministic")
+                del again, wrong
+            del args, got, ref
+
+    b, n, h, d = CAIT_BWD_SHAPES[0]
+    args = cait_inputs(b, n, h, d, torch.bfloat16, 1400)
+    scale = d ** -0.5
+    report["ms"] = cuda_time_ms(lambda: talking_head_attention_bwd(
+        *args, nb_heads=h, scale=scale), iters=10)
+    report["plain_ms"] = cuda_time_ms(
+        lambda: talking_head_attention_bwd_reference(*args, nb_heads=h,
+                                                     scale=scale), iters=3)
+    report["bound_ms"], report["bound_by"] = cait_bound(b, n, h, d, True)
+    report["library_ms"] = None
+    report["cublas_floor_ms"] = cait_floor_ms(args[0], args[5], h, True)
+    print(f"talking_head_attention_bwd bf16 {CAIT_BWD_SHAPES[0]}: kernel "
+          f"{report['ms']!r} ms, {report['bound_ms'] / report['ms']!r} of the "
+          f"bound {report['bound_ms']!r} ms ({report['bound_by']}); plain "
+          f"{report['plain_ms']!r} ms; cuBLAS floor (the five batched "
+          f"products alone) {report['cublas_floor_ms']!r} ms; on {gpu_line}",
+          flush=True)
+
+
+def cait_train_config() -> dict:
+    """CaiT-S24 at batch 64 with the DeiT recipe the CaiT paper trains with
+    (AdamW at weight decay 0.05, label smoothing 0.1, mixup 0.8, cutmix
+    1.0, drop path 0.1, no attention dropout), bf16 mixed precision, lr
+    1e-3, 6 epochs of one step each on the same 64 synthetic images."""
+    cfg = swin_train_config()
+    cfg["problem"]["model"] = {"model_name": CAIT, "drop_path_rate": 0.1}
+    for part in ("train_dataset", "timekeeping"):
+        cfg[part]["batch_size"] = CAIT_TRAIN_BATCH
+    cfg["train_dataset"]["nb_samples"] = CAIT_TRAIN_BATCH
+    cfg["timekeeping"]["nb_samples_per_epoch"] = CAIT_TRAIN_BATCH
+    return cfg
+
+
+def phase_cait_train(reports, gpu_line):
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
+    from tfimm_tpu_torch.utils.profile import time_model
+
+    trainer, steps, counts = run_watched(cait_train_config())
+    problem = trainer.problem
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} CaiT training steps, "
+          f"expected {TRAIN_STEPS}")
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"cait train step {it}: loss {loss!r}, {seconds!r} s, launches "
+              f"{rose}", flush=True)
+        check(rose == expected(**CAIT_TRAIN_LAUNCHES),
+              f"CaiT step {it} launched {rose}, expected "
+              f"{CAIT_TRAIN_LAUNCHES} and nothing else")
+        check(math.isfinite(loss), f"CaiT step {it}: loss {loss}")
+    losses = [loss for loss, _, _ in steps]
+    last = (losses[-1] + losses[-2]) / 2
+    print(f"cait train loss: first {losses[0]!r}, mean of the last two "
+          f"{last!r}", flush=True)
+    check(last < losses[0], f"the CaiT loss did not fall: {losses}")
+    for name, report in reports.items():
+        report["launches_by_path"]["train_cait"] = counts[name]
+    timed = [s for _, s, _ in steps[1:]]
+    step_s = sum(timed) / len(timed)
+    print(f"train {CAIT} bs{CAIT_TRAIN_BATCH} bf16 mixed precision adamw "
+          f"mixup/cutmix: {CAIT_TRAIN_BATCH * len(timed) / sum(timed)!r} img/s "
+          f"({len(timed)} steps 2-{TRAIN_STEPS} in {sum(timed) * 1e3!r} ms; "
+          f"median step {statistics.median(timed) * 1e3!r} ms, slowest "
+          f"{max(timed) * 1e3!r} ms) on {gpu_line}", flush=True)
+
+    # One step's loss and gradients with seeded weights, no mixup, in eval
+    # mode (drop path off): bf16 through the kernels on the card against
+    # f32 through the plain versions on the CPU.
+    model, pp = problem.model, problem.preprocessing
+    sd = seeded_state_dict(model, seed=9, std=0.05)
+    model.load_state_dict(sd)
+    model.eval()
+    images, labels = next(iter(trainer.train_ds))
+    images = torch.as_tensor(images[:SWIN_CHECK_IMAGES])
+    labels = torch.as_tensor(labels[:SWIN_CHECK_IMAGES])
+    names = ("blocks.0.attn.proj_l.weight", "blocks.0.attn.qkv.weight")
+
+    def loss_and_grads(m, x, y):
+        m.zero_grad(set_to_none=True)
+        before = dict(dispatch.launch_counts)
+        loss = cross_entropy_loss(m(x).float(), y)
+        loss.backward()
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        params = dict(m.named_parameters())
+        return loss.item(), {n: params[n].grad.float().cpu() for n in names}, rose
+
+    loss_k, grads_k, rose = loss_and_grads(
+        model, pp(images.to("cuda")).to(torch.bfloat16), labels.to("cuda"))
+    check(rose == expected(**CAIT_TRAIN_LAUNCHES),
+          f"the bf16 CaiT step launched {rose}")
+    model32 = tfm.create_model(CAIT, device="cpu", dtype=torch.float32, seed=0)
+    model32.load_state_dict(sd)
+    model32.eval()
+    pp32 = tfm.create_preprocessing(CAIT, dtype=torch.float32, device="cpu")
+    loss_r, grads_r, rose = loss_and_grads(model32, pp32(images), labels)
+    check(rose == expected(), f"the f32 CPU reference launched {rose}")
+    rel = abs(loss_k - loss_r) / abs(loss_r)
+    print(f"cait train loss: bf16 kernel path {loss_k!r} vs f32 plain path on "
+          f"the CPU {loss_r!r}, rel err {rel!r} (bar 2e-2)", flush=True)
+    check(rel < 2e-2, f"CaiT loss rel err {rel} >= 2e-2")
+    for name in names:
+        ref = grads_r[name]
+        rel = ((grads_k[name] - ref).abs().max() / ref.abs().max()).item()
+        print(f"cait train grad {name}: max|diff| / max|ref| {rel!r} "
+              f"(bar 1e-1)", flush=True)
+        check(rel < 1e-1, f"{name} gradient rel err {rel} >= 1e-1")
+        check(ref.abs().max().item() > 0, f"{name}: zero reference gradient")
+    del model32, grads_r
+
+    batch = next(iter(trainer.train_ds))
+    wall_ms, groups, kernel_names = device_split(
+        lambda: problem.train_step(batch, 0))
+    busy_ms = sum(groups.values())
+    print(f"cait train step profile: device busy {busy_ms!r} ms per step; wall "
+          f"{wall_ms!r} ms under the profiler, {step_s * 1e3!r} ms without; "
+          f"device idle share {1.0 - busy_ms / (step_s * 1e3)!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"cait train step profile: {group}: {ms!r} ms per step",
+              flush=True)
+    for name, ms in sorted(kernel_names.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"cait train step profile kernel: {ms!r} ms {name[:150]}",
+              flush=True)
+
+    img_s = time_model(CAIT, target="backprop", batch_size=CAIT_TRAIN_BATCH,
+                       samples=3)
+    print(f"time_model {CAIT} backprop bs{CAIT_TRAIN_BATCH} bf16: {img_s!r} "
+          f"img/s on {gpu_line}", flush=True)
+
+
+def main(argv) -> int:
+    phases = list(range(2, 15))
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        phases = sorted({int(p) for p in argv[1].split(",")})
+        if not set(phases) <= set(range(2, 15)):
+            print("chip_smoke: --phases takes numbers from 2 to 14",
+                  file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: chip_smoke.py [--phases N,N,...]", file=sys.stderr)
+        return 2
     if not (REPO / "tfimm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
               "(tfimm_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -1558,29 +2012,52 @@ def main() -> int:
                          for n, shape in zip(SWIN_TRAIN_DEPTHS,
                                              SWIN_TRAIN_STAGES))
             + ", half of stages 1-3 shifted")
+        reports["talking_head_attention"] = {
+            "name": "talking_head_attention", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/cait_attention.cu",
+            "replaces": "tfimm_tpu/ops/pallas/cait_attention.py:95",
+            "work": f"bf16 (B, N, H, d) = {CAIT_SHAPES[0]}"}
+        reports["talking_head_attention_bwd"] = {
+            "name": "talking_head_attention_bwd", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/cait_attention_bwd.cu",
+            "replaces": "tfimm_tpu/ops/pallas/cait_attention.py:241",
+            "work": f"bf16 (B, N, H, d) = {CAIT_BWD_SHAPES[0]}"}
         for report in reports.values():
             report["launches_by_path"] = {}
-        phase_kernels(reports["fused_mha"])
-        phase_backward_kernel(reports["fused_mha_bwd"])
-        phase_slice(reports, gpu_line)
-        phase_train(reports, gpu_line)
-        phase_convnext_kernel(reports["convnext_mlp"])
-        phase_convnext_slice(reports, gpu_line)
-        phase_swin_kernels(reports)
-        phase_swin_slice(reports, gpu_line)
-        phase_window_bwd_kernel(reports["window_mha_bwd"], gpu_line)
-        phase_swin_train(reports, gpu_line)
+        run_phase = {
+            2: lambda: (phase_kernels(reports["fused_mha"]),
+                        phase_backward_kernel(reports["fused_mha_bwd"])),
+            3: lambda: phase_slice(reports, gpu_line),
+            4: lambda: phase_train(reports, gpu_line),
+            5: lambda: phase_convnext_kernel(reports["convnext_mlp"]),
+            6: lambda: phase_convnext_slice(reports, gpu_line),
+            7: lambda: phase_swin_kernels(reports),
+            8: lambda: phase_swin_slice(reports, gpu_line),
+            9: lambda: phase_window_bwd_kernel(reports["window_mha_bwd"],
+                                               gpu_line),
+            10: lambda: phase_swin_train(reports, gpu_line),
+            11: lambda: phase_cait_kernel(reports["talking_head_attention"],
+                                          gpu_line),
+            12: lambda: phase_cait_slice(reports, gpu_line),
+            13: lambda: phase_cait_bwd_kernel(
+                reports["talking_head_attention_bwd"], gpu_line),
+            14: lambda: phase_cait_train(reports, gpu_line),
+        }
+        for number in phases:
+            run_phase[number]()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    keys = ("name", "route", "source", "replaces", "work", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kernels = []
     for report in reports.values():
         report["launches"] = sum(report["launches_by_path"].values())
-        entry = {k: report[k] for k in (
-            "name", "route", "source", "replaces", "work", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")}
+        if phases != list(range(2, 15)) and not all(k in report for k in keys):
+            continue   # a kernel the chosen phases did not measure
+        entry = {k: report[k] for k in keys}
         if "cublas_floor_ms" in report:
             entry["cublas_floor_ms"] = report["cublas_floor_ms"]
         kernels.append(entry)
@@ -1592,4 +2069,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

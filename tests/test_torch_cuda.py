@@ -24,6 +24,13 @@ import torch
 
 from tfimm_tpu_torch.architectures.swin import _attention_mask
 from tfimm_tpu_torch.ops.conv import DepthwiseConv2d
+from tfimm_tpu_torch.ops.kernels.cait_attention import (
+    talking_head_attention,
+    talking_head_attention_bwd,
+    talking_head_attention_bwd_reference,
+    talking_head_attention_packed,
+    talking_head_attention_reference,
+)
 from tfimm_tpu_torch.ops.kernels import dispatch
 from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
     convnext_mlp,
@@ -361,3 +368,150 @@ def test_window_mha_bwd_refuses_what_it_does_not_take(card):
                        nb_heads=8, scale=1.0)
     with pytest.raises(ValueError):   # mixed devices
         window_mha_bwd(qkv, g, bias.cpu(), nb_heads=3, scale=1.0)
+
+
+# talking_head_attention and its backward: (B, N, H, d) of cait_s24_224
+# (cut to 4 images), cait_xxs (H = 4), cait_xs@384 (H = 6, N = 576),
+# cait_m48@448 (H = 16, N = 784, two images), the golden fixture's H = 2,
+# d = 8, d = 128 (D = 768), more than 8 heads above d = 64 (H = 10 with
+# d = 72, H = 9 with d = 80: the second head of each warp) and an N below
+# one tile. The mixes are random
+# and not symmetric (a transposed mix passes every shape check), b_w at std
+# 0.02 (its term b_w[h] colsum(v_h) sums N keys: a larger one would dwarf
+# the attention under a bar relative to the largest value). Bars:
+# max|diff| <= 2e-2 * max|plain| in bf16 (the forward rounds the mixed
+# probabilities where the plain version does, the backward also rounds a and
+# draw to bf16 before its products; the sums run in another order); f32 with
+# TF32 off 1e-5 (forward) and 1e-4 (backward, whose mix gradients sum over
+# every entry of the batch).
+CAIT_SHAPES = [(4, 196, 8, 48), (2, 196, 4, 48), (1, 576, 6, 48),
+               (2, 784, 16, 48), (3, 16, 2, 8), (2, 50, 6, 128),
+               (2, 50, 10, 72), (2, 50, 9, 80), (2, 9, 8, 48)]
+
+
+def _cait_inputs(b, n, h, d, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    return (rnd(b, n, 3 * h * d).to(dtype), rnd(h, h, scale=0.5), rnd(h),
+            rnd(h, h, scale=0.5), rnd(h, scale=0.02),
+            rnd(b, n, h * d).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b,n,h,d", CAIT_SHAPES)
+def test_talking_head_kernel_matches_plain(card, b, n, h, d, dtype, tol):
+    qkv, wl, bl, ww, bw, _ = _cait_inputs(b, n, h, d, dtype, card, b + n + h)
+    before = dispatch.launch_counts["talking_head_attention"]
+    got = talking_head_attention(qkv, wl, bl, ww, bw, nb_heads=h,
+                                 scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["talking_head_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, n, h * d)
+    want = talking_head_attention_reference(qkv, wl, bl, ww, bw, nb_heads=h,
+                                            scale=d ** -0.5).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,h,d", CAIT_SHAPES)
+def test_talking_head_bwd_kernel_matches_plain(card, b, n, h, d, dtype, tol):
+    qkv, wl, bl, ww, bw, g = _cait_inputs(b, n, h, d, dtype, card, b + n + 1)
+    before = dispatch.launch_counts["talking_head_attention_bwd"]
+    got = talking_head_attention_bwd(qkv, wl, bl, ww, bw, g, nb_heads=h,
+                                     scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["talking_head_attention_bwd"] == before + 1
+    assert got[0].dtype == dtype and got[0].shape == qkv.shape
+    assert torch.equal(got[2], torch.zeros(h, device=card))
+    want = talking_head_attention_bwd_reference(qkv, wl, bl, ww, bw, g,
+                                                nb_heads=h, scale=d ** -0.5)
+    c = h * d
+    pieces = lambda t: (t[0][..., :c], t[0][..., c:2 * c], t[0][..., 2 * c:],
+                        t[1], t[3], t[4])
+    for name, a, w in zip(("dq", "dk", "dv", "dw_l", "dw_w", "db_w"),
+                          pieces(got), pieces(want)):
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item(), (name, err)
+
+
+def test_talking_head_bwd_is_deterministic(card):
+    args = _cait_inputs(16, 196, 8, 48, torch.bfloat16, card, seed=3)
+    runs = [talking_head_attention_bwd(*args, nb_heads=8, scale=48 ** -0.5)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_talking_head_gives_gradients_through_the_kernels(card):
+    qkv, wl, bl, ww, bw, g = _cait_inputs(2, 196, 8, 48, torch.float32, card, 4)
+    leaves = [t.clone().requires_grad_() for t in (qkv, wl, bl, ww, bw)]
+    counts = dict(dispatch.launch_counts)
+    talking_head_attention_packed(*leaves, nb_heads=8,
+                                  scale=48 ** -0.5).backward(g)
+    torch.cuda.synchronize()
+    for name in ("talking_head_attention", "talking_head_attention_bwd"):
+        assert dispatch.launch_counts[name] == counts[name] + 1
+    want = talking_head_attention_bwd(qkv, wl, bl, ww, bw, g, nb_heads=8,
+                                      scale=48 ** -0.5)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_talking_head_kernels_read_the_mixes_in_place(card, dtype):
+    # The model passes its Dense weights transposed (views) and, in bf16
+    # serving, in bf16: the kernels read both through their strides and
+    # dtype, bit for bit as from contiguous f32 copies of the same values.
+    qkv, wl, bl, ww, bw, g = _cait_inputs(2, 50, 8, 48, dtype, card, 5)
+    mixes = [t.bfloat16() for t in (wl, bl, ww, bw)]
+    views = [mixes[0].t().contiguous().t(), mixes[1],
+             mixes[2].t().contiguous().t(), mixes[3]]
+    assert not views[0].is_contiguous()
+    copies = [t.float() for t in mixes]
+    kw = dict(nb_heads=8, scale=48 ** -0.5)
+    assert torch.equal(talking_head_attention(qkv, *views, **kw),
+                       talking_head_attention(qkv, *copies, **kw))
+    for a, b in zip(talking_head_attention_bwd(qkv, *views, g, **kw),
+                    talking_head_attention_bwd(qkv, *copies, g, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_talking_head_kernels_refuse_what_they_do_not_take(card):
+    qkv, wl, bl, ww, bw, g = _cait_inputs(2, 16, 4, 48, torch.float32, card, 0)
+    with pytest.raises(ValueError):   # f16
+        talking_head_attention(qkv.half(), wl, bl, ww, bw, nb_heads=4,
+                               scale=1.0)
+    with pytest.raises(ValueError):   # d = 12, no multiple of 8
+        talking_head_attention(qkv, torch.zeros(16, 16, device=card),
+                               torch.zeros(16, device=card),
+                               torch.zeros(16, 16, device=card),
+                               torch.zeros(16, device=card), nb_heads=16,
+                               scale=1.0)
+    with pytest.raises(ValueError):   # D = 1024 > 768
+        big = torch.zeros(1, 4, 3 * 1024, device=card)
+        talking_head_attention(big, torch.zeros(8, 8, device=card),
+                               torch.zeros(8, device=card),
+                               torch.zeros(8, 8, device=card),
+                               torch.zeros(8, device=card), nb_heads=8,
+                               scale=1.0)
+    with pytest.raises(ValueError):   # mixed devices
+        talking_head_attention(qkv, wl.cpu(), bl, ww, bw, nb_heads=4, scale=1.0)
+    with pytest.raises(ValueError):   # a mix of the wrong shape
+        talking_head_attention(qkv, wl[:2], bl, ww, bw, nb_heads=4, scale=1.0)
+    with pytest.raises(ValueError):   # a missing bias
+        talking_head_attention(qkv, wl, None, ww, bw, nb_heads=4, scale=1.0)
+    with pytest.raises(ValueError):
+        talking_head_attention_bwd(qkv, wl, bl, ww, None, g, nb_heads=4,
+                                   scale=1.0)
+    with pytest.raises(ValueError):   # g not contiguous
+        talking_head_attention_bwd(qkv, wl, bl, ww, bw, g[:, ::2], nb_heads=4,
+                                   scale=1.0)
+    with pytest.raises(ValueError):   # g of another dtype
+        talking_head_attention_bwd(qkv, wl, bl, ww, bw, g.bfloat16(),
+                                   nb_heads=4, scale=1.0)

@@ -26,8 +26,12 @@ import pytest
 import torch
 import yaml
 
+import tfimm_tpu
 import tfimm_tpu.train as jtrain
+import tfimm_tpu_torch
 import tfimm_tpu_torch.train as ttrain
+from tfimm_tpu.architectures.cait import CaiT as JaxCaiT
+from tfimm_tpu.architectures.cait import CaiTConfig as JaxCaiTConfig
 from tfimm_tpu.architectures.swin import SwinTransformer as JaxSwin
 from tfimm_tpu.architectures.swin import SwinTransformerConfig as JaxSwinConfig
 from tfimm_tpu.architectures.vit import ViT as JaxViT
@@ -38,6 +42,7 @@ from tfimm_tpu.parallel.step import cross_entropy_loss as jax_ce
 from tfimm_tpu.train import optimizers as jopt
 from tfimm_tpu.train import transforms as jtransforms
 from tfimm_tpu.utils.tree import flatten_params
+from tfimm_tpu_torch.architectures.cait import CaiT, CaiTConfig
 from tfimm_tpu_torch.architectures.swin import SwinTransformer
 from tfimm_tpu_torch.architectures.swin import SwinTransformerConfig
 from tfimm_tpu_torch.architectures.vit import ViT, ViTConfig
@@ -281,16 +286,40 @@ def test_mixed_precision_step_matches_jax(small_vit):
     assert all(p.dtype == torch.float32 for p in tp.model.parameters())
 
 
-def test_l2_covers_the_jax_kernel_leaves(small_vit):
-    """The L2 penalty covers Dense and Conv2d weights, the port's names of
-    the JAX package's ``kernel`` leaves; LayerNorm's ``weight`` is left out."""
-    jp, tp = _problems("sgd", 0.05, weight_decay=1e-3)
-    kernels = {k[:-len("kernel")] + "weight"
-               for k in flatten_params(jp.params) if k.endswith("kernel")}
-    ids = {id(w) for w in l2_weights(tp.model)}
-    chosen = {name for name, p in tp.model.named_parameters() if id(p) in ids}
+def _l2_model(family):
+    """A small model of every ported family: (registered name, overrides)."""
+    return {
+    "vit": ("vit_tiny_patch16_224", dict(SMALL)),
+    "convnext": ("convnext_tiny", dict(input_size=(32, 32), embed_dim=(32, 64),
+                                       nb_blocks=(1, 1), nb_classes=7)),
+    "swin": ("swin_tiny_patch4_window7_224", dict(SWIN_SMALL)),
+    "cait": ("cait_xxs24_224", dict(input_size=(32, 32), patch_size=8,
+                                    embed_dim=128, nb_blocks=2, nb_heads=4,
+                                    nb_classes=7)),
+    }[family]
+
+
+@pytest.mark.parametrize("family", ["cait", "convnext", "swin", "vit"])
+def test_l2_covers_the_jax_kernel_leaves(family):
+    """The L2 penalty covers exactly the JAX package's ``kernel`` leaves
+    (Dense, Conv2d and ConvNeXt's depthwise conv; CaiT's proj_l and proj_w)
+    and not LayerNorm's ``weight``: the same set of parameters and the same
+    sum of squares on the same seeded weights, within 1e-6."""
+    name, cfg = _l2_model(family)
+    params = _seeded(tfimm_tpu.create_model(name, **cfg).params, 11)
+    tm = tfimm_tpu_torch.create_model(name, device="cpu", **cfg)
+    tm.load_state_dict(state_dict_from_jax(params))
+    flat = flatten_params(params)
+    kernels = {k[:-len("kernel")] + "weight" for k in flat if k.endswith("kernel")}
+    decayed = l2_weights(tm)
+    ids = {id(w) for w in decayed}
+    chosen = {n for n, p in tm.named_parameters() if id(p) in ids}
     assert chosen == kernels
-    assert "norm.weight" not in chosen and "cls_token" not in chosen
+    assert "norm.weight" not in chosen
+    want = sum(float(np.sum(np.square(np.asarray(w, np.float64))))
+               for k, w in flat.items() if k.endswith("kernel"))
+    got = sum(float(w.double().square().sum()) for w in decayed)
+    assert _rel(got, want) < 1e-6
 
 
 def test_ema_and_validation(small_vit):
@@ -570,6 +599,88 @@ def test_run_trains_swin_step_for_step_with_jax(small_swin, monkeypatch):
     with dispatch.capture_dispatches() as port_seen:
         ttrain.run(dict(cfg, device="cpu"), parse_cmdline_args=False)
     assert "window_mha" in port_seen
+    assert len(seen["torch"]) == len(seen["jax"]) == 4 + 3
+    for got, want in zip(seen["torch"], seen["jax"]):
+        if isinstance(want, dict):
+            assert got == want
+        else:
+            assert _rel(got, want) < 1e-5
+
+
+# -- CaiT through run() ------------------------------------------------------------------
+
+CAIT_NAME = "train_parity_cait"
+CAIT_SMALL = dict(input_size=(32, 32), patch_size=8, embed_dim=128, nb_blocks=2,
+                  nb_heads=4, nb_classes=7, init_scale=1.0)
+
+
+@pytest.fixture
+def small_cait(monkeypatch):
+    """A small CaiT under CAIT_NAME in both model registries, for one test."""
+    for reg, cls, cfg_cls in ((jax_registry, JaxCaiT, JaxCaiTConfig),
+                              (torch_registry, CaiT, CaiTConfig)):
+        monkeypatch.setitem(reg._model_class, CAIT_NAME, cls)
+        monkeypatch.setitem(reg._model_config, CAIT_NAME,
+                            cfg_cls(name=CAIT_NAME, **CAIT_SMALL))
+    return CAIT_NAME
+
+
+def test_run_trains_cait_step_for_step_with_jax(small_cait, monkeypatch):
+    """run() of a small CaiT (embed 128, so that the JAX dispatcher takes its
+    Pallas talking-head forward and backward in interpret mode) from the
+    same config dict in both packages, the port's plain versions through its
+    autograd Function: the same per-step losses and validation accuracies,
+    SGD with momentum and L2 weight decay (which covers proj_l and proj_w),
+    all rates 0. The port starts from the JAX model's initial parameters
+    with the layer scales at 1 and the head mixes redrawn at std 0.5 (their
+    init would hide the mixes)."""
+    monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
+    jm = jtrain.ModelFactory(jtrain.ModelConfig(model_name=CAIT_NAME))()[0]
+    rng = np.random.default_rng(13)
+    jinit = jm.params
+    for blk in jinit["blocks"].values():
+        for mix in ("proj_l", "proj_w"):
+            blk["attn"][mix]["kernel"] = jnp.asarray(
+                0.5 * rng.normal(size=(4, 4)).astype(np.float32))
+    init = state_dict_from_jax(jinit)
+    jfactory, tfactory = jtrain.ModelFactory.__call__, ttrain.ModelFactory.__call__
+
+    def jax_with_init(self):
+        model, pp = jfactory(self)
+        model.params = jinit
+        return model, pp
+
+    def torch_with_init(self, device):
+        model, pp = tfactory(self, device)
+        model.load_state_dict(init)
+        return model, pp
+
+    monkeypatch.setattr(jtrain.ModelFactory, "__call__", jax_with_init)
+    monkeypatch.setattr(ttrain.ModelFactory, "__call__", torch_with_init)
+    seen = {"jax": [], "torch": []}
+    for key, pkg in (("jax", jtrain), ("torch", ttrain)):
+        cls = pkg.ClassificationProblem
+
+        def record(method, key=key):
+            def wrapped(self, *args):
+                out = method(self, *args)
+                seen[key].append(out[0] if isinstance(out, tuple) else out)
+                return out
+            return wrapped
+
+        monkeypatch.setattr(cls, "train_step", record(cls.train_step))
+        monkeypatch.setattr(cls, "validation", record(cls.validation))
+    cfg = _run_cfg()
+    cfg["problem"]["model"]["model_name"] = CAIT_NAME
+    for part in ("train_dataset", "val_dataset"):
+        cfg[part] = dict(cfg[part], input_size=(32, 32))
+    cfg["timekeeping"]["nb_epochs"] = 2
+    with jax_capture() as jax_seen:
+        jtrain.run(cfg, parse_cmdline_args=False)
+    assert "cait_talking_head" in jax_seen, jax_seen
+    with dispatch.capture_dispatches() as port_seen:
+        ttrain.run(dict(cfg, device="cpu"), parse_cmdline_args=False)
+    assert port_seen == {"talking_head_attention"}
     assert len(seen["torch"]) == len(seen["jax"]) == 4 + 3
     for got, want in zip(seen["torch"], seen["jax"]):
         if isinstance(want, dict):

@@ -53,7 +53,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):   # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -132,6 +132,36 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_swin_block.restype = ctypes.c_int
+    mixes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,  # w_l (H, H), strides
+        ctypes.c_void_p,  # b_l (H,)
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,  # w_w (H, H), strides
+        ctypes.c_void_p,  # b_w (H,)
+        ctypes.c_int,  # the mixes' dtype code
+    ]
+    lib.tfimm_talking_head_fwd.argtypes = [
+        ctypes.c_void_p,  # qkv
+        ctypes.c_int64, ctypes.c_int64,  # qkv batch and row strides
+        *mixes,
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_talking_head_fwd.restype = ctypes.c_int
+    lib.tfimm_talking_head_bwd.argtypes = [
+        ctypes.c_void_p,  # qkv
+        ctypes.c_int64, ctypes.c_int64,  # qkv batch and row strides
+        *mixes,
+        ctypes.c_void_p, ctypes.c_void_p,  # g, dqkv
+        ctypes.c_void_p,  # f32 scratch (2, B, H, N): row sums l, deltas
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch partial sums
+        ctypes.c_void_p,  # f32 out: dw_l (H, H), dw_w (H, H), db_w, db_l (H,)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_talking_head_bwd.restype = ctypes.c_int
     return lib
 
 

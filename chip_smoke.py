@@ -120,12 +120,35 @@ which ends the run with a non-zero exit code on failure:
    qkv weight gradient within 1e-1. Then the rate over steps 2-6, a
    profile of one step and ``time_model(..., target="backprop")``.
 
+15. ``flash_attention_relpos`` against its plain version on the card at
+   SAM-B's global blocks (B = 12 heads, a 64 x 64 grid, d = 64) and
+   windowed blocks of one image (B = 300, 14 x 14), and at the edges (SAM-H's
+   d = 80 with 16 heads, a 48 x 64 grid, N = 49, a row whose scores pass
+   80), in bf16 and in f32 with TF32 off: the output and the lse within
+   2e-2 and 1e-5 of the largest plain value. Control: the plain version
+   without the bias must miss the bar by ``CONTROL_FACTOR`` at the global
+   shape. Kernel, plain, bound times at the two SAM-B shapes, and
+   ``F.scaled_dot_product_attention`` with the bias as a float mask.
+16. The SAM serving path: ``create_model("sam_vit_b")`` in bf16 with seeded
+   random weights (rel-pos tables and position embedding away from their
+   zero init) behind a ``SAMPredictor``, which answers requests on three
+   uint8 images (1200x1800, 1024x1024, 500x700): ``set_image``, then 2
+   points (multimask), 1 box, and the points with the first call's best
+   low-resolution logits as the mask prompt. Every ``set_image`` must
+   launch the kernel 12 times (4 global, 8 windowed blocks), the prompt
+   calls none; embeddings, scores and logits finite; the first image's
+   embedding and logits within 5e-2 of the same weights in f32 on the CPU
+   through the plain version. Then the ``set_image`` and prompt-call
+   latencies (CUDA events), the encoder's rate at batch 8 through
+   ``forward_features``, and a ``torch.profiler`` split of one
+   ``set_image``.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --phases 11,13
+    python3 chip_smoke.py --phases 15,16
 
-runs phase 1 and the phases named (2-14) alone, for a quicker look at one
+runs phase 1 and the phases named (2-16) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -217,13 +240,30 @@ CAIT_TRAIN_LAUNCHES = {"talking_head_attention": 24,
                        "talking_head_attention_bwd": 24}
 CAIT_CHECK_IMAGES = 16
 # A control must miss its bar by at least this factor.
+SAM = "sam_vit_b"
+# flash_attention_relpos (B, gh, gw, d): SAM-B's global blocks (12 heads of
+# one 1024 x 1024 image) and windowed blocks (25 windows x 12 heads of one
+# image), then the edges: SAM-H's head dim (16 heads of d = 80), gh != gw,
+# N = 49, and one row whose scores pass 80 (no clamp may apply).
+RELPOS_SHAPES = [(12, 64, 64, 64), (300, 14, 14, 64)]
+RELPOS_EDGES = [(16, 14, 14, 80), (2, 48, 64, 64), (4, 7, 7, 64)]
+RELPOS_BIG = (2, 14, 14, 64)
+RELPOS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# SAMPredictor requests: uint8 images (H, W), each set_image then 3 prompt
+# calls; every set_image launches the kernel once per encoder block.
+SAM_IMAGES = [(1200, 1800), (1024, 1024), (500, 700)]
+SAM_LAUNCHES = {"flash_attention_relpos": 12}
+SAM_BATCH = 8
+SAM_TOL = 5e-2
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # Device-time groups of a training step or a request, by kernel name (first
 # match).
-KERNEL_GROUPS = [("talking-head attention backward (cait_attention_bwd.cu)",
+KERNEL_GROUPS = [("rel-pos flash attention (flash_attention_relpos.cu)",
+                  ("relpos_fwd",)),
+                 ("talking-head attention backward (cait_attention_bwd.cu)",
                   ("rows_kernel", "keys_kernel", "mix_sum_kernel")),
                  ("talking-head attention (cait_attention.cu)",
                   ("talking_head_fwd",)),
@@ -1933,12 +1973,317 @@ def phase_cait_train(reports, gpu_line):
           f"img/s on {gpu_line}", flush=True)
 
 
+def relpos_inputs(b, gh, gw, d, dtype, seed, big=False):
+    """Seeded inputs of flash_attention_relpos on the card: q, k, v normal,
+    the rel terms at std 2 (SAM's come from q and the rel-pos tables). With
+    ``big``, query 0 of every row points along keys 3 and 5, so that two of
+    its scores sit near 300, far above the clamp of 80 that the other
+    attention kernels apply."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = gh * gw
+    q, k, v = (torch.randn(b, n, d, generator=gen, device="cuda")
+               for _ in range(3))
+    if big:
+        q[:, 0] = 300.0 / d ** 0.5 * (k[:, 3] + k[:, 5])
+    rh = 2.0 * torch.randn(b, n, gh, generator=gen, device="cuda")
+    rw = 2.0 * torch.randn(b, n, gw, generator=gen, device="cuda")
+    return [t.to(dtype) for t in (q, k, v, rh, rw)]
+
+
+def relpos_bound(b, gh, gw, d):
+    """bf16 q, k, v and the rel terms read once, out (bf16) and the f32 lse
+    written once; q k^T and p v."""
+    n = gh * gw
+    return bound(2 * (4 * b * n * d + b * n * (gh + gw)) + 4 * b * n,
+                 4 * b * n * n * d)
+
+
+def phase_relpos_kernel(report, gpu_line):
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
+        flash_attention_relpos,
+        flash_attention_relpos_reference,
+        flash_attention_relpos_with_lse,
+    )
+
+    cases = [(shape, False) for shape in RELPOS_SHAPES + RELPOS_EDGES]
+    cases.append((RELPOS_BIG, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, ((b, gh, gw, d), big) in enumerate(cases):
+            q, k, v, rh, rw = relpos_inputs(b, gh, gw, d, dtype, 1500 + i, big)
+            kw = dict(grid_size=(gh, gw), scale=d ** -0.5)
+            what = f"{dname:8s} B={b} grid={gh}x{gw} d={d}{' big' if big else ''}"
+            out, lse = flash_attention_relpos_with_lse(q, k, v, rh, rw, **kw)
+            ref, ref_lse = flash_attention_relpos_reference(q, k, v, rh, rw,
+                                                            **kw)
+            torch.cuda.synchronize()
+            err, bar, ok = held(out, ref, RELPOS_TOL[dname])
+            lerr, lbar, lok = held(lse, ref_lse, RELPOS_TOL[dname])
+            note = ""
+            if big:
+                top = ref_lse[:, 0].min().item()
+                ok = ok and top > 100.0
+                note = f" (row 0's lse {top!r})"
+            print(f"flash_attention_relpos {what}: max_abs_err={err!r} "
+                  f"bar={bar!r}; lse max_abs_err={lerr!r} bar={lbar!r}{note} "
+                  f"{'ok' if ok and lok else 'FAIL'}", flush=True)
+            check(ok and lok, f"flash_attention_relpos disagrees with its "
+                  f"plain version ({what}): {err} > {bar} or lse {lerr} > {lbar}")
+            if dtype == torch.bfloat16 and i == 0:
+                report["max_abs_err"] = err
+                # Control: the plain version without the bias must miss the
+                # bar by far.
+                far = (out.float() - flash_attention_relpos_reference(
+                    q, k, v, torch.zeros_like(rh), torch.zeros_like(rw),
+                    **kw)[0].float()).abs().max().item()
+                print(f"flash_attention_relpos control {what}: without the "
+                      f"bias off by {far!r}, {far / bar!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bar, "flash_attention_relpos: "
+                      "the plain version without the bias stays within the bar")
+            del q, k, v, rh, rw, out, lse, ref, ref_lse
+
+    for j, (b, gh, gw, d) in enumerate(RELPOS_SHAPES):
+        q, k, v, rh, rw = relpos_inputs(b, gh, gw, d, torch.bfloat16, 1600 + j)
+        kw = dict(grid_size=(gh, gw), scale=d ** -0.5)
+        n = gh * gw
+        # The library call: SDPA with the bias materialised as a bf16 float
+        # mask, made before the timer starts; (1, B, N, d) operands, since
+        # SDPA's fused backends take only 4-D inputs (3-D ones run its
+        # unfused math path).
+        mask = (rh[..., :, None] + rw[..., None, :]).reshape(1, b, n, n)
+        q4, k4, v4 = q[None], k[None], v[None]
+
+        def sdpa_call():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  scale=kw["scale"])[0]
+
+        times = {
+            "ms": cuda_time_ms(lambda: flash_attention_relpos(q, k, v, rh, rw,
+                                                              **kw)),
+            "plain_ms": cuda_time_ms(lambda: flash_attention_relpos_reference(
+                q, k, v, rh, rw, **kw), iters=5),
+            "library_ms": cuda_time_ms(sdpa_call),
+        }
+        times["bound_ms"], times["bound_by"] = relpos_bound(b, gh, gw, d)
+        sdpa = sdpa_call()
+        ref = flash_attention_relpos_reference(q, k, v, rh, rw, **kw)[0]
+        sdpa_err = (sdpa.float() - ref.float()).abs().max().item()
+        kind = "global" if j == 0 else "windowed"
+        if j == 0:
+            report.update(times)
+        else:
+            report["windowed"] = times
+        print(f"flash_attention_relpos bf16 {kind} (B, gh, gw, d) = "
+              f"{(b, gh, gw, d)}: kernel {times['ms']!r} ms, "
+              f"{times['bound_ms'] / times['ms']!r} of the bound "
+              f"{times['bound_ms']!r} ms ({times['bound_by']}); plain "
+              f"{times['plain_ms']!r} ms; scaled_dot_product_attention with "
+              f"the float mask {times['library_ms']!r} ms (its max abs diff "
+              f"to plain {sdpa_err!r}); on {gpu_line}", flush=True)
+        del q, k, v, q4, k4, v4, rh, rw, mask, sdpa, ref
+
+
+def sam_state_dict(model, seed: int):
+    """``seeded_state_dict`` at std 0.02, with SAM's zero-initialised
+    rel-pos tables (std 0.5) and position embedding (std 0.5) drawn away
+    from zero, so that the bias really moves the scores, and its embedding
+    tables and Fourier matrix at their own init's scale (std 1)."""
+    import torch
+
+    sd = seeded_state_dict(model, seed=seed, std=0.02)
+    g = torch.Generator().manual_seed(seed + 1)
+    tables = ("iou_token.weight", "mask_tokens.weight", "not_a_point_embed.weight",
+              "no_mask_embed.weight", "positional_encoding_gaussian_matrix")
+    for name, t in sd.items():
+        if name.endswith(("rel_pos_h", "rel_pos_w", "pos_embed")):
+            sd[name] = 0.5 * torch.randn(t.shape, generator=g)
+        elif name.endswith(tables) or ".point_embeddings." in name:
+            sd[name] = torch.randn(t.shape, generator=g)
+    return sd
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` between two CUDA events, in ms (the call ends on
+    the host or enqueues its device work; the end event waits for it)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def sam_prompts(h, w):
+    """The three prompt calls of one request on an (h, w) image: 2 points
+    (multimask), 1 box, then the points with the best low-resolution logits
+    of the first call as the mask prompt."""
+    import numpy as np
+
+    points = np.array([[0.3 * w, 0.4 * h], [0.6 * w, 0.7 * h]], np.float32)
+    labels = np.array([1, 0], np.int32)
+    box = np.array([[0.2 * w, 0.2 * h, 0.7 * w, 0.8 * h]], np.float32)
+    return points, labels, box
+
+
+def sam_request(predictor, image):
+    """set_image, then the three prompt calls. Returns the results of the
+    calls, the launch counts of set_image and of the prompt calls, and
+    their CUDA-event times (ms)."""
+    import numpy as np
+
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    h, w = image.shape[:2]
+    points, labels, box = sam_prompts(h, w)
+    before = dict(dispatch.launch_counts)
+    set_ms = event_ms(lambda: predictor.set_image(image))
+    after_set = dict(dispatch.launch_counts)
+    results, prompt_ms = [], []
+
+    def call(**prompt):
+        results.append(predictor(**prompt))
+
+    prompt_ms.append(event_ms(lambda: call(points=points, labels=labels,
+                                           multimask_output=True)))
+    prompt_ms.append(event_ms(lambda: call(boxes=box, multimask_output=False)))
+    best = results[0][2][int(np.argmax(results[0][1]))][None]
+    prompt_ms.append(event_ms(lambda: call(points=points, labels=labels,
+                                           masks=best,
+                                           multimask_output=False)))
+    set_launches = {k: after_set[k] - before[k] for k in before}
+    prompt_launches = {k: dispatch.launch_counts[k] - after_set[k]
+                       for k in before}
+    return results, set_launches, prompt_launches, set_ms, prompt_ms
+
+
+def phase_sam_slice(reports, gpu_line):
+    import numpy as np
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.architectures.segment_anything import SAMPredictor
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(SAM, device="cuda", dtype=torch.bfloat16, seed=0)
+    sd = sam_state_dict(model, seed=16)
+    model.load_state_dict(sd)
+    predictor = SAMPredictor(model)
+    rng = np.random.default_rng(17)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in SAM_IMAGES]
+    sam_request(predictor, images[1])   # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    latencies = []
+    first = None      # image 0's embedding and first logits, on the CPU
+    for image in images:
+        results, set_l, prompt_l, set_ms, prompt_ms = sam_request(predictor,
+                                                                  image)
+        check(set_l == expected(**SAM_LAUNCHES), f"one set_image launched "
+              f"{set_l}, expected {SAM_LAUNCHES} and nothing else")
+        check(prompt_l == expected(), f"the prompt calls launched {prompt_l}")
+        emb = predictor.image_embedding
+        check(tuple(emb.shape) == (1, *model.grid_size(), model.cfg.embed_dim),
+              f"embedding shape {tuple(emb.shape)}")
+        check(bool(torch.isfinite(emb).all()), "non-finite image embedding")
+        h, w = image.shape[:2]
+        for (masks, scores, logits), k in zip(results, (3, 1, 1)):
+            check(masks.shape == (k, h, w) and masks.dtype == bool,
+                  f"masks {masks.shape} {masks.dtype}")
+            check(scores.shape == (k,)
+                  and logits.shape == (k, *model.mask_size()),
+                  f"scores {scores.shape}, logits {logits.shape}")
+            check(bool(np.isfinite(scores).all() and np.isfinite(logits).all()),
+                  "non-finite scores or logits")
+        if first is None:
+            first = (emb.float().cpu(), torch.from_numpy(results[0][2]))
+        latencies.append((set_ms, prompt_ms))
+        print(f"{SAM} request on a {h}x{w} uint8 image: set_image "
+              f"{set_ms!r} ms, prompt calls {prompt_ms!r} ms (CUDA events); "
+              f"launches {set_l['flash_attention_relpos']} + "
+              f"{prompt_l['flash_attention_relpos']}", flush=True)
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_sam"] = dispatch.launch_counts[name]
+    set_med = statistics.median(s for s, _ in latencies)
+    prompt_med = statistics.median(t for _, ts in latencies for t in ts)
+    print(f"{SAM} bf16 SAMPredictor: set_image {set_med!r} ms, prompt call "
+          f"{prompt_med!r} ms (medians over {len(images)} images) on "
+          f"{gpu_line}", flush=True)
+
+    # The same weights in f32 on the CPU, where the kernel wrapper runs its
+    # plain version and launches nothing: the first image's embedding and
+    # the first prompt call's low-resolution logits.
+    model32 = tfm.create_model(SAM, device="cpu", dtype=torch.float32, seed=0)
+    model32.load_state_dict(sd)
+    ref = SAMPredictor(model32)
+    points, labels, _ = sam_prompts(*SAM_IMAGES[0])
+    before = dict(dispatch.launch_counts)
+    ref.set_image(images[0])
+    ref_logits = ref(points=points, labels=labels, multimask_output=True)[2]
+    check(dispatch.launch_counts == before,
+          "the f32 CPU reference launched a kernel")
+    for name, got, want in (
+            ("image embedding", first[0], ref.image_embedding),
+            ("decoder logits", first[1], torch.from_numpy(ref_logits))):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"{SAM} {name}: bf16 kernel path vs f32 plain path on the CPU "
+              f"rel err {rel!r} (bar {SAM_TOL})", flush=True)
+        check(rel < SAM_TOL, f"{SAM} {name} rel err {rel} >= {SAM_TOL}")
+    del model32, ref
+
+    # Encoder throughput at batch 8 through forward_features.
+    pp = tfm.create_preprocessing(SAM, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    batch = pp(torch.randint(0, 256, (SAM_BATCH, *model.cfg.input_size, 3),
+                             generator=g, device="cuda", dtype=torch.uint8))
+
+    def encode():
+        with torch.inference_mode():
+            return model(batch, features_only=True)
+
+    before = dispatch.launch_counts["flash_attention_relpos"]
+    feats = encode()
+    torch.cuda.synchronize()
+    check(dispatch.launch_counts["flash_attention_relpos"]
+          == before + SAM_LAUNCHES["flash_attention_relpos"],
+          "a batch-8 encoder pass did not launch the kernel once per block")
+    check(bool(torch.isfinite(feats).all()), "non-finite batch-8 features")
+    ms = cuda_time_ms(encode, iters=3, repeats=3, warmup=1)
+    print(f"{SAM} encoder bs{SAM_BATCH} bf16 forward_features: {ms!r} ms, "
+          f"{SAM_BATCH / ms * 1e3!r} img/s on {gpu_line}", flush=True)
+
+    image = images[1]
+    wall_ms, groups, names = device_split(lambda: predictor.set_image(image),
+                                          steps=2)
+    busy_ms = sum(groups.values())
+    set_ms = latencies[1][0]
+    print(f"{SAM} set_image profile ({image.shape[0]}x{image.shape[1]}): "
+          f"device busy {busy_ms!r} ms; wall {wall_ms!r} ms under the "
+          f"profiler, {set_ms!r} ms without; device idle share "
+          f"{1.0 - busy_ms / set_ms!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{SAM} set_image profile: {group}: {ms!r} ms", flush=True)
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"{SAM} set_image profile kernel: {ms!r} ms {name[:150]}",
+              flush=True)
+
+
 def main(argv) -> int:
-    phases = list(range(2, 15))
+    all_phases = list(range(2, 17))
+    phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
-        if not set(phases) <= set(range(2, 15)):
-            print("chip_smoke: --phases takes numbers from 2 to 14",
+        if not set(phases) <= set(all_phases):
+            print("chip_smoke: --phases takes numbers from 2 to 16",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -2022,6 +2367,13 @@ def main(argv) -> int:
             "source": "tfimm_tpu_torch/csrc/cait_attention_bwd.cu",
             "replaces": "tfimm_tpu/ops/pallas/cait_attention.py:241",
             "work": f"bf16 (B, N, H, d) = {CAIT_BWD_SHAPES[0]}"}
+        reports["flash_attention_relpos"] = {
+            "name": "flash_attention_relpos", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/flash_attention_relpos.cu",
+            "replaces": "tfimm_tpu/ops/pallas/flash_attention_relpos.py:247",
+            "work": (f"bf16 (B, gh, gw, d) = {RELPOS_SHAPES[0]}: one {SAM} "
+                     f"global block of one 1024x1024 image; 'windowed': "
+                     f"{RELPOS_SHAPES[1]}, one windowed block")}
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
@@ -2042,6 +2394,9 @@ def main(argv) -> int:
             13: lambda: phase_cait_bwd_kernel(
                 reports["talking_head_attention_bwd"], gpu_line),
             14: lambda: phase_cait_train(reports, gpu_line),
+            15: lambda: phase_relpos_kernel(reports["flash_attention_relpos"],
+                                            gpu_line),
+            16: lambda: phase_sam_slice(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()
@@ -2055,11 +2410,12 @@ def main(argv) -> int:
     kernels = []
     for report in reports.values():
         report["launches"] = sum(report["launches_by_path"].values())
-        if phases != list(range(2, 15)) and not all(k in report for k in keys):
+        if phases != all_phases and not all(k in report for k in keys):
             continue   # a kernel the chosen phases did not measure
         entry = {k: report[k] for k in keys}
-        if "cublas_floor_ms" in report:
-            entry["cublas_floor_ms"] = report["cublas_floor_ms"]
+        for extra in ("cublas_floor_ms", "windowed"):
+            if extra in report:
+                entry[extra] = report[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,17 @@ window_mha and 1e-4 * max|plain| for swin_block, whose four products and
 two LayerNorms each sum in another order. window_mha_bwd: dq, dk, dv and
 dbias each within 2e-2 * max|plain| in bf16 (the kernel rounds p and ds to
 bf16 before their products) and 1e-4 * max|plain| in f32 (sums in another
-order; dbias sums over every window).
+order; dbias sums over every window). flash_attention_relpos: the output
+and the lse within 2e-2 * max|plain| in bf16 (the kernel rounds p to bf16
+relative to its running max, the plain version relative to the row's max)
+and 1e-5 * max|plain| in f32 (sums in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tfimm_tpu_torch.architectures.segment_anything import image_encoder
 from tfimm_tpu_torch.architectures.swin import _attention_mask
 from tfimm_tpu_torch.ops.conv import DepthwiseConv2d
 from tfimm_tpu_torch.ops.kernels.cait_attention import (
@@ -35,6 +39,11 @@ from tfimm_tpu_torch.ops.kernels import dispatch
 from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
     convnext_mlp,
     convnext_mlp_reference,
+)
+from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
+    flash_attention_relpos,
+    flash_attention_relpos_reference,
+    flash_attention_relpos_with_lse,
 )
 from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha,
@@ -515,3 +524,102 @@ def test_talking_head_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError):   # g of another dtype
         talking_head_attention_bwd(qkv, wl, bl, ww, bw, g.bfloat16(),
                                    nb_heads=4, scale=1.0)
+
+
+# (B, gh, gw, d): SAM-B's global blocks (12 heads of one image at 64 x 64)
+# and windowed blocks (25 windows x 12 heads at 14 x 14), SAM-H's head dim
+# (80, 16 heads), a grid with gh != gw, N = 49, and d = 8 and 128.
+RELPOS_SHAPES = [(12, 64, 64, 64), (300, 14, 14, 64), (16, 14, 14, 80),
+                 (2, 48, 64, 64), (4, 7, 7, 64), (3, 5, 9, 8), (2, 9, 7, 128)]
+
+
+def _relpos_inputs(b, gh, gw, d, dtype, device, seed, big=False):
+    """q, k, v normal; rel terms at std 2. With ``big``, query 0 of every
+    row points along keys 3 and 5: two of its scores near 300, far above
+    the clamp of 80 of the other attention kernels."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = gh * gw
+    q, k, v = (torch.randn(b, n, d, generator=gen, device=device)
+               for _ in range(3))
+    if big:
+        q[:, 0] = 300.0 / d ** 0.5 * (k[:, 3] + k[:, 5])
+    rh = 2.0 * torch.randn(b, n, gh, generator=gen, device=device)
+    rw = 2.0 * torch.randn(b, n, gw, generator=gen, device=device)
+    return [t.to(dtype) for t in (q, k, v, rh, rw)]
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b,gh,gw,d", RELPOS_SHAPES)
+def test_flash_attention_relpos_kernel_matches_plain(card, b, gh, gw, d, dtype,
+                                                     tol, big):
+    q, k, v, rh, rw = _relpos_inputs(b, gh, gw, d, dtype, card,
+                                     b * gh + gw * d, big)
+    kw = dict(grid_size=(gh, gw), scale=d ** -0.5)
+    before = dispatch.launch_counts["flash_attention_relpos"]
+    out, lse = flash_attention_relpos_with_lse(q, k, v, rh, rw, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["flash_attention_relpos"] == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    ref, ref_lse = flash_attention_relpos_reference(q, k, v, rh, rw, **kw)
+    for got, want in ((out, ref), (lse, ref_lse)):
+        want = want.float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), err
+    if big:
+        assert ref_lse[:, 0].min().item() > 100.0
+
+
+def test_flash_attention_relpos_reads_strided_inputs(card):
+    """q, k, v as slices of one packed tensor: the same output as from
+    contiguous copies."""
+    b, gh, gw, d = 4, 14, 14, 64
+    q, k, v, rh, rw = _relpos_inputs(b, gh, gw, d, torch.bfloat16, card, 3)
+    packed = torch.cat([q, k, v], dim=-1)
+    views = [packed[..., j * d:(j + 1) * d] for j in range(3)]
+    assert not views[1].is_contiguous()
+    kw = dict(grid_size=(gh, gw), scale=d ** -0.5)
+    assert torch.equal(flash_attention_relpos(*views, rh, rw, **kw),
+                       flash_attention_relpos(q, k, v, rh, rw, **kw))
+
+
+def test_flash_attention_relpos_refuses_what_it_does_not_take(card):
+    q, k, v, rh, rw = _relpos_inputs(2, 4, 4, 64, torch.float32, card, 0)
+    kw = dict(grid_size=(4, 4), scale=0.125)
+    with pytest.raises(ValueError):   # f16
+        flash_attention_relpos(*(t.half() for t in (q, k, v, rh, rw)), **kw)
+    with pytest.raises(ValueError):   # N != gh * gw
+        flash_attention_relpos(q, k, v, rh, rw, grid_size=(4, 5), scale=0.125)
+    with pytest.raises(ValueError):   # d = 60
+        flash_attention_relpos(q[..., :60], k[..., :60], v[..., :60], rh, rw,
+                               **kw)
+    with pytest.raises(ValueError):   # mixed devices
+        flash_attention_relpos(q, k, v, rh.cpu(), rw, **kw)
+    with pytest.raises(ValueError):   # rel terms of the wrong shape
+        flash_attention_relpos(q, k, v, rw, rh[..., :3], **kw)
+    with pytest.raises(NotImplementedError, match="queue B, item 10"):
+        flash_attention_relpos(q.requires_grad_(), k, v, rh, rw, **kw)
+
+
+def test_sam_attention_gate_on_the_card(card):
+    """Outside autograd both block kinds launch the kernel; under autograd a
+    window runs eager (no launch) and a global block raises until the
+    backward kernel is ported (ROADMAP.md, queue B, item 10)."""
+    window = image_encoder.RelPosAttention(True, 64, 2, True, True, 0.0, 0.0,
+                                           (14, 14)).to(card)
+    glob = image_encoder.RelPosAttention(True, 64, 2, True, True, 0.0, 0.0,
+                                         (32, 32)).to(card)
+    x_w = torch.randn(3, 14, 14, 64, device=card)
+    x_g = torch.randn(1, 32, 32, 64, device=card)
+    for module, x in ((window, x_w), (glob, x_g)):
+        before = dispatch.launch_counts["flash_attention_relpos"]
+        with torch.no_grad():
+            module(x)
+        assert dispatch.launch_counts["flash_attention_relpos"] == before + 1
+    before = dispatch.launch_counts["flash_attention_relpos"]
+    window(x_w).sum().backward()
+    assert dispatch.launch_counts["flash_attention_relpos"] == before
+    assert window.rel_pos_h.grad is not None
+    with pytest.raises(NotImplementedError, match="queue B, item 10"):
+        glob(x_g)

@@ -27,6 +27,7 @@ import torch
 import yaml
 
 import tfimm_tpu
+import tfimm_tpu.architectures.segment_anything  # noqa: F401
 import tfimm_tpu.train as jtrain
 import tfimm_tpu_torch
 import tfimm_tpu_torch.train as ttrain
@@ -296,15 +297,24 @@ def _l2_model(family):
     "cait": ("cait_xxs24_224", dict(input_size=(32, 32), patch_size=8,
                                     embed_dim=128, nb_blocks=2, nb_heads=4,
                                     nb_classes=7)),
+    "sam": ("sam_vit_b", dict(input_size=(64, 64), encoder_embed_dim=16,
+                              encoder_nb_blocks=2, encoder_nb_heads=2,
+                              embed_dim=16, encoder_global_attn_indices=(1,),
+                              encoder_window_size=2, prompt_mask_hidden_dim=8,
+                              decoder_nb_blocks=1, decoder_nb_heads=2,
+                              decoder_mlp_channels=16,
+                              decoder_iou_hidden_dim=8)),
     }[family]
 
 
-@pytest.mark.parametrize("family", ["cait", "convnext", "swin", "vit"])
+@pytest.mark.parametrize("family", ["cait", "convnext", "sam", "swin", "vit"])
 def test_l2_covers_the_jax_kernel_leaves(family):
     """The L2 penalty covers exactly the JAX package's ``kernel`` leaves
-    (Dense, Conv2d and ConvNeXt's depthwise conv; CaiT's proj_l and proj_w)
-    and not LayerNorm's ``weight``: the same set of parameters and the same
-    sum of squares on the same seeded weights, within 1e-6."""
+    (Dense, Conv2d and ConvNeXt's depthwise conv; CaiT's proj_l and proj_w;
+    SAM's transposed convs) and not LayerNorm's ``weight``, nor SAM's
+    embedding tables, position embedding and rel-pos tables: the same set
+    of parameters and the same sum of squares on the same seeded weights,
+    within 1e-6."""
     name, cfg = _l2_model(family)
     params = _seeded(tfimm_tpu.create_model(name, **cfg).params, 11)
     tm = tfimm_tpu_torch.create_model(name, device="cpu", **cfg)

@@ -4,3 +4,4 @@ from tfimm_tpu_torch.architectures.convnext import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.vit import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.swin import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.cait import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.segment_anything import *  # noqa: F401,F403

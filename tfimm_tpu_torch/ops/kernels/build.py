@@ -162,6 +162,18 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_talking_head_bwd.restype = ctypes.c_int
+    lib.tfimm_flash_attention_relpos_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q (scaled), k, v
+        ctypes.c_int64, ctypes.c_int64,  # q batch and row strides
+        ctypes.c_int64, ctypes.c_int64,  # k batch and row strides
+        ctypes.c_int64, ctypes.c_int64,  # v batch and row strides
+        ctypes.c_void_p, ctypes.c_void_p,  # rel_h_term (B, N, gh), rel_w_term
+        ctypes.c_void_p, ctypes.c_void_p,  # out, f32 lse (B, N)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, d
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gh, gw, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_flash_attention_relpos_fwd.restype = ctypes.c_int
     return lib
 
 

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.basic import Dense
-from tfimm_tpu_torch.ops.conv import Conv2d, DepthwiseConv2d
+from tfimm_tpu_torch.ops.conv import Conv2d, ConvTranspose2d, DepthwiseConv2d
 
 __all__ = ["cross_entropy_loss", "make_train_step", "l2_weights"]
 
@@ -41,13 +41,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # The port's modules whose JAX counterparts hold a ``kernel`` leaf.
-_KERNEL_MODULES = (Dense, Conv2d, DepthwiseConv2d)
+_KERNEL_MODULES = (Dense, Conv2d, DepthwiseConv2d, ConvTranspose2d)
 
 
 def l2_weights(model: nn.Module) -> List[torch.Tensor]:
     """The weights the L2 penalty covers: the JAX package's ``kernel``
-    leaves, i.e. the weights of Dense, Conv2d and DepthwiseConv2d layers
-    (CaiT's head mixes ``proj_l`` and ``proj_w`` are Dense). Norm
+    leaves, i.e. the weights of Dense, Conv2d, DepthwiseConv2d and
+    ConvTranspose2d (SAM) layers (CaiT's head mixes ``proj_l`` and
+    ``proj_w`` are Dense). Norm
     parameters, biases, layer scales, tokens and position embeddings are
     left out (LayerNorm's parameter is also called ``weight``)."""
     return [m.weight for m in model.modules()

@@ -7,7 +7,9 @@ leaf rename, plus a layout transpose for ``kernel`` leaves:
 
     kernel -> weight    2-D (in, out) -> (out, in); 4-D HWIO -> OIHW
                         (a depthwise (kh, kw, 1, C) -> (C, 1, kh, kw));
-                        3-D WIO -> OIW
+                        3-D WIO -> OIW; SAM's transposed convs
+                        (``output_upscaling``, (kh, kw, I, O) in PyTorch's
+                        tap order) -> (I, O, kh, kw), with no flip
     scale  -> weight
     mean   -> running_mean
     var    -> running_var
@@ -33,6 +35,7 @@ _LEAF_RENAMES = {
 }
 
 _KERNEL_TRANSPOSES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_CONV_TRANSPOSE_KERNEL = (2, 3, 0, 1)
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -54,7 +57,10 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             if arr.ndim not in _KERNEL_TRANSPOSES:
                 raise ValueError(f"{path}: no layout rule for a {arr.ndim}-D kernel")
-            arr = arr.transpose(_KERNEL_TRANSPOSES[arr.ndim])
+            if arr.ndim == 4 and "output_upscaling" in path:
+                arr = arr.transpose(_CONV_TRANSPOSE_KERNEL)
+            else:
+                arr = arr.transpose(_KERNEL_TRANSPOSES[arr.ndim])
         leaf = _LEAF_RENAMES.get(leaf, leaf)
         key = f"{head}.{leaf}" if head else leaf
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -142,13 +142,38 @@ which ends the run with a non-zero exit code on failure:
    latencies (CUDA events), the encoder's rate at batch 8 through
    ``forward_features``, and a ``torch.profiler`` split of one
    ``set_image``.
+17. ``flash_attention_relpos_bwd`` against its plain version on the card at
+   phase 15's shapes (SAM-B's global and windowed blocks, the edges, a row
+   whose scores pass 80), in bf16 and f32 with TF32 off: dq, dk, dv, drh
+   and drw within 2e-2 and 1e-4 of the largest plain value. Control: the
+   plain backward without the bias must miss the bar by
+   ``CONTROL_FACTOR``; two calls must be bit-identical. Kernel (delta and
+   its two launches), plain, bound times at the two SAM-B shapes, and the
+   backward of ``F.scaled_dot_product_attention`` with the bias as a bf16
+   float mask that requires grad, plus the two sums that give drh and drw.
+18. SAM fine-tuning: ``create_model("sam_vit_b")`` on the card with the
+   seeded weights of phase 16 in f32, run in bf16 (inputs in bf16, AdamW on
+   the f32 parameters). (a) The encoder step at bs1, as the JAX package
+   measures it: ``model.train()``, ``model(x, features_only=True)``, the
+   f32 mean, ``backward()`` and one AdamW step, 6 times. Every step must
+   launch the forward and the backward kernel 4 times each (the global
+   blocks; the windows run eager in training); losses, gradients and
+   parameters finite; the seeded weights' gradients of two parameters in
+   bf16 on the card within 1e-1 of f32 on the CPU. Step time over steps
+   2-6 (CUDA events) and a profile with the device's idle share. (b) The
+   gradient through the eval-mode model: 12 + 12 launches, the pass's time
+   and idle share. (c) The whole model (encoder, prompt encoder, mask
+   decoder) on 2 images with one box each, ``multimask_output=False``, BCE
+   of the low-resolution logits against the boxes' masks, AdamW for 6
+   steps: 4 + 4 launches a step, the loss must fall; step time and idle
+   share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --phases 15,16
+    python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-16) alone, for a quicker look at one
+runs phase 1 and the phases named (2-18) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -255,13 +280,33 @@ SAM_IMAGES = [(1200, 1800), (1024, 1024), (500, 700)]
 SAM_LAUNCHES = {"flash_attention_relpos": 12}
 SAM_BATCH = 8
 SAM_TOL = 5e-2
+# flash_attention_relpos_bwd: dq, dk, dv, drh, drw against the plain
+# backward (bf16 rounds p and ds before their products; f32 sums in another
+# order).
+RELPOS_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# SAM fine-tuning: the encoder step at bs1 as the JAX package measures it
+# (scripts/perf/sam_encoder_sweep.py), the eval-mode gradient pass, and the
+# whole model (2 images, one box each) for 6 AdamW steps. bf16 compute with
+# f32 parameters and AdamW state, as train.run's mixed precision.
+SAM_TRAIN_STEPS = 6
+SAM_TRAIN_LR = 1e-4
+SAM_TRAIN_WEIGHT_DECAY = 0.1
+SAM_TRAIN_LAUNCHES = {"flash_attention_relpos": 4,
+                      "flash_attention_relpos_bwd": 4}
+SAM_EVAL_LAUNCHES = {"flash_attention_relpos": 12,
+                     "flash_attention_relpos_bwd": 12}
+SAM_GRAD_PARAMS = ("image_encoder.blocks.2.attn.rel_pos_h",
+                   "image_encoder.blocks.0.attn.qkv.weight")
+SAM_FINETUNE_IMAGES = 2
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # Device-time groups of a training step or a request, by kernel name (first
 # match).
-KERNEL_GROUPS = [("rel-pos flash attention (flash_attention_relpos.cu)",
+KERNEL_GROUPS = [("rel-pos flash attention backward "
+                  "(flash_attention_relpos_bwd.cu)", ("relpos_bwd",)),
+                 ("rel-pos flash attention (flash_attention_relpos.cu)",
                   ("relpos_fwd",)),
                  ("talking-head attention backward (cait_attention_bwd.cu)",
                   ("rows_kernel", "keys_kernel", "mix_sum_kernel")),
@@ -2277,13 +2322,388 @@ def phase_sam_slice(reports, gpu_line):
               flush=True)
 
 
+def relpos_bwd_bound(b, gh, gw, d):
+    """qs, k, v, out, do and the rel terms read, dq, dk, dv, drh and drw
+    written once (bf16), the f32 lse read; the five products."""
+    n = gh * gw
+    return bound(2 * (8 * b * n * d + 2 * b * n * (gh + gw)) + 4 * b * n,
+                 10 * b * n * n * d)
+
+
+def relpos_bwd_inputs(b, gh, gw, d, dtype, seed, big=False):
+    """The backward's inputs on the card: qs, k, v, the rel terms, the
+    kernel forward's out and lse, and a normal cotangent do."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
+        flash_attention_relpos_with_lse,
+        scale_query,
+    )
+
+    q, k, v, rh, rw = relpos_inputs(b, gh, gw, d, dtype, seed, big)
+    scale = d ** -0.5
+    out, lse = flash_attention_relpos_with_lse(q, k, v, rh, rw,
+                                               grid_size=(gh, gw), scale=scale)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return scale_query(q, scale), k, v, rh, rw, out, lse, do
+
+
+def sdpa_relpos_backward_ms(args, grid):
+    """(ms, backend) of the backward of ``F.scaled_dot_product_attention``
+    on (1, B, N, d) operands with the bias as a bf16 float mask that
+    requires grad, plus the two sums that reduce the mask's gradient to drh
+    and drw. The first SDPA backend (memory-efficient, then math) that
+    returns a mask gradient is timed; None where none does."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qs, k, v, rh, rw, _, _, do = args
+    gh, gw = grid
+    b, n, _ = qs.shape
+    leaves = [t.detach()[None].requires_grad_() for t in (qs, k, v)]
+    mask = (rh[..., :, None] + rw[..., None, :]).reshape(1, b, n, n)
+    mask = mask.detach().requires_grad_()
+    failures = []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                     scale=1.0)
+
+                def call():
+                    grads = torch.autograd.grad(out, (*leaves, mask), do[None],
+                                                retain_graph=True)
+                    dm = grads[3].reshape(b, n, gh, gw)
+                    return grads[:3], dm.sum(-1), dm.sum(-2)
+
+                call()
+                return cuda_time_ms(call, iters=10), backend.name
+        except RuntimeError as e:
+            failures.append(f"{backend.name}: {str(e).splitlines()[0][:120]}")
+    print(f"flash_attention_relpos_bwd: no SDPA backend gave a mask gradient: "
+          f"{failures}", flush=True)
+    return None, None
+
+
+def phase_relpos_bwd_kernel(report, gpu_line):
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
+        flash_attention_relpos_bwd,
+        flash_attention_relpos_bwd_reference,
+    )
+
+    names = ("dq", "dk", "dv", "drh", "drw")
+    cases = [(shape, False) for shape in RELPOS_SHAPES + RELPOS_EDGES]
+    cases.append((RELPOS_BIG, True))
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, ((b, gh, gw, d), big) in enumerate(cases):
+            args = relpos_bwd_inputs(b, gh, gw, d, dtype, 1700 + i, big)
+            kw = dict(grid_size=(gh, gw))
+            what = f"{dname:8s} B={b} grid={gh}x{gw} d={d}{' big' if big else ''}"
+            got = flash_attention_relpos_bwd(*args, **kw)
+            ref = flash_attention_relpos_bwd_reference(*args, **kw)
+            torch.cuda.synchronize()
+            bars = []
+            for name, a, r in zip(names, got, ref):
+                err, bar, ok = held(a, r, RELPOS_BWD_TOL[dname])
+                bars.append(bar)
+                print(f"flash_attention_relpos_bwd {what} {name}: "
+                      f"max_abs_err={err!r} bar={bar!r} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"flash_attention_relpos_bwd {name} disagrees with "
+                      f"its plain version ({what}): {err} > {bar}")
+                if dtype == torch.bfloat16 and i < len(RELPOS_SHAPES):
+                    worst = max(worst, err)
+            if dtype == torch.bfloat16 and i == 1:
+                # Control: the plain backward without the bias must miss the
+                # bar by far; two calls must be bit-identical.
+                qs, k, v, rh, rw, out, lse, do = args
+                no_bias = flash_attention_relpos_bwd_reference(
+                    qs, k, v, torch.zeros_like(rh), torch.zeros_like(rw), out,
+                    lse, do, **kw)
+                misses = [(a.float() - r.float()).abs().max().item() / bar
+                          for a, r, bar in zip(got, no_bias, bars)]
+                print(f"flash_attention_relpos_bwd control {what}: without "
+                      f"the bias {dict(zip(names, misses))} bars off",
+                      flush=True)
+                check(min(misses) > CONTROL_FACTOR, "flash_attention_relpos_"
+                      "bwd: leaving the bias out stays within the bar")
+                again = flash_attention_relpos_bwd(*args, **kw)
+                same = all(torch.equal(a, r) for a, r in zip(got, again))
+                print(f"flash_attention_relpos_bwd {what}: a second call is "
+                      f"bit-identical: {same}", flush=True)
+                check(same, "flash_attention_relpos_bwd is not deterministic")
+                del no_bias, again
+            del args, got, ref
+    report["max_abs_err"] = worst
+
+    for j, (b, gh, gw, d) in enumerate(RELPOS_SHAPES):
+        args = relpos_bwd_inputs(b, gh, gw, d, torch.bfloat16, 1800 + j)
+        kw = dict(grid_size=(gh, gw))
+        times = {
+            "ms": cuda_time_ms(lambda: flash_attention_relpos_bwd(*args, **kw)),
+            "plain_ms": cuda_time_ms(
+                lambda: flash_attention_relpos_bwd_reference(*args, **kw),
+                iters=5),
+        }
+        times["library_ms"], backend = sdpa_relpos_backward_ms(args, (gh, gw))
+        times["bound_ms"], times["bound_by"] = relpos_bwd_bound(b, gh, gw, d)
+        kind = "global" if j == 0 else "windowed"
+        if j == 0:
+            report.update(times)
+        else:
+            report["windowed"] = times
+        print(f"flash_attention_relpos_bwd bf16 {kind} (B, gh, gw, d) = "
+              f"{(b, gh, gw, d)}: kernel (delta and two launches) "
+              f"{times['ms']!r} ms, {times['bound_ms'] / times['ms']!r} of "
+              f"the bound {times['bound_ms']!r} ms ({times['bound_by']}); "
+              f"plain {times['plain_ms']!r} ms; scaled_dot_product_attention "
+              f"backward with a float mask that requires grad ({backend}) "
+              f"and the two sums {times['library_ms']!r} ms; on {gpu_line}",
+              flush=True)
+        del args
+
+
+def launches_of(fn):
+    """(fn's result, the kernel launches it made)."""
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    before = dict(dispatch.launch_counts)
+    out = fn()
+    return out, {k: dispatch.launch_counts[k] - before[k] for k in before}
+
+
+def timed_steps(step, launches, what):
+    """``step`` SAM_TRAIN_STEPS times, each between CUDA events and each
+    held to ``launches``. Returns the step times (ms) and the run's launch
+    counts, which start at 0 just before it."""
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    times = []
+    dispatch.reset_launch_counts()
+    for it in range(SAM_TRAIN_STEPS):
+        ms, rose = launches_of(lambda: event_ms(step))
+        times.append(ms)
+        check(rose == expected(**launches), f"{what} {it} launched {rose}, "
+              f"expected {launches}")
+    return times, dict(dispatch.launch_counts)
+
+
+def profile_idle(what, fn, step_ms, steps=2):
+    """A ``torch.profiler`` split of ``fn``: device busy time and the idle
+    share against ``step_ms``, the call's time without the profiler."""
+    wall_ms, groups, names = device_split(fn, steps=steps)
+    busy_ms = sum(groups.values())
+    print(f"{what} profile: device busy {busy_ms!r} ms; wall {wall_ms!r} ms "
+          f"under the profiler, {step_ms!r} ms without; device idle share "
+          f"{1.0 - busy_ms / step_ms!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{what} profile: {group}: {ms!r} ms", flush=True)
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"{what} profile kernel: {ms!r} ms {name[:150]}", flush=True)
+
+
+def sam_finetune_batch(model, pp):
+    """SAM_FINETUNE_IMAGES seeded uint8 1024x1024 images, one box each (no
+    points, no mask prompt), and a target mask: 1 inside each box on the
+    low-resolution grid."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(19)
+    n = SAM_FINETUNE_IMAGES
+    size = model.cfg.input_size
+    images = rng.integers(0, 256, (n, *size, 3), dtype=np.uint8)
+    lo = rng.uniform(0.1, 0.4, (n, 2)) * size[0]
+    hi = lo + rng.uniform(0.3, 0.5, (n, 2)) * size[0]
+    boxes = np.concatenate([lo, hi], axis=1)[:, None].astype(np.float32)
+    mh, mw = model.mask_size()
+    ys = (np.arange(mh) + 0.5) * size[0] / mh
+    xs = (np.arange(mw) + 0.5) * size[1] / mw
+    target = np.zeros((n, 1, mh, mw), np.float32)
+    for i, (x0, y0, x1, y1) in enumerate(boxes[:, 0]):
+        target[i, 0] = ((ys[:, None] >= y0) & (ys[:, None] <= y1)
+                        & (xs[None] >= x0) & (xs[None] <= x1))
+    inputs = {"images": pp(torch.from_numpy(images)),
+              "points": torch.zeros(n, 0, 2, device="cuda"),
+              "labels": torch.zeros(n, 0, dtype=torch.int32, device="cuda"),
+              "boxes": torch.from_numpy(boxes).to("cuda"),
+              "masks": torch.zeros(n, 0, mh, mw, device="cuda")}
+    return inputs, torch.from_numpy(target).to("cuda")
+
+
+def phase_sam_train(reports, gpu_line):
+    import torch
+    import torch.nn.functional as F
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.train import OptimizerConfig, OptimizerFactory
+    from tfimm_tpu_torch.train.optimizers import constant_schedule
+
+    def adamw(params):
+        cfg = OptimizerConfig(optimizer="adamw",
+                              weight_decay=SAM_TRAIN_WEIGHT_DECAY)
+        return OptimizerFactory(cfg, timekeeping=None).optimizer(
+            params, constant_schedule(SAM_TRAIN_LR))
+
+    model = tfm.create_model(SAM, device="cuda", dtype=torch.float32, seed=0)
+    sd = sam_state_dict(model, seed=18)
+    model.load_state_dict(sd)
+    pp = tfm.create_preprocessing(SAM, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x = pp(torch.randint(0, 256, (1, *model.cfg.input_size, 3), generator=g,
+                         device="cuda", dtype=torch.uint8))
+    path_counts = dict.fromkeys(dispatch.launch_counts, 0)
+
+    def add_path(counts):
+        for k, c in counts.items():
+            path_counts[k] += c
+
+    # (1) The encoder fine-tuning step at bs1, as the JAX package measures
+    # it: the f32 mean of the embedding in training mode, then AdamW.
+    model.train()
+    opt = adamw(model.image_encoder.parameters())
+    losses = []
+
+    def encoder_step():
+        opt.zero_grad()
+        loss = model(x, features_only=True).float().mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    step_ms, counts = timed_steps(encoder_step, SAM_TRAIN_LAUNCHES,
+                                  "encoder step")
+    add_path(counts)
+    losses = [loss.item() for loss in losses]
+    check(all(math.isfinite(loss) for loss in losses),
+          f"non-finite encoder losses {losses}")
+    params = list(model.image_encoder.parameters())
+    check(all(bool(torch.isfinite(p.grad).all()) for p in params),
+          "a non-finite encoder gradient")
+    check(all(bool(torch.isfinite(p).all()) for p in params),
+          "a non-finite encoder parameter after the steps")
+    timed = step_ms[1:]
+    enc_ms = sum(timed) / len(timed)
+    print(f"{SAM} encoder fine-tuning step bs1 1024x1024 bf16 (f32 "
+          f"parameters, AdamW): {enc_ms!r} ms a step over steps "
+          f"2-{SAM_TRAIN_STEPS} (CUDA events; steps {step_ms!r}), "
+          f"{1e3 / enc_ms!r} img/s; launches "
+          f"{SAM_TRAIN_LAUNCHES} a step; losses {losses!r}; on {gpu_line}",
+          flush=True)
+    profile_idle(f"{SAM} encoder fine-tuning step", encoder_step, enc_ms)
+
+    # The seeded weights' gradients: bf16 on the card against f32 on the
+    # CPU (the plain versions: the window eager, the global blocks through
+    # the plain forward and backward).
+    def encoder_grads(m, inputs):
+        m.zero_grad(set_to_none=True)
+        loss, rose = launches_of(
+            lambda: m(inputs, features_only=True).float().mean())
+        loss.backward()
+        named = dict(m.named_parameters())
+        return loss.item(), {n: named[n].grad.float().cpu()
+                             for n in SAM_GRAD_PARAMS}, rose
+
+    model.load_state_dict(sd)
+    loss_k, grads_k, _ = encoder_grads(model, x)
+    model32 = tfm.create_model(SAM, device="cpu", dtype=torch.float32, seed=0)
+    model32.load_state_dict(sd)
+    model32.train()
+    t0 = time.perf_counter()
+    loss_r, grads_r, rose = encoder_grads(model32, x.float().cpu())
+    check(rose == expected(), f"the f32 CPU reference launched {rose}")
+    print(f"{SAM} encoder gradient: f32 reference on the CPU took "
+          f"{time.perf_counter() - t0!r} s; loss bf16 {loss_k!r} vs f32 "
+          f"{loss_r!r}", flush=True)
+    for name in SAM_GRAD_PARAMS:
+        ref = grads_r[name]
+        rel = ((grads_k[name] - ref).abs().max() / ref.abs().max()).item()
+        print(f"{SAM} encoder grad {name}: bf16 kernel path vs f32 plain "
+              f"path on the CPU max|diff| / max|ref| {rel!r} (bar 1e-1)",
+              flush=True)
+        check(rel < 1e-1, f"{name} gradient rel err {rel} >= 1e-1")
+        check(ref.abs().max().item() > 0, f"{name}: zero reference gradient")
+    del model32, grads_r
+
+    # (2) A gradient through the eval-mode model: every block takes the
+    # kernel, the windows (B = 300, N = 196) too.
+    model.eval()
+
+    def eval_grad():
+        model.zero_grad(set_to_none=True)
+        model(x, features_only=True).float().mean().backward()
+
+    eval_grad()
+    dispatch.reset_launch_counts()
+    eval_ms = event_ms(eval_grad)
+    rose = dict(dispatch.launch_counts)
+    check(rose == expected(**SAM_EVAL_LAUNCHES), f"the eval-mode gradient "
+          f"pass launched {rose}, expected {SAM_EVAL_LAUNCHES}")
+    add_path(rose)
+    check(all(bool(torch.isfinite(p.grad).all()) for p in params),
+          "a non-finite eval-mode gradient")
+    eval_ms = statistics.median([eval_ms] + [event_ms(eval_grad)
+                                            for _ in range(2)])
+    print(f"{SAM} eval-mode gradient pass bs1 1024x1024 bf16: {eval_ms!r} ms "
+          f"(CUDA events, median of 3); launches {SAM_EVAL_LAUNCHES}; on "
+          f"{gpu_line}", flush=True)
+    profile_idle(f"{SAM} eval-mode gradient pass", eval_grad, eval_ms)
+
+    # (3) Whole-model fine-tuning: encoder, prompt encoder and mask decoder,
+    # one box per image, BCE of the low-resolution logits, AdamW.
+    model.load_state_dict(sd)
+    model.train()
+    opt = adamw(model.parameters())
+    inputs, target = sam_finetune_batch(model, pp)
+    losses = []
+
+    def sam_step():
+        opt.zero_grad()
+        _, _, logits = model(inputs, multimask_output=False,
+                             return_logits=True)
+        loss = F.binary_cross_entropy_with_logits(logits.float(), target)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    step_ms, counts = timed_steps(sam_step, SAM_TRAIN_LAUNCHES,
+                                  "fine-tuning step")
+    add_path(counts)
+    losses = [loss.item() for loss in losses]
+    check(all(math.isfinite(loss) for loss in losses),
+          f"non-finite fine-tuning losses {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          "a non-finite parameter after fine-tuning")
+    print(f"{SAM} fine-tuning losses (BCE of the low-resolution logits, "
+          f"{SAM_FINETUNE_IMAGES} images, one box each): {losses!r}",
+          flush=True)
+    check(losses[-1] < losses[0], f"the fine-tuning loss did not fall: "
+          f"{losses}")
+    timed = step_ms[1:]
+    ft_ms = sum(timed) / len(timed)
+    print(f"{SAM} whole-model fine-tuning step bs{SAM_FINETUNE_IMAGES} bf16 "
+          f"(f32 parameters, AdamW): {ft_ms!r} ms a step over steps "
+          f"2-{SAM_TRAIN_STEPS} (steps {step_ms!r}); on {gpu_line}",
+          flush=True)
+    profile_idle(f"{SAM} whole-model fine-tuning step", sam_step, ft_ms)
+    for name, report in reports.items():
+        report["launches_by_path"]["train_sam"] = path_counts[name]
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 17))
+    all_phases = list(range(2, 19))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 16",
+            print("chip_smoke: --phases takes numbers from 2 to 18",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -2374,6 +2794,13 @@ def main(argv) -> int:
             "work": (f"bf16 (B, gh, gw, d) = {RELPOS_SHAPES[0]}: one {SAM} "
                      f"global block of one 1024x1024 image; 'windowed': "
                      f"{RELPOS_SHAPES[1]}, one windowed block")}
+        reports["flash_attention_relpos_bwd"] = {
+            "name": "flash_attention_relpos_bwd", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/flash_attention_relpos_bwd.cu",
+            "replaces": "tfimm_tpu/ops/pallas/flash_attention_relpos.py:617",
+            "work": (f"bf16 (B, gh, gw, d) = {RELPOS_SHAPES[0]}: one {SAM} "
+                     f"global block's backward (delta and two launches, "
+                     f"counted as one); 'windowed': {RELPOS_SHAPES[1]}")}
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
@@ -2397,6 +2824,9 @@ def main(argv) -> int:
             15: lambda: phase_relpos_kernel(reports["flash_attention_relpos"],
                                             gpu_line),
             16: lambda: phase_sam_slice(reports, gpu_line),
+            17: lambda: phase_relpos_bwd_kernel(
+                reports["flash_attention_relpos_bwd"], gpu_line),
+            18: lambda: phase_sam_train(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()

@@ -18,7 +18,10 @@ bf16 before their products) and 1e-4 * max|plain| in f32 (sums in another
 order; dbias sums over every window). flash_attention_relpos: the output
 and the lse within 2e-2 * max|plain| in bf16 (the kernel rounds p to bf16
 relative to its running max, the plain version relative to the row's max)
-and 1e-5 * max|plain| in f32 (sums in another order).
+and 1e-5 * max|plain| in f32 (sums in another order). Its backward: dq,
+dk, dv, drh and drw each within 2e-2 * max|plain| in bf16 (the kernel rounds
+p and ds to bf16 before their products) and 1e-4 * max|plain| in f32 (sums
+in another order; drh and drw sum over whole key rows and columns).
 """
 
 import numpy as np
@@ -40,10 +43,14 @@ from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
     convnext_mlp,
     convnext_mlp_reference,
 )
+from tfimm_tpu_torch.core import Context
 from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
     flash_attention_relpos,
+    flash_attention_relpos_bwd,
+    flash_attention_relpos_bwd_reference,
     flash_attention_relpos_reference,
     flash_attention_relpos_with_lse,
+    scale_query,
 )
 from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha,
@@ -598,28 +605,116 @@ def test_flash_attention_relpos_refuses_what_it_does_not_take(card):
         flash_attention_relpos(q, k, v, rh.cpu(), rw, **kw)
     with pytest.raises(ValueError):   # rel terms of the wrong shape
         flash_attention_relpos(q, k, v, rw, rh[..., :3], **kw)
-    with pytest.raises(NotImplementedError, match="queue B, item 10"):
-        flash_attention_relpos(q.requires_grad_(), k, v, rh, rw, **kw)
+    out, lse = flash_attention_relpos_with_lse(q, k, v, rh, rw, **kw)
+    bwd = (q, k, v, rh, rw, out, lse, torch.randn_like(out))
+    with pytest.raises(ValueError):   # do of another dtype
+        flash_attention_relpos_bwd(*bwd[:7], bwd[7].bfloat16(),
+                                   grid_size=(4, 4))
+    with pytest.raises(ValueError):   # an f64 lse
+        flash_attention_relpos_bwd(*bwd[:6], lse.double(), bwd[7],
+                                   grid_size=(4, 4))
+    with pytest.raises(ValueError):   # N != gh * gw
+        flash_attention_relpos_bwd(*bwd, grid_size=(2, 4))
+
+
+def _relpos_bwd_case(b, gh, gw, d, dtype, device, seed, big=False):
+    """The backward's inputs: qs, k, v, the rel terms, the kernel forward's
+    out and lse, and a normal cotangent do."""
+    q, k, v, rh, rw = _relpos_inputs(b, gh, gw, d, dtype, device, seed, big)
+    scale = d ** -0.5
+    out, lse = flash_attention_relpos_with_lse(q, k, v, rh, rw,
+                                               grid_size=(gh, gw), scale=scale)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+    return scale_query(q, scale), k, v, rh, rw, out, lse, do
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,gh,gw,d", RELPOS_SHAPES)
+def test_flash_attention_relpos_bwd_kernel_matches_plain(card, b, gh, gw, d,
+                                                         dtype, tol, big):
+    args = _relpos_bwd_case(b, gh, gw, d, dtype, card, b * gw + gh * d, big)
+    kw = dict(grid_size=(gh, gw))
+    before = dict(dispatch.launch_counts)
+    got = flash_attention_relpos_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {
+        **before, "flash_attention_relpos_bwd":
+        before["flash_attention_relpos_bwd"] + 1}
+    want = flash_attention_relpos_bwd_reference(*args, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        w = w.float()
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (name, err)
+        assert bool(torch.isfinite(g).all()), name
+
+
+def test_flash_attention_relpos_bwd_reads_strided_inputs_and_repeats(card):
+    """qs, k, v as slices of one packed tensor give the gradients of
+    contiguous copies, and two calls are bit-identical."""
+    b, gh, gw, d = 24, 14, 14, 64
+    qs, k, v, rh, rw, out, lse, do = _relpos_bwd_case(
+        b, gh, gw, d, torch.bfloat16, card, 5)
+    packed = torch.cat([qs, k, v], dim=-1)
+    views = [packed[..., j * d:(j + 1) * d] for j in range(3)]
+    assert not views[1].is_contiguous()
+    kw = dict(grid_size=(gh, gw))
+    first = flash_attention_relpos_bwd(qs, k, v, rh, rw, out, lse, do, **kw)
+    again = flash_attention_relpos_bwd(qs, k, v, rh, rw, out, lse, do, **kw)
+    strided = flash_attention_relpos_bwd(*views, rh, rw, out, lse, do, **kw)
+    for a, b_, c in zip(first, again, strided):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+def test_flash_attention_relpos_gives_gradients_through_the_kernels(card):
+    """autograd through the Function: one forward and one backward launch,
+    the gradients of autograd through the plain forward (f32)."""
+    q, k, v, rh, rw = _relpos_inputs(6, 7, 7, 32, torch.float32, card, 8)
+    kw = dict(grid_size=(7, 7), scale=32 ** -0.5)
+    do = torch.randn_like(q)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, rh, rw)]
+        out = fn(*leaves, **kw)
+        (out[0] if isinstance(out, tuple) else out).backward(do)
+        return [t.grad for t in leaves]
+
+    before = dict(dispatch.launch_counts)
+    got = grads(flash_attention_relpos)
+    assert dispatch.launch_counts == {
+        **before,
+        "flash_attention_relpos": before["flash_attention_relpos"] + 1,
+        "flash_attention_relpos_bwd": before["flash_attention_relpos_bwd"] + 1}
+    for g, w in zip(got, grads(flash_attention_relpos_reference)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
 def test_sam_attention_gate_on_the_card(card):
-    """Outside autograd both block kinds launch the kernel; under autograd a
-    window runs eager (no launch) and a global block raises until the
-    backward kernel is ported (ROADMAP.md, queue B, item 10)."""
+    """In eval mode both block kinds take the kernel, with or without
+    autograd, and their gradients run the backward kernel; in training a
+    window runs eager (no launch) and a global block takes both kernels."""
     window = image_encoder.RelPosAttention(True, 64, 2, True, True, 0.0, 0.0,
                                            (14, 14)).to(card)
     glob = image_encoder.RelPosAttention(True, 64, 2, True, True, 0.0, 0.0,
                                          (32, 32)).to(card)
     x_w = torch.randn(3, 14, 14, 64, device=card)
     x_g = torch.randn(1, 32, 32, 64, device=card)
+    fwd, bwd = "flash_attention_relpos", "flash_attention_relpos_bwd"
     for module, x in ((window, x_w), (glob, x_g)):
-        before = dispatch.launch_counts["flash_attention_relpos"]
+        before = dict(dispatch.launch_counts)
         with torch.no_grad():
             module(x)
-        assert dispatch.launch_counts["flash_attention_relpos"] == before + 1
-    before = dispatch.launch_counts["flash_attention_relpos"]
-    window(x_w).sum().backward()
-    assert dispatch.launch_counts["flash_attention_relpos"] == before
-    assert window.rel_pos_h.grad is not None
-    with pytest.raises(NotImplementedError, match="queue B, item 10"):
-        glob(x_g)
+        module(x).sum().backward()
+        assert dispatch.launch_counts[fwd] == before[fwd] + 2
+        assert dispatch.launch_counts[bwd] == before[bwd] + 1
+        assert float(module.rel_pos_h.grad.abs().sum()) > 0
+    for module, x, launches in ((window, x_w, 0), (glob, x_g, 1)):
+        before = dict(dispatch.launch_counts)
+        with Context(training=True):
+            y = module(x)
+        y.sum().backward()
+        assert dispatch.launch_counts[fwd] == before[fwd] + launches
+        assert dispatch.launch_counts[bwd] == before[bwd] + launches

@@ -56,6 +56,7 @@ from tfimm_tpu_torch.architectures.segment_anything.prompt_encoder import (
 from tfimm_tpu_torch.architectures.segment_anything.transformer import (
     TwoWayTransformer,
 )
+from tfimm_tpu_torch.core import Context
 from tfimm_tpu_torch.ops.conv import ConvTranspose2d
 from tfimm_tpu_torch.ops.kernels import dispatch
 from tfimm_tpu_torch.ops.kernels.dispatch import capture_dispatches
@@ -78,6 +79,13 @@ TINY = dict(input_size=(64, 64), encoder_embed_dim=16, encoder_nb_blocks=2,
 PADDED = dict(TINY, input_size=(160, 160), encoder_embed_dim=32,
               encoder_nb_heads=4, encoder_nb_blocks=3,
               encoder_global_attn_indices=(1,), encoder_window_size=4)
+# For gradients through the kernels of both packages: a 32 x 32 global grid
+# (1024 tokens, which the JAX gate tiles into 512-key blocks) and 12 x 12
+# windows (144 tokens, at least the 128 its gate asks for outside
+# training; the grid padded to 36 x 36), head dim 16.
+GRAD = dict(TINY, input_size=(512, 512), encoder_embed_dim=32,
+            encoder_nb_heads=2, encoder_nb_blocks=2,
+            encoder_global_attn_indices=(1,), encoder_window_size=12)
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden",
                        "sam.npz")
 
@@ -247,7 +255,7 @@ def test_rel_pos_attention_bf16_matches_the_pallas_kernel(grid, heads, dim,
 
 
 def test_rel_pos_attention_eager_matches_jax_xla_path_bf16():
-    """The eager composition (a window under autograd) against the JAX
+    """The eager composition (a window in training) against the JAX
     package's XLA path in bf16: the same roundings (scores and bias in
     bf16, softmax in f32)."""
     jm, params, tm = _attention_pair((4, 4), seed=8)
@@ -255,32 +263,36 @@ def test_rel_pos_attention_eager_matches_jax_xla_path_bf16():
     params16 = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), params)
     want = jm(params16, jnp.asarray(x, jnp.bfloat16))
     tm = tm.to(torch.bfloat16)
-    with capture_dispatches() as seen:
+    with Context(training=True), capture_dispatches() as seen:
         got = tm(torch.from_numpy(x).to(torch.bfloat16))
     assert seen == set() and got.requires_grad
     assert _rel(got.float(), np.asarray(want.astype(jnp.float32))) < 1e-2
 
 
 def test_gate():
-    """Outside autograd every block with the rel-pos bias takes the kernel;
-    under autograd a window takes the eager path and a global block (1024
-    tokens or more) the kernel, whose plain version autograd differentiates
-    on the CPU; without the rel-pos bias, the eager path."""
+    """Outside training every block with the rel-pos bias takes the kernel,
+    with or without autograd (whose backward runs the kernel's plain
+    backward on the CPU); in training a window takes the eager path and a
+    global block (1024 tokens or more) the kernel; without the rel-pos
+    bias, the eager path."""
     _, _, window = _attention_pair((4, 4))
     _, _, glob = _attention_pair((32, 32))
     x_w = torch.randn(1, 4, 4, 16)
     x_g = torch.randn(1, 32, 32, 16)
-    for module, x, under_grad in ((window, x_w, set()),
-                                  (glob, x_g, {"flash_attention_relpos"})):
+    for module, x, in_training in ((window, x_w, set()),
+                                   (glob, x_g, {"flash_attention_relpos"})):
         with torch.no_grad(), capture_dispatches() as seen:
             module(x)
         assert seen == {"flash_attention_relpos"}
-        with capture_dispatches() as seen:
-            y = module(x)
-        assert seen == under_grad
-        y.sum().backward()
-        assert module.rel_pos_h.grad is not None
-        assert float(module.rel_pos_h.grad.abs().sum()) > 0
+        for training, want in ((False, {"flash_attention_relpos"}),
+                               (True, in_training)):
+            module.zero_grad()
+            with Context(training=training), capture_dispatches() as seen:
+                y = module(x)
+            assert seen == want
+            y.sum().backward()
+            assert module.rel_pos_h.grad is not None
+            assert float(module.rel_pos_h.grad.abs().sum()) > 0
     plain = tie.RelPosAttention(True, 16, 2, True, False, 0.0, 0.0, (4, 4))
     with torch.no_grad(), capture_dispatches() as seen:
         plain(x_w)
@@ -342,6 +354,88 @@ def test_image_encoder_bf16_close_to_f32():
         got = tm.image_encoder(torch.from_numpy(x).to(torch.bfloat16))
     assert got.dtype == torch.bfloat16
     assert _rel(got.float(), want) < 5e-2
+
+
+def _same_gradients(module, jax_grads, prefix=""):
+    """Every parameter's gradient in ``module`` against the JAX gradient of
+    the same name (``state_dict_from_jax`` of the gradient tree), within
+    1e-3 of max|JAX|, the reference's bar (tests/test_golden_parity.py);
+    where the JAX gradient is zero, a zero gradient or none; a key
+    projection's bias, whose true gradient is zero, within 1e-6 of the
+    largest gradient of the model. Returns the names compared."""
+    want = state_dict_from_jax(jax_grads)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    names = []
+    for name, p in module.named_parameters():
+        w = np.asarray(want[prefix + name])
+        if np.abs(w).max() == 0:    # a prompt embedding no prompt used
+            assert p.grad is None or float(p.grad.abs().max()) == 0, name
+            continue
+        if name.endswith("k_proj.bias"):
+            # The softmax ignores a shift of a query's scores, so the true
+            # gradient of a key bias is 0: both packages give noise.
+            assert float(p.grad.abs().max()) < 1e-6 * top, name
+            continue
+        assert _rel(p.grad, w) < 1e-3, name
+        names.append(name)
+    return names
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_image_encoder_gradients_match_jax(training, monkeypatch):
+    """f32 gradients of the mean embedding with respect to every encoder
+    parameter, the rel-pos tables among them, against ``jax.grad`` of the
+    JAX encoder with its Pallas kernels in interpret mode (their custom
+    VJP). In training the window runs eager in the port and through XLA in
+    the JAX package, and the global block takes the kernels in both; in
+    eval both blocks take them (the JAX window its single-pass backward)."""
+    from tfimm_tpu.ops.pallas.dispatch import capture_dispatches as jcap
+
+    monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
+    jm, tm = _models(30, **GRAD)
+    x = _images(31, 1, 512, 512)
+
+    def loss(p):
+        return jm.apply(p, jnp.asarray(x), training=training,
+                        features_only=True).astype(jnp.float32).mean()
+
+    with jcap() as jseen:
+        want = jax.jit(jax.grad(loss))(jm.params)
+    jkernel = {n for n in jseen if n.startswith("flash_attention_relpos")}
+    assert jkernel
+    tm.train(training)
+    with capture_dispatches() as seen:
+        tm(torch.from_numpy(x), features_only=True).float().mean().backward()
+    assert seen == {"flash_attention_relpos"}
+    names = _same_gradients(tm.image_encoder, want,
+                            "image_encoder.")
+    assert {"blocks.0.attn.rel_pos_h", "blocks.1.attn.rel_pos_w",
+            "pos_embed"} <= set(names)
+
+
+def test_image_encoder_gate_in_training_and_eval():
+    """The encoder of the GRAD config routes its blocks as the JAX gate
+    does: in training the global block alone takes the kernel, in eval
+    both, under autograd in both cases."""
+    _, tm = _models(32, **GRAD)
+    x = torch.from_numpy(_images(33, 1, 512, 512))
+    calls = []
+    real = tie.flash_attention_relpos
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs["grid_size"])
+        return real(*args, **kwargs)
+
+    tie.flash_attention_relpos = counted
+    try:
+        for training, want in ((True, [(32, 32)]),
+                               (False, [(12, 12), (32, 32)])):
+            calls.clear()
+            tm.train(training)
+            tm(x, features_only=True).mean().backward()
+            assert calls == want
+    finally:
+        tie.flash_attention_relpos = real
 
 
 # -- prompt encoder, transformer, mask decoder -------------------------------
@@ -447,6 +541,43 @@ def test_sam_forward_matches_jax(multimask):
         bools, _, _ = tm(_t(inputs), multimask_output=multimask)
     assert bools.dtype == torch.bool
     assert torch.equal(bools, tmasks > 0.0)
+
+
+def test_sam_fine_tuning_gradients_match_jax(monkeypatch):
+    """Whole-model fine-tuning, f32, in training mode: two images with one
+    box prompt each, ``multimask_output=False``, binary cross-entropy of
+    the low-resolution logits against a seeded target mask. Every
+    parameter's gradient (encoder, prompt encoder, mask decoder) against
+    ``jax.grad`` of the JAX model, the global block through the Pallas
+    kernels in interpret mode. The Fourier matrix of the prompt encoder is
+    a frozen buffer in the port (and in Meta's model) and gets none."""
+    monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
+    jm, tm = _models(34, **GRAD)
+    inputs = {"images": _images(35, 2, 512, 512),
+              **_prompts(36, n=2, nb_points=0, nb_masks=0, mask_hw=128)}
+    inputs["boxes"] *= 8.0          # the prompts are drawn for 64 x 64
+    target = (np.random.default_rng(37).uniform(size=(2, 1, 128, 128))
+              > 0.5).astype(np.float32)
+
+    def bce(x, t):
+        return jnp.mean(jnp.maximum(x, 0) - x * t
+                        + jnp.log1p(jnp.exp(-jnp.abs(x))))
+
+    def loss(p):
+        _, _, logits = jm.apply(p, _j(inputs), training=True,
+                                multimask_output=False, return_logits=True)
+        return bce(logits, jnp.asarray(target))
+
+    want = jax.jit(jax.grad(loss))(jm.params)
+    tm.train()
+    _, _, logits = tm(_t(inputs), multimask_output=False, return_logits=True)
+    assert tuple(logits.shape) == (2, 1, 128, 128)
+    torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, torch.from_numpy(target)).backward()
+    names = _same_gradients(tm, want)
+    assert any(n.startswith("image_encoder.") for n in names)
+    assert any(n.startswith("mask_decoder.") for n in names)
+    assert any(n.startswith("prompt_encoder.") for n in names)
 
 
 def test_sam_features_and_registry():

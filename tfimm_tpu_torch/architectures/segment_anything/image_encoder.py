@@ -7,21 +7,23 @@ Parameter names are Meta's (``blocks.0.attn.rel_pos_h``, ``neck.2.weight``),
 so the JAX package's parameters carry over through ``state_dict_from_jax``.
 
 ``RelPosAttention`` sends its attention to ``flash_attention_relpos``
-(``ops/kernels/flash_attention_relpos.py``: the hand-written kernel on the
-card, its plain version on the CPU) when it uses the rel-pos bias. Its gate
-departs from the JAX package's, which sends only the TPU (or forced
-interpret mode) to the kernel, global blocks only at token counts that tile
-into 512-key blocks, and windowed blocks only outside training:
+(``ops/kernels/flash_attention_relpos.py``: the hand-written forward and
+backward kernels on the card, their plain versions on the CPU) as the JAX
+package's gate decides it, by the training flag of the forward's context
+and not by whether autograd records:
 
-- outside autograd, every block with the rel-pos bias takes the kernel, at
-  any token count the kernel takes;
-- under autograd, a windowed block (fewer than 1024 tokens) takes the eager
-  composition, the JAX package's XLA path; a global block takes the kernel,
-  whose backward is not ported yet, so on a CUDA tensor it raises
-  (``NotImplementedError``, ROADMAP.md queue B, item 10), and on CPU
-  tensors its plain version, which autograd differentiates;
+- a global block (``GLOBAL_MIN_TOKENS`` tokens or more) takes the kernel,
+  in training too, with no attention dropout, as the JAX kernel path;
+- a windowed block takes the kernel unless ``current_context().training``
+  is set, with or without autograd; in training it takes the eager
+  composition, the JAX package's XLA path;
 - without the rel-pos bias, or at a head dim or grid the kernel does not
   take, the eager composition.
+
+The JAX package also sends only the TPU (or forced interpret mode) to its
+kernel, global blocks only when N tiles into 512-key blocks, and windows
+only from 128 tokens; the port's kernel takes every N, and its plain
+version runs on the CPU.
 
 Papers: SAM https://arxiv.org/abs/2304.02643, ViT-Det 2203.16527,
 MViTv2 2112.01526.
@@ -56,8 +58,8 @@ __all__ = ["ImageEncoder", "ImageEncoderBlock", "RelPosAttention",
            "window_partition", "window_unpartition", "get_rel_pos",
            "add_decomposed_rel_pos"]
 
-# Under autograd, blocks of at least this many tokens are global and take
-# the kernel, as in the JAX package's gate.
+# Blocks of at least this many tokens are global and take the kernel in
+# training too, as in the JAX package's gate.
 GLOBAL_MIN_TOKENS = 1024
 
 
@@ -157,15 +159,13 @@ class RelPosAttention(nn.Module):
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * h - 1, self.head_dim))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * w - 1, self.head_dim))
 
-    def kernel_ok(self, q: torch.Tensor, grid: Tuple[int, int]) -> bool:
-        """The gate (see the module's note): q is (B * heads, N, d)."""
+    def kernel_ok(self, grid: Tuple[int, int]) -> bool:
+        """The gate (see the module's note) for a ``grid`` of tokens."""
         if not (self.use_rel_pos
                 and flash_attention_relpos_supports(self.head_dim, grid)):
             return False
-        if torch.is_grad_enabled() and (q.requires_grad
-                                        or self.rel_pos_h.requires_grad):
-            return grid[0] * grid[1] >= GLOBAL_MIN_TOKENS
-        return True
+        return (grid[0] * grid[1] >= GLOBAL_MIN_TOKENS
+                or not current_context().training)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
@@ -173,7 +173,7 @@ class RelPosAttention(nn.Module):
         qkv = qkv.permute(2, 0, 3, 1, 4).reshape(3, n * self.nb_heads, h * w,
                                                  self.head_dim)
         q, k, v = qkv.unbind(0)
-        if self.kernel_ok(q, (h, w)):
+        if self.kernel_ok((h, w)):
             log_dispatch("flash_attention_relpos")
             interpolate = not self.fixed_input_size
             r_h = get_rel_pos(h, h, self.rel_pos_h, interpolate).to(q.dtype)

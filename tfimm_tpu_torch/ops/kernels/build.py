@@ -174,6 +174,21 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_flash_attention_relpos_fwd.restype = ctypes.c_int
+    lib.tfimm_flash_attention_relpos_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q (scaled), k, v
+        ctypes.c_int64, ctypes.c_int64,  # q batch and row strides
+        ctypes.c_int64, ctypes.c_int64,  # k batch and row strides
+        ctypes.c_int64, ctypes.c_int64,  # v batch and row strides
+        ctypes.c_void_p, ctypes.c_void_p,  # rel_h_term (B, N, gh), rel_w_term
+        ctypes.c_void_p,  # do (B, N, d)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 lse, delta (B, N)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dq, dk, dv
+        ctypes.c_void_p, ctypes.c_void_p,  # drh, drw
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, d
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gh, gw, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_flash_attention_relpos_bwd.restype = ctypes.c_int
     return lib
 
 

@@ -167,13 +167,39 @@ which ends the run with a non-zero exit code on failure:
    of the low-resolution logits against the boxes' masks, AdamW for 6
    steps: 4 + 4 launches a step, the loss must fall; step time and idle
    share.
+19. ``pvt_sra`` against its plain version on the card at pvt_v2_b2's stage 1
+   at batch 128 (N = 3136, S = 49, C = 64; pvt_small's and
+   pvt_v2_b2_linear's too), pvt_v2_b0's C = 32, S = 256, a ragged N and
+   C = 512, in bf16 and in f32 with TF32 off, within 2e-2 and 1e-5 of the
+   largest plain value. Control: the plain version with k and v swapped
+   must miss the bar by ``CONTROL_FACTOR``. Kernel, plain and bound times,
+   and the library's ``F.linear`` + ``F.scaled_dot_product_attention`` +
+   ``F.linear`` on the same inputs.
+20. PVT serving: ``pvt_v2_b2`` in bf16 with seeded random weights answers
+   5 requests of 128 uint8 224x224 images with ``TFIMM_TPU_FUSED_PVT_SRA=1``
+   (3 ``pvt_sra`` launches a request, stage 1) and again with it off (0);
+   ``pvt_small`` and ``pvt_v2_b2_linear`` with it on (3 each). Logits
+   finite and non-zero; the first 16 images' within 5e-2 of the same
+   weights in f32 on the card through the eager path; the rate of each run
+   and a profile of one request of each model.
+21. ``poolformer_block`` against its plain version on the card at
+   poolformer_s12's four stage shapes at batch 128 and a 4x4 map, with
+   layer scales and norm weights near 1, in bf16 and in f32 with TF32 off,
+   within 2e-2 and 1e-4 of the largest plain value. Control: the plain
+   version with ls1 = 1 must miss the bar. Kernel, plain, bound and cuBLAS
+   floor (the two ``F.linear`` products alone) times per stage and per
+   request.
+22. PoolFormer serving: ``poolformer_s12`` in bf16 with seeded random
+   weights (layer scales near 1) answers 5 requests of 128 images with
+   ``TFIMM_TPU_FUSED_POOLFORMER=1`` (12 launches a request) and with it off
+   (0), gated as phase 20, with the rate of each run and a profile.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-18) alone, for a quicker look at one
+runs phase 1 and the phases named (2-22) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -298,13 +324,37 @@ SAM_EVAL_LAUNCHES = {"flash_attention_relpos": 12,
 SAM_GRAD_PARAMS = ("image_encoder.blocks.2.attn.rel_pos_h",
                    "image_encoder.blocks.0.attn.qkv.weight")
 SAM_FINETUNE_IMAGES = 2
+# pvt_sra (B, N, S, C): pvt_v2_b2's stage 1 at batch 128 (pvt_small's and
+# pvt_v2_b2_linear's too), pvt_v2_b0's C = 32, S = 256, a ragged N, C = 512.
+SRA_SHAPES = [(128, 3136, 49, 64), (128, 3136, 49, 32), (16, 3136, 256, 64),
+              (4, 3001, 49, 64), (2, 64, 49, 512)]
+SRA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# PVT serving: (model, the SRA switch, pvt_sra launches a request).
+PVT_RUNS = [("pvt_v2_b2", "1", 3), ("pvt_v2_b2", "0", 0), ("pvt_small", "1", 3),
+            ("pvt_v2_b2_linear", "1", 3)]
+# poolformer_block (B, H, W, C, hidden): poolformer_s12's four stages at
+# batch 128, and the blocks of each that a request runs; then a 4x4 map,
+# where edges and corners are all but one pixel in four.
+POOL_STAGES = [(128, 56, 56, 64, 256), (128, 28, 28, 128, 512),
+               (128, 14, 14, 320, 1280), (128, 7, 7, 512, 2048)]
+POOL_DEPTHS = (2, 2, 6, 2)
+POOL_EDGES = [(128, 4, 4, 64, 256)]
+# f32: two whole-map GroupNorms and two products summed in another order.
+POOL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+POOLFORMER = "poolformer_s12"
+POOLFORMER_RUNS = [("1", 12), ("0", 0)]
+FAMILY_CHECK_IMAGES = 16
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # Device-time groups of a training step or a request, by kernel name (first
 # match).
-KERNEL_GROUPS = [("rel-pos flash attention backward "
+KERNEL_GROUPS = [("pvt_sra (pvt_sra.cu)", ("pvt_sra",)),
+                 ("poolformer_block (poolformer_block.cu: GroupNorm "
+                  "statistics, pool, GEMMs)", ("gn_stats", "pool_x1",
+                                               "pf_gemm")),
+                 ("rel-pos flash attention backward "
                   "(flash_attention_relpos_bwd.cu)", ("relpos_bwd",)),
                  ("rel-pos flash attention (flash_attention_relpos.cu)",
                   ("relpos_fwd",)),
@@ -517,22 +567,24 @@ def phase_backward_kernel(report):
 
 def seeded_state_dict(model, seed: int, std: float = 0.02):
     """Every parameter drawn from a seeded normal, in f32 on the CPU: the
-    LayerNorm weights and the layer-scale gammas (ConvNeXt, CaiT) around 1,
+    LayerNorm and GroupNorm weights and the layer scales (ConvNeXt's and
+    CaiT's gammas, PoolFormer's layer_scale_1 and _2) around 1,
     Swin's relative-position bias tables and CaiT's (H, H) head mixes with
     std 0.3, the rest with std ``std``. The heads, which start at zero, then
     give non-zero logits, and the branches of a ConvNeXt or CaiT block do
     not vanish, as they would at gamma's init value of 1e-5 or 1e-6."""
     import torch
 
-    from tfimm_tpu_torch.ops.norm import LayerNorm
+    from tfimm_tpu_torch.ops.norm import GroupNorm, LayerNorm
 
     near_one = {f"{name}.weight" for name, module in model.named_modules()
-                if isinstance(module, LayerNorm)}
+                if isinstance(module, (LayerNorm, GroupNorm))}
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, p in model.state_dict().items():
         r = torch.randn(p.shape, generator=g)
-        if name in near_one or name.rsplit(".", 1)[-1].startswith("gamma"):
+        if name in near_one or name.rsplit(".", 1)[-1].startswith(
+                ("gamma", "layer_scale")):
             sd[name] = 1.0 + 0.1 * r
         elif name.endswith(("relative_position_bias_table", "proj_l.weight",
                             "proj_w.weight")):
@@ -2697,13 +2749,317 @@ def phase_sam_train(reports, gpu_line):
         report["launches_by_path"]["train_sam"] = path_counts[name]
 
 
+def sra_inputs(b, n, s, c, dtype, seed):
+    """Seeded inputs of ``pvt_sra`` on the card: x and the kv projection
+    normal, the matrices scaled so that q and y are of unit size."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    return (rnd(b, n, c).to(dtype), rnd(b, s, 2 * c).to(dtype),
+            rnd(c, c, scale=c ** -0.5).to(dtype), rnd(c, scale=0.1),
+            rnd(c, c, scale=c ** -0.5).to(dtype), rnd(c, scale=0.1))
+
+
+def sra_bound(b, n, s, c):
+    """x read and y written once (bf16), k and v read once, the two
+    matrices (bf16) and biases (f32); the four products."""
+    nbytes = 2 * (2 * b * n * c + 2 * b * s * c + 2 * c * c) + 4 * 2 * c
+    return bound(nbytes, 2 * b * n * c * (2 * c + 2 * s))
+
+
+def phase_sra_kernel(report, gpu_line):
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.pvt_sra import pvt_sra, pvt_sra_reference
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (b, n, s, c) in enumerate(SRA_SHAPES):
+            x, kv, wq, bq, wp, bp = sra_inputs(b, n, s, c, dtype, 1900 + i)
+            scale = c ** -0.5
+            what = f"{dname:8s} B={b} N={n} S={s} C={c}"
+            got = pvt_sra(x, kv, wq, bq, wp, bp, scale)
+            ref = pvt_sra_reference(x, kv[..., :c], kv[..., c:], wq, bq, wp,
+                                    bp, scale)
+            torch.cuda.synchronize()
+            err, bar, ok = held(got, ref, SRA_TOL[dname])
+            print(f"pvt_sra {what}: max_abs_err={err!r} bar={bar!r} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"pvt_sra disagrees with its plain version ({what}): "
+                  f"{err} > {bar}")
+            if dtype == torch.bfloat16 and i == 0:
+                report["max_abs_err"] = err
+                # Control: the plain version with k and v swapped must miss.
+                far = (got.float() - pvt_sra_reference(
+                    x, kv[..., c:], kv[..., :c], wq, bq, wp, bp,
+                    scale).float()).abs().max().item()
+                print(f"pvt_sra control {what}: k and v swapped off by "
+                      f"{far!r}, {far / bar!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bar,
+                      "pvt_sra: the plain version with k and v swapped stays "
+                      "within the bar")
+            del x, kv, got, ref
+
+    b, n, s, c = SRA_SHAPES[0]
+    x, kv, wq, bq, wp, bp = sra_inputs(b, n, s, c, torch.bfloat16, 2000)
+    scale = c ** -0.5
+    k, v = kv[..., :c].unsqueeze(1), kv[..., c:].unsqueeze(1)
+    bq16, bp16 = bq.to(torch.bfloat16), bp.to(torch.bfloat16)
+
+    def library():
+        q = F.linear(x, wq, bq16) * scale
+        o = F.scaled_dot_product_attention(q.unsqueeze(1), k, v, scale=1.0)
+        return F.linear(o.squeeze(1), wp, bp16)
+
+    report["ms"] = cuda_time_ms(lambda: pvt_sra(x, kv, wq, bq, wp, bp, scale))
+    report["plain_ms"] = cuda_time_ms(lambda: pvt_sra_reference(
+        x, kv[..., :c], kv[..., c:], wq, bq, wp, bp, scale), iters=5)
+    report["library_ms"] = cuda_time_ms(library)
+    report["bound_ms"], report["bound_by"] = sra_bound(b, n, s, c)
+    print(f"pvt_sra bf16 {SRA_SHAPES[0]}: kernel {report['ms']!r} ms, "
+          f"{report['bound_ms'] / report['ms']!r} of the bound "
+          f"{report['bound_ms']!r} ms ({report['bound_by']}); plain "
+          f"{report['plain_ms']!r} ms; F.linear + scaled_dot_product_attention"
+          f" + F.linear {report['library_ms']!r} ms; on {gpu_line}", flush=True)
+
+
+def family_requests(model, pp, requests, launches, kernel):
+    """Serve ``requests`` through ``model.predict``; each must launch
+    ``kernel`` ``launches`` times and nothing else, and give finite,
+    non-zero logits. Returns (request seconds, the first logits)."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    seconds, first = [], None
+    for img in requests:
+        before = dict(dispatch.launch_counts)
+        t0 = time.perf_counter()
+        logits = model.predict(pp(img))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        want = expected(**{kernel: launches})
+        check(rose == want, f"one {model.cfg.name} request launched {rose}, "
+              f"expected {kernel} {launches} times and nothing else")
+        check(tuple(logits.shape) == (BATCH, model.cfg.nb_classes),
+              f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        check(bool(logits.abs().max() > 0), "all-zero logits")
+        first = logits if first is None else first
+    return seconds, first
+
+
+def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
+    """Phases 20 and 22: each (model, switch, launches) of ``runs`` in bf16
+    with seeded weights answers REQUESTS requests of BATCH uint8 224x224
+    images; the logits of the first FAMILY_CHECK_IMAGES images are held
+    within 5e-2 of the same weights in f32 on the card through the eager
+    path (switch off, no launch); a profile of one request of each model's
+    first run."""
+    import os
+
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    x = requests[0][:FAMILY_CHECK_IMAGES]
+    saved = os.environ.get(switch_var)
+    dispatch.reset_launch_counts()
+    path_counts = expected()
+    profiled = set()
+    try:
+        for name, switch, launches in runs:
+            model = tfm.create_model(name, device="cuda", dtype=torch.bfloat16,
+                                     seed=0)
+            sd = seeded_state_dict(model, seed=seed, std=0.05)
+            model.load_state_dict(sd)
+            pp = tfm.create_preprocessing(name, dtype=torch.bfloat16,
+                                          device="cuda")
+            os.environ[switch_var] = switch
+            torch.cuda.synchronize()
+            before = dict(dispatch.launch_counts)
+            seconds, logits = family_requests(model, pp, requests, launches,
+                                              kernel)
+            for k in path_counts:
+                path_counts[k] += dispatch.launch_counts[k] - before[k]
+            img_s = [BATCH / t for t in seconds[1:]]
+            request_ms = statistics.median(seconds[1:]) * 1e3
+            how = "kernel" if switch == "1" else "eager"
+            print(f"slice {name} bs{BATCH} bf16 ({switch_var}={switch}, "
+                  f"{how}): request seconds {seconds!r}", flush=True)
+            print(f"slice {name} bs{BATCH} bf16 ({how}): "
+                  f"{statistics.median(img_s)!r} img/s (median of requests "
+                  f"2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}), "
+                  f"{launches} {kernel} launches a request; on {gpu_line}",
+                  flush=True)
+
+            os.environ[switch_var] = "0"
+            model32 = tfm.create_model(name, device="cuda",
+                                       dtype=torch.float32, seed=0)
+            model32.load_state_dict(sd)
+            pp32 = tfm.create_preprocessing(name, dtype=torch.float32,
+                                            device="cuda")
+            before = dict(dispatch.launch_counts)
+            ref = model32.predict(pp32(x))
+            check(dispatch.launch_counts == before,
+                  "the f32 eager reference launched a kernel")
+            got = logits[:FAMILY_CHECK_IMAGES].float()
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            print(f"slice {name} ({how}) logits: bf16 vs f32 eager on the "
+                  f"card rel err {rel!r} (bar 5e-2)", flush=True)
+            check(rel < 5e-2, f"{name} ({how}) logits rel err {rel} >= 5e-2")
+            del model32, ref
+
+            if name not in profiled:
+                profiled.add(name)
+                os.environ[switch_var] = switch
+                img = requests[1]
+                wall_ms, groups, names = device_split(
+                    lambda: model.predict(pp(img)), steps=2)
+                busy_ms = sum(groups.values())
+                print(f"{name} ({how}) request profile: device busy "
+                      f"{busy_ms!r} ms per request; wall {wall_ms!r} ms under "
+                      f"the profiler, {request_ms!r} ms without; device idle "
+                      f"share {1.0 - busy_ms / request_ms!r}", flush=True)
+                for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                    print(f"{name} ({how}) request profile: {group}: {ms!r} "
+                          f"ms per request", flush=True)
+                for kname, ms in sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]:
+                    print(f"{name} ({how}) request profile kernel: {ms!r} ms "
+                          f"{kname[:150]}", flush=True)
+            del model
+    finally:
+        if saved is None:
+            os.environ.pop(switch_var, None)
+        else:
+            os.environ[switch_var] = saved
+    for report_name, report in reports.items():
+        report["launches_by_path"][path] = path_counts[report_name]
+
+
+def pool_inputs(b, h, w, c, hidden, dtype, seed):
+    """Seeded inputs of ``poolformer_block`` on the card: x normal, the
+    norm weights and both layer scales near 1 (at their init of 1e-5 the
+    block would return x to bf16 precision), the MLP scaled to unit-size
+    products."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    near_one = dict(scale=0.1, shift=1.0)
+    return (rnd(b, h, w, c).to(dtype), rnd(c, **near_one), rnd(c, scale=0.1),
+            rnd(c, **near_one), rnd(c, **near_one), rnd(c, scale=0.1),
+            rnd(hidden, c, scale=c ** -0.5).to(dtype), rnd(hidden, scale=0.1),
+            rnd(c, hidden, scale=hidden ** -0.5).to(dtype), rnd(c, scale=0.1),
+            rnd(c, **near_one))
+
+
+def pool_bound(b, h, w, c, hidden):
+    """x read and out written once (bf16), both matrices (bf16), the f32
+    vectors; the two products (4 * B * H * W * C * hidden)."""
+    m = b * h * w
+    nbytes = 2 * (2 * m * c + 2 * c * hidden) + 4 * (7 * c + hidden)
+    return bound(nbytes, 4 * m * c * hidden)
+
+
+def phase_pool_kernel(report, gpu_line):
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.poolformer_block import (
+        poolformer_block,
+        poolformer_block_reference,
+    )
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (b, h, w, c, hid) in enumerate(POOL_STAGES + POOL_EDGES):
+            args = pool_inputs(b, h, w, c, hid, dtype, 2100 + i)
+            what = f"{dname:8s} B={b} {h}x{w}x{c} hidden={hid}"
+            got = poolformer_block(*args)
+            ref = poolformer_block_reference(*args)
+            torch.cuda.synchronize()
+            err, bar, ok = held(got, ref, POOL_TOL[dname])
+            print(f"poolformer_block {what}: max_abs_err={err!r} bar={bar!r} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"poolformer_block disagrees with its plain version "
+                  f"({what}): {err} > {bar}")
+            if dtype == torch.bfloat16 and i < len(POOL_STAGES):
+                worst = max(worst, err)
+            if dtype == torch.bfloat16 and i == 0:
+                # Control: the plain version without the token mixer's
+                # layer scale (ls1 = 1) must miss the bar.
+                far = (got.float() - poolformer_block_reference(
+                    *args[:3], torch.ones_like(args[3]), *args[4:]).float())
+                far = far.abs().max().item()
+                print(f"poolformer_block control {what}: ls1 = 1 off by "
+                      f"{far!r}, {far / bar!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bar, "poolformer_block: the "
+                      "plain version without ls1 stays within the bar")
+            del args, got, ref
+    report["max_abs_err"] = worst
+
+    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    bound_by = {}
+    for (b, h, w, c, hid), depth in zip(POOL_STAGES, POOL_DEPTHS):
+        args = pool_inputs(b, h, w, c, hid, torch.bfloat16, 2200)
+        m = b * h * w
+        z = torch.randn(m, c, device="cuda").to(torch.bfloat16)
+        hidden = torch.randn(m, hid, device="cuda").to(torch.bfloat16)
+        w1, w2 = args[6], args[8]
+        t = {"ms": cuda_time_ms(lambda: poolformer_block(*args)),
+             "plain_ms": cuda_time_ms(
+                 lambda: poolformer_block_reference(*args), iters=5),
+             "fc1_ms": cuda_time_ms(lambda: F.linear(z, w1)),
+             "fc2_ms": cuda_time_ms(lambda: F.linear(hidden, w2))}
+        t["cublas_floor_ms"] = t["fc1_ms"] + t["fc2_ms"]
+        t["bound_ms"], by = pool_bound(b, h, w, c, hid)
+        bound_by[by] = bound_by.get(by, 0.0) + depth * t["bound_ms"]
+        for key, what in (("ms", "kernel"), ("plain_ms", "plain"),
+                          ("cublas_floor_ms", "cuBLAS floor")):
+            print(f"poolformer_block bf16 {b}x{h}x{w}x{c}: {what} {t[key]!r} "
+                  f"ms, {t['bound_ms'] / t[key]!r} of the bound", flush=True)
+        print(f"poolformer_block bf16 {b}x{h}x{w}x{c}: F.linear fc1 "
+              f"{t['fc1_ms']!r} ms, fc2 {t['fc2_ms']!r} ms; bound "
+              f"{t['bound_ms']!r} ms ({by}); {depth} blocks a request",
+              flush=True)
+        for key in keys:
+            totals[key] += depth * t[key]
+        del args, z, hidden
+    report.update(totals)
+    report["bound_by"] = max(bound_by, key=bound_by.get)
+    report["library_ms"] = None
+    print(f"poolformer_block per {POOLFORMER} bs{BATCH} request "
+          f"({sum(POOL_DEPTHS)} calls): kernel {totals['ms']!r} ms, plain "
+          f"{totals['plain_ms']!r} ms, cuBLAS floor "
+          f"{totals['cublas_floor_ms']!r} ms, bound {totals['bound_ms']!r} ms "
+          f"({report['bound_by']}); on {gpu_line}", flush=True)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 19))
+    all_phases = list(range(2, 23))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 18",
+            print("chip_smoke: --phases takes numbers from 2 to 22",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -2801,6 +3157,20 @@ def main(argv) -> int:
             "work": (f"bf16 (B, gh, gw, d) = {RELPOS_SHAPES[0]}: one {SAM} "
                      f"global block's backward (delta and two launches, "
                      f"counted as one); 'windowed': {RELPOS_SHAPES[1]}")}
+        reports["pvt_sra"] = {
+            "name": "pvt_sra", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/pvt_sra.cu",
+            "replaces": "tfimm_tpu/ops/pallas/pvt_sra.py:63",
+            "work": (f"bf16 (B, N, S, C) = {SRA_SHAPES[0]}: the stage-1 "
+                     f"attention of pvt_v2_b2 at bs{BATCH}")}
+        reports["poolformer_block"] = {
+            "name": "poolformer_block", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/poolformer_block.cu",
+            "replaces": "tfimm_tpu/ops/pallas/poolformer_block.py:97",
+            "work": (f"bf16, one {POOLFORMER} bs{BATCH} request: " + " + ".join(
+                f"{n} x (B, H, W, C, hidden) = {shape}"
+                for n, shape in zip(POOL_DEPTHS, POOL_STAGES))
+                + " (five launches, counted as one)")}
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
@@ -2827,6 +3197,16 @@ def main(argv) -> int:
             17: lambda: phase_relpos_bwd_kernel(
                 reports["flash_attention_relpos_bwd"], gpu_line),
             18: lambda: phase_sam_train(reports, gpu_line),
+            19: lambda: phase_sra_kernel(reports["pvt_sra"], gpu_line),
+            20: lambda: family_serving(reports, gpu_line, "serve_pvt",
+                                       "pvt_sra", "TFIMM_TPU_FUSED_PVT_SRA",
+                                       PVT_RUNS, seed=20),
+            21: lambda: phase_pool_kernel(reports["poolformer_block"],
+                                          gpu_line),
+            22: lambda: family_serving(
+                reports, gpu_line, "serve_poolformer", "poolformer_block",
+                "TFIMM_TPU_FUSED_POOLFORMER",
+                [(POOLFORMER, sw, n) for sw, n in POOLFORMER_RUNS], seed=22),
         }
         for number in phases:
             run_phase[number]()

@@ -22,6 +22,11 @@ and 1e-5 * max|plain| in f32 (sums in another order). Its backward: dq,
 dk, dv, drh and drw each within 2e-2 * max|plain| in bf16 (the kernel rounds
 p and ds to bf16 before their products) and 1e-4 * max|plain| in f32 (sums
 in another order; drh and drw sum over whole key rows and columns).
+pvt_sra: 2e-2 * max|plain| in bf16 (the kernel rounds q, p and o where the
+plain version does, its sums run in another order) and 1e-5 * max|plain|
+in f32. poolformer_block: 2e-2 * max|plain| in bf16 and 1e-4 * max|plain|
+in f32 (two whole-map GroupNorm reductions and two products, each summed
+in another order).
 """
 
 import numpy as np
@@ -58,6 +63,11 @@ from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha_bwd_reference,
     fused_mha_reference,
 )
+from tfimm_tpu_torch.ops.kernels.poolformer_block import (
+    poolformer_block,
+    poolformer_block_reference,
+)
+from tfimm_tpu_torch.ops.kernels.pvt_sra import pvt_sra, pvt_sra_reference
 from tfimm_tpu_torch.ops.kernels.swin_block import (
     SwinBlockParams,
     swin_block,
@@ -718,3 +728,162 @@ def test_sam_attention_gate_on_the_card(card):
         y.sum().backward()
         assert dispatch.launch_counts[fwd] == before[fwd] + launches
         assert dispatch.launch_counts[bwd] == before[bwd] + launches
+
+
+# -- pvt_sra and poolformer_block (PVT, PVTv2, PoolFormer) -------------------
+
+# (B, N, S, C): pvt_v2_b2's stage 1 (fewer images), pvt_v2_b0's C = 32,
+# S = 256, a ragged N, C = 512, C = 72 with a ragged S, S = 1.
+SRA_SHAPES = [(4, 3136, 49, 64), (2, 3136, 49, 32), (2, 200, 256, 64),
+              (3, 77, 49, 64), (1, 64, 7, 512), (2, 50, 13, 72),
+              (2, 33, 1, 16)]
+
+
+def _sra_inputs(b, n, s, c, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    return (rnd(b, n, c).to(dtype), rnd(b, s, 2 * c).to(dtype),
+            rnd(c, c, scale=c ** -0.5).to(dtype), rnd(c, scale=0.1),
+            rnd(c, c, scale=c ** -0.5).to(dtype), rnd(c, scale=0.1))
+
+
+def _held_by(got, want, tol):
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b,n,s,c", SRA_SHAPES)
+def test_pvt_sra_kernel_matches_plain(card, b, n, s, c, dtype, tol):
+    x, kv, wq, bq, wp, bp = _sra_inputs(b, n, s, c, dtype, card, n + s + c)
+    scale = c ** -0.5
+    before = dict(dispatch.launch_counts)
+    got = pvt_sra(x, kv, wq, bq, wp, bp, scale)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {**before,
+                                      "pvt_sra": before["pvt_sra"] + 1}
+    want = pvt_sra_reference(x, kv[..., :c], kv[..., c:], wq, bq, wp, bp,
+                             scale)
+    assert got.dtype == dtype and got.shape == want.shape
+    _held_by(got, want, tol)
+
+
+def test_pvt_sra_repeats_and_takes_no_biases(card):
+    x, kv, wq, bq, wp, bp = _sra_inputs(2, 3136, 49, 64, torch.bfloat16,
+                                        card, 1)
+    first = pvt_sra(x, kv, wq, bq, wp, bp, 0.125)
+    assert torch.equal(first, pvt_sra(x, kv, wq, bq, wp, bp, 0.125))
+    got = pvt_sra(x, kv, wq, None, wp, None, 0.125)
+    want = pvt_sra_reference(x, kv[..., :64], kv[..., 64:], wq, None, wp,
+                             None, 0.125)
+    _held_by(got, want, 2e-2)
+
+
+def test_pvt_sra_refuses_what_it_does_not_take(card):
+    x, kv, wq, bq, wp, bp = _sra_inputs(2, 16, 4, 64, torch.float32, card, 2)
+    with pytest.raises(ValueError):   # f16
+        pvt_sra(x.half(), kv.half(), wq, bq, wp, bp, 0.125)
+    with pytest.raises(ValueError):   # C = 60
+        pvt_sra(x[..., :60], kv[..., :120], wq[:60, :60], bq[:60],
+                wp[:60, :60], bp[:60], 0.125)
+    with pytest.raises(ValueError):   # S = 300
+        pvt_sra(x, torch.zeros(2, 300, 128, device=card), wq, bq, wp, bp, 0.1)
+    with pytest.raises(ValueError):   # mixed devices
+        pvt_sra(x, kv, wq.cpu(), bq, wp, bp, 0.125)
+    with pytest.raises(NotImplementedError):   # no backward
+        pvt_sra(x.requires_grad_(), kv, wq, bq, wp, bp, 0.125)
+
+
+# (B, H, W, C, hidden): poolformer_s12's four stage shapes (two images), a
+# 4x4 map where the edges dominate, an odd C (element loads), one row.
+POOL_SHAPES = [(2, 56, 56, 64, 256), (2, 28, 28, 128, 512),
+               (2, 14, 14, 320, 1280), (2, 7, 7, 512, 2048),
+               (3, 4, 4, 8, 32), (2, 5, 3, 12, 20), (1, 1, 6, 16, 64)]
+
+
+def _pool_inputs(b, h, w, c, hidden, dtype, device, seed):
+    """x normal, the norm weights and layer scales near 1 (at the init
+    scale of 1e-5 the block would be x to bf16 precision), the MLP scaled to
+    unit-size products."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device=device) * scale + shift
+
+    near_one = dict(scale=0.1, shift=1.0)
+    return (rnd(b, h, w, c).to(dtype), rnd(c, **near_one), rnd(c, scale=0.1),
+            rnd(c, **near_one), rnd(c, **near_one), rnd(c, scale=0.1),
+            rnd(hidden, c, scale=c ** -0.5).to(dtype), rnd(hidden, scale=0.1),
+            rnd(c, hidden, scale=hidden ** -0.5).to(dtype), rnd(c, scale=0.1),
+            rnd(c, **near_one))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,h,w,c,hidden", POOL_SHAPES)
+def test_poolformer_block_kernel_matches_plain(card, b, h, w, c, hidden,
+                                               dtype, tol):
+    args = _pool_inputs(b, h, w, c, hidden, dtype, card, h * w + c)
+    before = dict(dispatch.launch_counts)
+    got = poolformer_block(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {
+        **before, "poolformer_block": before["poolformer_block"] + 1}
+    want = poolformer_block_reference(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    _held_by(got, want, tol)
+
+
+def test_poolformer_block_repeats(card):
+    args = _pool_inputs(4, 56, 56, 64, 256, torch.bfloat16, card, 3)
+    assert torch.equal(poolformer_block(*args), poolformer_block(*args))
+
+
+def test_poolformer_block_refuses_what_it_does_not_take(card):
+    args = list(_pool_inputs(1, 4, 4, 8, 32, torch.float32, card, 4))
+    with pytest.raises(ValueError):   # f16
+        poolformer_block(args[0].half(), *args[1:])
+    with pytest.raises(ValueError):   # w1 of the wrong shape
+        poolformer_block(*args[:6], args[6][:, :4], *args[7:])
+    with pytest.raises(ValueError):   # mixed devices
+        poolformer_block(*args[:10], args[10].cpu())
+    with pytest.raises(NotImplementedError):   # no backward
+        poolformer_block(args[0].requires_grad_(), *args[1:])
+
+
+@pytest.mark.parametrize("name,kernel,launches", [
+    ("pvt_v2_b0", "pvt_sra", 2), ("pvt_tiny", "pvt_sra", 2),
+    ("poolformer_s12", "poolformer_block", 12)])
+def test_models_launch_their_kernel_when_switched_on(card, monkeypatch, name,
+                                                     kernel, launches):
+    """A registered variant at its full widths on the card, with the switch
+    on: the expected launches, and logits within 5e-2 of the same weights in
+    f32 on the CPU; with the switch off, no launch."""
+    import tfimm_tpu_torch as tfm
+
+    model = tfm.create_model(name, device=card, dtype=torch.bfloat16,
+                             input_size=(64, 64), seed=0)
+    g = torch.Generator().manual_seed(0)
+    sd = {k: (1.0 + 0.1 * torch.randn(v.shape, generator=g)
+              if k.endswith(("layer_scale_1", "layer_scale_2"))
+              else v.float()) for k, v in model.state_dict().items()}
+    model.load_state_dict(sd)
+    x = torch.randn(2, 64, 64, 3, generator=g)
+    for switch, want_launches in (("1", launches), ("0", 0)):
+        monkeypatch.setenv("TFIMM_TPU_FUSED_PVT_SRA", switch)
+        monkeypatch.setenv("TFIMM_TPU_FUSED_POOLFORMER", switch)
+        before = dispatch.launch_counts[kernel]
+        out = model.predict(x.to(card, torch.bfloat16))
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts[kernel] == before + want_launches
+        ref = tfm.create_model(name, device="cpu", input_size=(64, 64))
+        ref.load_state_dict(sd)
+        want = ref.predict(x)
+        err = (out.float().cpu() - want).abs().max() / want.abs().max()
+        assert bool(torch.isfinite(out).all()) and err < 5e-2, err

@@ -179,16 +179,17 @@ def test_scale_to_size_matches_jax_on_uint8_and_masks():
     rng = np.random.default_rng(1)
     img = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
     want = JaxResizer.scale_to_size(img, (20, 29))
-    got = ImageResizer.scale_to_size(img, (20, 29))
+    got = ImageResizer.scale_to_size(img, (20, 29), device="cpu")
     assert got.dtype == np.uint8 and got.shape == want.shape
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
     assert np.mean(got != want) < 0.01
     masks = rng.normal(size=(2, 3, 16, 16)).astype(np.float32)
     want = JaxResizer.scale_to_size(masks, (40, 56), channels_last=False)
-    got = ImageResizer.scale_to_size(masks, (40, 56), channels_last=False)
+    got = ImageResizer.scale_to_size(masks, (40, 56), channels_last=False,
+                                     device="cpu")
     assert _rel(got, want) < 1e-5
     got_t = ImageResizer.scale_to_size(torch.from_numpy(masks), (40, 56),
-                                       channels_last=False)
+                                       channels_last=False, device="cpu")
     assert isinstance(got_t, torch.Tensor) and _rel(got_t, want) < 1e-5
 
 

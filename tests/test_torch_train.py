@@ -304,14 +304,26 @@ def _l2_model(family):
                               decoder_nb_blocks=1, decoder_nb_heads=2,
                               decoder_mlp_channels=16,
                               decoder_iou_hidden_dim=8)),
+    "pvt": ("pvt_tiny", dict(input_size=(64, 64), embed_dim=(8, 16, 24, 32),
+                             nb_heads=(1, 2, 3, 4), mlp_ratio=(2.0,) * 4,
+                             nb_blocks=(1, 1, 1, 1), nb_classes=7)),
+    "pvt_v2": ("pvt_v2_b2_linear", dict(input_size=(64, 64), embed_dim=(8, 16),
+                                        nb_heads=(1, 2), mlp_ratio=(2.0, 2.0),
+                                        nb_blocks=(1, 1), sr_ratio=(4, 2),
+                                        nb_classes=7)),
+    "poolformer": ("poolformer_s12", dict(input_size=(64, 64),
+                                          embed_dim=(16, 32), nb_blocks=(1, 1),
+                                          nb_classes=7)),
     }[family]
 
 
-@pytest.mark.parametrize("family", ["cait", "convnext", "sam", "swin", "vit"])
+@pytest.mark.parametrize("family", ["cait", "convnext", "poolformer", "pvt",
+                                    "pvt_v2", "sam", "swin", "vit"])
 def test_l2_covers_the_jax_kernel_leaves(family):
     """The L2 penalty covers exactly the JAX package's ``kernel`` leaves
-    (Dense, Conv2d and ConvNeXt's depthwise conv; CaiT's proj_l and proj_w;
-    SAM's transposed convs) and not LayerNorm's ``weight``, nor SAM's
+    (Dense, Conv2d and the depthwise convs of ConvNeXt and PVTv2; CaiT's
+    proj_l and proj_w; SAM's transposed convs) and not the LayerNorm's or
+    GroupNorm's ``weight``, nor SAM's
     embedding tables, position embedding and rel-pos tables: the same set
     of parameters and the same sum of squares on the same seeded weights,
     within 1e-6."""

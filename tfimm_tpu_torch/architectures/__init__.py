@@ -5,3 +5,6 @@ from tfimm_tpu_torch.architectures.vit import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.swin import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.cait import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.segment_anything import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.pvt import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.pvt_v2 import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.poolformer import *  # noqa: F401,F403

@@ -173,11 +173,12 @@ class SAMPredictor:
 
 class ImageResizer:
     """Longest-side scaling and padding, with the point, box and mask
-    transforms. Resizes run on ``device`` (numpy arrays go there and come
-    back; tensors stay where they are)."""
+    transforms. Resizes run on ``device``, the card unless the caller names
+    another (numpy arrays go there and come back; tensors stay where they
+    are)."""
 
     def __init__(self, src_size: Tuple[int, int], dst_size: Tuple[int, int],
-                 pad_only: bool = False, device="cpu"):
+                 pad_only: bool = False, device="cuda"):
         self.src_size = tuple(src_size)
         self.dst_size = tuple(dst_size)
         self.pad_only = pad_only
@@ -201,7 +202,7 @@ class ImageResizer:
 
     @staticmethod
     def scale_to_size(image, size: Tuple[int, int], channels_last: bool = True,
-                      device="cpu"):
+                      device="cuda"):
         """Resize the spatial axes of (N?, H, W, C) (or (N?, C, H, W)) to
         ``size`` in f32 with ``resize_linear``, and back to the input's
         dtype: a numpy array on ``device`` and back to numpy, a tensor on

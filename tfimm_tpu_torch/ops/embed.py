@@ -20,14 +20,21 @@ __all__ = ["PatchEmbeddings"]
 
 class PatchEmbeddings(nn.Module):
     """Conv patchify: (B, H, W, C) -> (B, N, D) tokens and the grid shape,
-    with an optional norm after the flatten (Swin's ``patch_norm``; its
-    parameters are ``norm.*``)."""
+    or with ``flatten=False`` the (B, gh, gw, D) map (PoolFormer). The conv
+    takes ``stride`` (default: the patch size) and a zero ``padding`` on
+    every side, overlapping patches for PVTv2 and PoolFormer. An optional
+    norm follows (Swin's ``patch_norm``, PVT's; its parameters are
+    ``norm.*``)."""
 
     def __init__(self, patch_size: int, embed_dim: int, in_channels: int = 3,
                  norm_layer: Optional[str] = None, *,
+                 stride: Optional[int] = None, padding: int = 0,
+                 flatten: bool = True, use_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.proj = Conv2d(in_channels, embed_dim, patch_size,
+        self.flatten = flatten
+        self.proj = Conv2d(in_channels, embed_dim, patch_size, stride=stride,
+                           padding=padding, use_bias=use_bias,
                            weight_std=0.02, generator=generator)
         self.norm = (norm_layer_factory(norm_layer)(embed_dim) if norm_layer
                      else None)
@@ -35,7 +42,8 @@ class PatchEmbeddings(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
         x = self.proj(x)
         grid = (x.shape[1], x.shape[2])
-        x = x.reshape(x.shape[0], grid[0] * grid[1], x.shape[-1])
+        if self.flatten:
+            x = x.reshape(x.shape[0], grid[0] * grid[1], x.shape[-1])
         if self.norm is not None:
             x = self.norm(x)
         return x, grid

@@ -189,6 +189,31 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_flash_attention_relpos_bwd.restype = ctypes.c_int
+    lib.tfimm_pvt_sra.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # x (B, N, C), kv (B, S, 2C)
+        ctypes.c_int64, ctypes.c_int64,  # kv batch and row strides
+        ctypes.c_void_p, ctypes.c_void_p,  # wq (C, C), f32 bq
+        ctypes.c_void_p, ctypes.c_void_p,  # wp (C, C), f32 bp
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, S, C
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_pvt_sra.restype = ctypes.c_int
+    lib.tfimm_poolformer_block.argtypes = [
+        ctypes.c_void_p,  # x (B, H, W, C)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # f32 n1 w, b, ls1
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 n2 weight, bias
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # f32 b1, b2, ls2
+        ctypes.c_void_p, ctypes.c_void_p,  # w1 (hidden, C), w2 (C, hidden)
+        ctypes.c_void_p, ctypes.c_void_p,  # scratch f32 x1, hidden h
+        ctypes.c_void_p,  # f32 scratch (4, B): mean1, rstd1, mean2, rstd2
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, C
+        ctypes.c_int, ctypes.c_float, ctypes.c_int,  # hidden, eps, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_poolformer_block.restype = ctypes.c_int
     return lib
 
 

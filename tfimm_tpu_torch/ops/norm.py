@@ -1,8 +1,10 @@
-"""LayerNorm and the norm factory; mirror of tfimm_tpu/ops/norm.py.
+"""LayerNorm, GroupNorm and the norm factory; mirror of
+tfimm_tpu/ops/norm.py.
 
 Statistics and the affine transform run in float32 whatever the input
-dtype, and the variance is the one-pass ``max(E[x^2] - E[x]^2, 0)`` of the
-JAX layer, so both packages round alike.
+dtype. LayerNorm's variance is the one-pass ``max(E[x^2] - E[x]^2, 0)`` of
+the JAX layer, GroupNorm's the two-pass ``mean((x - mean)^2)`` of its JAX
+layer, so both packages round alike.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-__all__ = ["LayerNorm", "norm_layer_factory"]
+__all__ = ["LayerNorm", "GroupNorm", "norm_layer_factory"]
 
 
 class LayerNorm(nn.Module):
@@ -33,12 +35,42 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """Normalise NHWC maps over the spatial axes and each group of channels
+    (PoolFormer's ``group_norm_1grp``: one group, the whole map of an
+    image). Parameters: weight, bias (the JAX layer's scale, bias)."""
+
+    def __init__(self, dim: int, nb_groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        if dim % nb_groups != 0:
+            raise ValueError(f"Channels {dim} not divisible by groups {nb_groups}")
+        self.dim = dim
+        self.nb_groups = nb_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        xg = x.float().reshape(shape[0], -1, self.nb_groups,
+                               self.dim // self.nb_groups)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(shape)
+        y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
 def norm_layer_factory(norm_layer: str):
     """String -> norm layer constructor taking ``dim``."""
     if norm_layer == "layer_norm":
         return lambda dim: LayerNorm(dim, eps=1e-5)
     if norm_layer == "layer_norm_eps_1e-6":
         return lambda dim: LayerNorm(dim, eps=1e-6)
+    if norm_layer == "group_norm":
+        return lambda dim: GroupNorm(dim)
+    if norm_layer == "group_norm_1grp":
+        return lambda dim: GroupNorm(dim, nb_groups=1)
     raise NotImplementedError(
         f"Normalization layer {norm_layer!r} is not ported yet; it comes "
-        f"with the families that use it (ROADMAP.md, queue A, items 4-9)")
+        f"with the families that use it (ROADMAP.md, queue A)")

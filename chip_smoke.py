@@ -194,19 +194,49 @@ which ends the run with a non-zero exit code on failure:
    ``TFIMM_TPU_FUSED_POOLFORMER=1`` (12 launches a request) and with it off
    (0), gated as phase 20, with the rate of each run and a profile.
 
+23. ``convnext_block`` against its plain version on the card at ConvNeXt-B's
+   four stage shapes (batch cut to 16) and the edges (ConvNeXt-T's C = 96,
+   a ragged 9 x 13 map, convnext_xlarge's C = 2048 with hidden 8192), in
+   bf16 and in f32 with TF32 off, within 2e-2 and 1e-4 of the largest plain
+   value. Control: the plain version with the depthwise taps flipped in H
+   must miss the bar by ``CONTROL_FACTOR``. At the stage shapes at batch
+   128, with the operands out of L2 (a 512 MB write before each call):
+   kernel, plain, bound, the per-op library block (cuDNN depthwise,
+   ``F.layer_norm``, ``F.linear``, tanh ``F.gelu``, ``F.linear``, scale and
+   residual) and the default path (cuDNN depthwise + ``convnext_mlp``), per
+   stage and per request.
+24. ConvNeXt serving through the fused block: ``convnext_base`` in bf16
+   with seeded random weights (std 0.05, gammas near 1) answers 5 requests
+   of 128 uint8 224x224 images with ``TFIMM_TPU_FUSED_CONVNEXT=1`` (36
+   ``convnext_block`` launches a request, no ``convnext_mlp``) and with it
+   off (36 ``convnext_mlp``), gated as phase 20, with the rate of each run
+   and a profile of one request with the switch on.
+25. The ConvNeXt training path: ``tfimm_tpu_torch.train.run`` trains
+   ConvNeXt-B at batch 64 in bf16 mixed precision with the ConvNeXt paper's
+   ImageNet-1K recipe as far as ``train/`` takes it (AdamW at weight decay
+   0.05, label smoothing 0.1, mixup 0.8, cutmix 1.0, drop path 0.5) for 6
+   steps. No step may launch a kernel (the blocks run per op under
+   autograd); every loss must be finite. The rate over steps 2-6 and a
+   profile of one step with the device's idle share.
+
+Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
+launch counts hold whatever the environment says.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-22) alone, for a quicker look at one
+runs phase 1 and the phases named (2-25) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -344,13 +374,36 @@ POOL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 POOLFORMER = "poolformer_s12"
 POOLFORMER_RUNS = [("1", 12), ("0", 0)]
 FAMILY_CHECK_IMAGES = 16
+# convnext_block (B, H, W, C, hidden): ConvNeXt-B's four stages at batch
+# 128 (CONVNEXT_DEPTHS blocks of each a request); against the plain version
+# at batch CONVNEXT_BLOCK_CHECK_BATCH, then the edges: ConvNeXt-T's C = 96,
+# a ragged 9 x 13 map, convnext_xlarge's widest stage (C = 2048, hidden
+# 8192) at a small M.
+CONVNEXT_BLOCK_STAGES = [(128, 56, 56, 128, 512), (128, 28, 28, 256, 1024),
+                         (128, 14, 14, 512, 2048), (128, 7, 7, 1024, 4096)]
+CONVNEXT_BLOCK_CHECK_BATCH = 16
+CONVNEXT_BLOCK_EDGES = [(16, 56, 56, 96, 384), (8, 9, 13, 128, 512),
+                        (2, 7, 7, 2048, 8192)]
+# f32: 49 taps, a LayerNorm and two products, each summed in another order.
+CONVNEXT_BLOCK_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# ConvNeXt-B serving: (switch, launches a request) with
+# TFIMM_TPU_FUSED_CONVNEXT on (every block whole) and off (convnext_mlp).
+CONVNEXT_FUSED_RUNS = [("1", {"convnext_block": 36}),
+                       ("0", {"convnext_mlp": 36})]
+CONVNEXT_TRAIN_BATCH = 64
+# The 50 MB L2 is evicted before each cold-timed call by a write this large.
+L2_FLUSH_BYTES = 512 * 2 ** 20
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# f32 outside the tensor cores (the depthwise taps).
+PEAK_F32_FLOPS = 67e12
 # Device-time groups of a training step or a request, by kernel name (first
 # match).
-KERNEL_GROUPS = [("pvt_sra (pvt_sra.cu)", ("pvt_sra",)),
+KERNEL_GROUPS = [("convnext_block (convnext_block.cu: depthwise + LayerNorm, "
+                  "GEMMs)", ("convnext_block",)),
+                 ("pvt_sra (pvt_sra.cu)", ("pvt_sra",)),
                  ("poolformer_block (poolformer_block.cu: GroupNorm "
                   "statistics, pool, GEMMs)", ("gn_stats", "pool_x1",
                                                "pf_gemm")),
@@ -377,6 +430,20 @@ KERNEL_GROUPS = [("pvt_sra (pvt_sra.cu)", ("pvt_sra",)),
                  ("optimizer (foreach)", ("multi_tensor_apply",)),
                  ("memcpy/memset", ("memcpy", "memset"))]
 OTHER_KERNELS = "elementwise, LayerNorm, reductions"
+
+
+@contextlib.contextmanager
+def restored_env(var: str):
+    """On leaving, set the environment variable ``var`` back to what it was
+    on entry (unset if it was unset)."""
+    saved = os.environ.get(var)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = saved
 
 
 class SmokeFailure(Exception):
@@ -948,6 +1015,15 @@ def phase_convnext_kernel(report):
 
 
 def phase_convnext_slice(reports, gpu_line):
+    """Phase 6, with TFIMM_TPU_FUSED_CONVNEXT pinned to 0 for its run (the
+    variable restored after): the default path, whatever the environment
+    says."""
+    with restored_env("TFIMM_TPU_FUSED_CONVNEXT"):
+        os.environ["TFIMM_TPU_FUSED_CONVNEXT"] = "0"
+        convnext_slice(reports, gpu_line)
+
+
+def convnext_slice(reports, gpu_line):
     import torch
 
     import tfimm_tpu_torch as tfm
@@ -2828,10 +2904,11 @@ def phase_sra_kernel(report, gpu_line):
           f" + F.linear {report['library_ms']!r} ms; on {gpu_line}", flush=True)
 
 
-def family_requests(model, pp, requests, launches, kernel):
-    """Serve ``requests`` through ``model.predict``; each must launch
-    ``kernel`` ``launches`` times and nothing else, and give finite,
-    non-zero logits. Returns (request seconds, the first logits)."""
+def family_requests(model, pp, requests, launches):
+    """Serve ``requests`` through ``model.predict``; each must launch the
+    kernels of ``launches`` (name -> count) as many times and nothing else,
+    and give finite, non-zero logits. Returns (request seconds, the first
+    logits)."""
     import torch
 
     from tfimm_tpu_torch.ops.kernels import dispatch
@@ -2844,9 +2921,8 @@ def family_requests(model, pp, requests, launches, kernel):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
-        want = expected(**{kernel: launches})
-        check(rose == want, f"one {model.cfg.name} request launched {rose}, "
-              f"expected {kernel} {launches} times and nothing else")
+        check(rose == expected(**launches), f"one {model.cfg.name} request "
+              f"launched {rose}, expected {launches} and nothing else")
         check(tuple(logits.shape) == (BATCH, model.cfg.nb_classes),
               f"logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -2856,14 +2932,14 @@ def family_requests(model, pp, requests, launches, kernel):
 
 
 def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
-    """Phases 20 and 22: each (model, switch, launches) of ``runs`` in bf16
-    with seeded weights answers REQUESTS requests of BATCH uint8 224x224
-    images; the logits of the first FAMILY_CHECK_IMAGES images are held
-    within 5e-2 of the same weights in f32 on the card through the eager
-    path (switch off, no launch); a profile of one request of each model's
-    first run."""
-    import os
-
+    """Phases 20, 22 and 24: each (model, switch, launches) of ``runs`` in
+    bf16 with seeded weights answers REQUESTS requests of BATCH uint8
+    224x224 images, each launching ``kernel`` ``launches`` times (or the
+    kernels of a ``launches`` dict, name -> count) and nothing else; the
+    logits of the first FAMILY_CHECK_IMAGES images are held within 5e-2 of
+    the same weights in f32 on the card through the eager path (switch
+    off, autograd recording, no launch); a profile of one request of each
+    model's first run."""
     import torch
 
     import tfimm_tpu_torch as tfm
@@ -2874,11 +2950,10 @@ def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
                               device="cuda", dtype=torch.uint8)
                 for _ in range(REQUESTS)]
     x = requests[0][:FAMILY_CHECK_IMAGES]
-    saved = os.environ.get(switch_var)
     dispatch.reset_launch_counts()
     path_counts = expected()
     profiled = set()
-    try:
+    with restored_env(switch_var):
         for name, switch, launches in runs:
             model = tfm.create_model(name, device="cuda", dtype=torch.bfloat16,
                                      seed=0)
@@ -2889,8 +2964,9 @@ def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
             os.environ[switch_var] = switch
             torch.cuda.synchronize()
             before = dict(dispatch.launch_counts)
-            seconds, logits = family_requests(model, pp, requests, launches,
-                                              kernel)
+            if not isinstance(launches, dict):
+                launches = {kernel: launches}
+            seconds, logits = family_requests(model, pp, requests, launches)
             for k in path_counts:
                 path_counts[k] += dispatch.launch_counts[k] - before[k]
             img_s = [BATCH / t for t in seconds[1:]]
@@ -2901,7 +2977,7 @@ def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
             print(f"slice {name} bs{BATCH} bf16 ({how}): "
                   f"{statistics.median(img_s)!r} img/s (median of requests "
                   f"2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}), "
-                  f"{launches} {kernel} launches a request; on {gpu_line}",
+                  f"launches a request {launches}; on {gpu_line}",
                   flush=True)
 
             os.environ[switch_var] = "0"
@@ -2911,7 +2987,8 @@ def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
             pp32 = tfm.create_preprocessing(name, dtype=torch.float32,
                                             device="cuda")
             before = dict(dispatch.launch_counts)
-            ref = model32.predict(pp32(x))
+            with torch.enable_grad():   # every kernel gate declines
+                ref = model32(pp32(x)).detach()
             check(dispatch.launch_counts == before,
                   "the f32 eager reference launched a kernel")
             got = logits[:FAMILY_CHECK_IMAGES].float()
@@ -2940,11 +3017,6 @@ def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
                     print(f"{name} ({how}) request profile kernel: {ms!r} ms "
                           f"{kname[:150]}", flush=True)
             del model
-    finally:
-        if saved is None:
-            os.environ.pop(switch_var, None)
-        else:
-            os.environ[switch_var] = saved
     for report_name, report in reports.items():
         report["launches_by_path"][path] = path_counts[report_name]
 
@@ -3053,13 +3125,238 @@ def phase_pool_kernel(report, gpu_line):
           f"({report['bound_by']}); on {gpu_line}", flush=True)
 
 
+def cold_ms(fn, calls: int = 10, warmup: int = 2) -> float:
+    """Device time of one call of ``fn`` with its operands out of L2: before
+    each call a write of L2_FLUSH_BYTES evicts the 50 MB L2 (and lets the
+    host enqueue the call ahead of the device); CUDA events around the call
+    alone; the median over ``calls``."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(calls):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def convnext_block_inputs(b, h, w, c, hidden, dtype, seed):
+    """Seeded inputs of ``convnext_block`` on the card: x normal, the taps of
+    a unit-size output, the LN weight and gamma near 1, the MLP scaled to
+    unit-size products."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    near_one = dict(scale=0.1, shift=1.0)
+    return (rnd(b, h, w, c).to(dtype), rnd(c, 1, 7, 7, scale=0.2),
+            rnd(c, scale=0.1), rnd(c, **near_one), rnd(c, scale=0.1),
+            rnd(hidden, c, scale=c ** -0.5).to(dtype), rnd(hidden, scale=0.1),
+            rnd(c, hidden, scale=hidden ** -0.5).to(dtype), rnd(c, scale=0.1),
+            rnd(c, **near_one))
+
+
+def convnext_block_bound(b, h, w, c, hidden):
+    """(ms, what bounds it): x read and out written once (bf16), the two
+    matrices (bf16), the f32 taps and vectors; the two products on the
+    tensor cores (4 * M * C * hidden at the bf16 peak) and the 49 taps on
+    the CUDA cores (98 * M * C at the f32 peak); the largest of the three."""
+    m = b * h * w
+    nbytes = 2 * (2 * m * c + 2 * c * hidden) + 4 * (54 * c + hidden)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = max(4 * m * c * hidden / PEAK_BF16_FLOPS,
+                98 * m * c / PEAK_F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def per_op_convnext_block(x, dw, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """The library's block, one PyTorch call an op: cuDNN's depthwise conv
+    on the channels-last view, F.layer_norm, F.linear, the tanh F.gelu,
+    F.linear, the scale and the residual, all in x's dtype."""
+    import torch.nn.functional as F
+
+    c = x.shape[-1]
+    d = F.conv2d(x.permute(0, 3, 1, 2), dw, dw_b, padding=3, groups=c)
+    z = F.layer_norm(d.permute(0, 2, 3, 1), (c,), ln_w, ln_b, 1e-6)
+    hid = F.gelu(F.linear(z, w1, b1), approximate="tanh")
+    return x + gamma * F.linear(hid, w2, b2)
+
+
+def default_convnext_block(x, dw, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """The default path of a ConvNeXt block at inference: cuDNN's depthwise
+    conv in x's dtype, then the convnext_mlp kernel."""
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
+
+    c = x.shape[-1]
+    d = F.conv2d(x.permute(0, 3, 1, 2), dw.to(x.dtype), dw_b.to(x.dtype),
+                 padding=3, groups=c).permute(0, 2, 3, 1)
+    return convnext_mlp(d.reshape(-1, c), x.reshape(-1, c), ln_w, ln_b, w1,
+                        b1, w2, b2, gamma, 1e-6)
+
+
+def phase_convnext_block_kernel(report, gpu_line):
+    """Phase 23: ``convnext_block`` against its plain version, then its
+    time at ConvNeXt-B's stage shapes beside the plain version, the per-op
+    library block and the default path (cuDNN depthwise + convnext_mlp),
+    each with its operands out of L2."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.convnext_block import (
+        convnext_block,
+        convnext_block_reference,
+    )
+
+    checked = [(CONVNEXT_BLOCK_CHECK_BATCH, *shape[1:])
+               for shape in CONVNEXT_BLOCK_STAGES] + CONVNEXT_BLOCK_EDGES
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (b, h, w, c, hid) in enumerate(checked):
+            args = convnext_block_inputs(b, h, w, c, hid, dtype, 2300 + i)
+            what = f"{dname:8s} B={b} {h}x{w}x{c} hidden={hid}"
+            got = convnext_block(*args)
+            ref = convnext_block_reference(*args)
+            torch.cuda.synchronize()
+            err, bar, ok = held(got, ref, CONVNEXT_BLOCK_TOL[dname])
+            print(f"convnext_block {what}: max_abs_err={err!r} bar={bar!r} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"convnext_block disagrees with its plain version "
+                  f"({what}): {err} > {bar}")
+            if dtype == torch.bfloat16 and i < len(CONVNEXT_BLOCK_STAGES):
+                worst = max(worst, err)
+            if dtype == torch.bfloat16 and i == 0:
+                # Control: the plain version with the depthwise weight
+                # flipped in H must miss the bar.
+                flipped = (args[0], args[1].flip(2), *args[2:])
+                far = (got.float() - convnext_block_reference(*flipped).float())
+                far = far.abs().max().item()
+                print(f"convnext_block control {what}: taps flipped in H off "
+                      f"by {far!r}, {far / bar!r} bars", flush=True)
+                check(far > CONTROL_FACTOR * bar, "convnext_block: the plain "
+                      "version with flipped taps stays within the bar")
+            del args, got, ref
+    report["max_abs_err"] = worst
+
+    keys = ("ms", "plain_ms", "library_ms", "default_path_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    bound_by = {}
+    for (b, h, w, c, hid), depth in zip(CONVNEXT_BLOCK_STAGES, CONVNEXT_DEPTHS):
+        args = convnext_block_inputs(b, h, w, c, hid, torch.bfloat16, 2400)
+        lib_args = (args[0], args[1].to(torch.bfloat16),
+                    *(t.to(torch.bfloat16) for t in args[2:]))
+        t = {"ms": cold_ms(lambda: convnext_block(*args)),
+             "plain_ms": cold_ms(lambda: convnext_block_reference(*args),
+                                 calls=3, warmup=1),
+             "library_ms": cold_ms(lambda: per_op_convnext_block(*lib_args)),
+             "default_path_ms": cold_ms(
+                 lambda: default_convnext_block(*args))}
+        t["bound_ms"], by = convnext_block_bound(b, h, w, c, hid)
+        bound_by[by] = bound_by.get(by, 0.0) + depth * t["bound_ms"]
+        for key, what in (("ms", "kernel"), ("plain_ms", "plain"),
+                          ("library_ms", "per-op library block"),
+                          ("default_path_ms", "default path (cuDNN "
+                           "depthwise + convnext_mlp)")):
+            print(f"convnext_block bf16 {b}x{h}x{w}x{c}: {what} {t[key]!r} "
+                  f"ms, {t['bound_ms'] / t[key]!r} of the bound", flush=True)
+        print(f"convnext_block bf16 {b}x{h}x{w}x{c}: bound {t['bound_ms']!r} "
+              f"ms ({by}); {depth} blocks a request", flush=True)
+        for key in keys:
+            totals[key] += depth * t[key]
+        del args, lib_args
+    report.update(totals)
+    report["bound_by"] = max(bound_by, key=bound_by.get)
+    print(f"convnext_block per {CONVNEXT} bs{BATCH} request "
+          f"({sum(CONVNEXT_DEPTHS)} calls, operands out of L2): kernel "
+          f"{totals['ms']!r} ms, plain {totals['plain_ms']!r} ms, per-op "
+          f"library block {totals['library_ms']!r} ms, default path "
+          f"{totals['default_path_ms']!r} ms, bound {totals['bound_ms']!r} ms "
+          f"({report['bound_by']}); on {gpu_line}", flush=True)
+
+
+def convnext_train_config() -> dict:
+    """ConvNeXt-B at batch 64 with the ConvNeXt paper's ImageNet-1K recipe
+    as far as train/ takes it (AdamW at weight decay 0.05, label smoothing
+    0.1, mixup 0.8, cutmix 1.0, drop path 0.5 for ConvNeXt-B; the paper's lr
+    4e-3 at batch 4096 scaled to 6.25e-5 at batch 64), bf16 mixed precision,
+    TRAIN_STEPS epochs of one step each on the same 64 synthetic images."""
+    data = {"batch_size": CONVNEXT_TRAIN_BATCH,
+            "nb_samples": CONVNEXT_TRAIN_BATCH, "input_size": (224, 224),
+            "nb_classes": 1000, "seed": 0}
+    return {
+        "trainer_class": "Trainer",
+        "trainer": {"validation_before_training": False,
+                    "display_loss_every_it": 1},
+        "problem_class": "ClassificationProblem",
+        "problem": {"model_class": "ModelFactory",
+                    "model": {"model_name": CONVNEXT, "drop_path_rate": 0.5},
+                    "optimizer_class": "OptimizerFactory",
+                    "optimizer": {"optimizer": "adamw", "weight_decay": 0.05,
+                                  "lr_schedule_class": "LRConstFactory",
+                                  "lr_schedule": {
+                                      "lr": 4e-3 * CONVNEXT_TRAIN_BATCH / 4096}},
+                    "mixed_precision": True, "label_smoothing": 0.1,
+                    "mixup_alpha": 0.8, "cutmix_alpha": 1.0},
+        "train_dataset_class": "SyntheticDataset", "train_dataset": data,
+        "timekeeping_class": "Timekeeping",
+        "timekeeping": {"nb_epochs": TRAIN_STEPS,
+                        "batch_size": CONVNEXT_TRAIN_BATCH,
+                        "nb_samples_per_epoch": CONVNEXT_TRAIN_BATCH},
+        "device": "cuda",
+    }
+
+
+def phase_convnext_train(reports, gpu_line):
+    """Phase 25: ``train.run`` trains ConvNeXt-B at batch 64 in bf16 mixed
+    precision. No kernel launches (every block runs per op under autograd,
+    as the JAX package's gates decline in training); every loss finite; the
+    rate over steps 2-N and the idle share of one profiled step."""
+    trainer, steps, counts = run_watched(convnext_train_config())
+    problem = trainer.problem
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} ConvNeXt training steps, "
+          f"expected {TRAIN_STEPS}")
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"convnext train step {it}: loss {loss!r}, {seconds!r} s, "
+              f"launches {rose}", flush=True)
+        check(rose == expected(), f"ConvNeXt step {it} launched {rose}, "
+              f"expected no kernel")
+        check(math.isfinite(loss), f"ConvNeXt step {it}: loss {loss}")
+    check(counts == expected(), f"the ConvNeXt run launched {counts}")
+    for name, report in reports.items():
+        report["launches_by_path"]["train_convnext"] = counts[name]
+    timed = [s for _, s, _ in steps[1:]]
+    step_s = sum(timed) / len(timed)
+    print(f"train {CONVNEXT} bs{CONVNEXT_TRAIN_BATCH} bf16 mixed precision "
+          f"adamw mixup/cutmix drop path 0.5: "
+          f"{CONVNEXT_TRAIN_BATCH * len(timed) / sum(timed)!r} img/s "
+          f"({len(timed)} steps 2-{TRAIN_STEPS} in {sum(timed) * 1e3!r} ms; "
+          f"median step {statistics.median(timed) * 1e3!r} ms, slowest "
+          f"{max(timed) * 1e3!r} ms) on {gpu_line}", flush=True)
+    batch = next(iter(trainer.train_ds))
+    profile_idle(f"{CONVNEXT} train step",
+                 lambda: problem.train_step(batch, 0), step_s * 1e3, steps=1)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 23))
+    all_phases = list(range(2, 26))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 22",
+            print("chip_smoke: --phases takes numbers from 2 to 25",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -3171,6 +3468,16 @@ def main(argv) -> int:
                 f"{n} x (B, H, W, C, hidden) = {shape}"
                 for n, shape in zip(POOL_DEPTHS, POOL_STAGES))
                 + " (five launches, counted as one)")}
+        reports["convnext_block"] = {
+            "name": "convnext_block", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/convnext_block.cu",
+            "replaces": "tfimm_tpu/ops/pallas/convnext_block.py:74",
+            "work": (f"bf16, one {CONVNEXT} bs{BATCH} request with "
+                     f"TFIMM_TPU_FUSED_CONVNEXT=1: " + " + ".join(
+                         f"{n} x (B, H, W, C, hidden) = {shape}"
+                         for n, shape in zip(CONVNEXT_DEPTHS,
+                                             CONVNEXT_BLOCK_STAGES))
+                     + " (three launches, counted as one)")}
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
@@ -3207,6 +3514,13 @@ def main(argv) -> int:
                 reports, gpu_line, "serve_poolformer", "poolformer_block",
                 "TFIMM_TPU_FUSED_POOLFORMER",
                 [(POOLFORMER, sw, n) for sw, n in POOLFORMER_RUNS], seed=22),
+            23: lambda: phase_convnext_block_kernel(reports["convnext_block"],
+                                                    gpu_line),
+            24: lambda: family_serving(
+                reports, gpu_line, "serve_convnext_fused", "convnext_block",
+                "TFIMM_TPU_FUSED_CONVNEXT",
+                [(CONVNEXT, sw, n) for sw, n in CONVNEXT_FUSED_RUNS], seed=24),
+            25: lambda: phase_convnext_train(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()
@@ -3223,7 +3537,7 @@ def main(argv) -> int:
         if phases != all_phases and not all(k in report for k in keys):
             continue   # a kernel the chosen phases did not measure
         entry = {k: report[k] for k in keys}
-        for extra in ("cublas_floor_ms", "windowed"):
+        for extra in ("cublas_floor_ms", "windowed", "default_path_ms"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

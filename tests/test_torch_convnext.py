@@ -8,17 +8,26 @@ vanish and any MLP would pass. The port loads them through
 ``state_dict_from_jax``. Bars: rel err < 1e-4 in f32 against JAX; < 1e-3
 against the golden (the bar of tests/test_golden_parity.py); < 5e-2 in bf16
 (the two packages round the MLP branch at different places).
+
+Every test but one holds the default path, with ``TFIMM_TPU_FUSED_CONVNEXT``
+pinned to 0 whatever the environment says. The one with the switch on runs
+the JAX model through its fused block on the CPU: its gate tests
+``jax.default_backend()`` itself, so the test reports the TPU backend and
+runs the Pallas kernel in interpret mode, for that test only.
 """
 
+import functools
 import json
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import tfimm_tpu
+import tfimm_tpu.ops.pallas.convnext_block as jax_convnext_block
 import tfimm_tpu_torch
 from tfimm_tpu.ops.conv import DepthwiseConv2d as JaxDepthwiseConv2d
 from tfimm_tpu.ops.mlp import ConvMLP as JaxConvMLP
@@ -36,6 +45,11 @@ SMALL = dict(input_size=(32, 32), embed_dim=(128, 256), nb_blocks=(1, 1),
              nb_classes=7, drop_path_rate=0.0)
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden",
                       "hf_convnext.npz")
+
+
+@pytest.fixture(autouse=True)
+def _fused_block_off(monkeypatch):
+    monkeypatch.setenv("TFIMM_TPU_FUSED_CONVNEXT", "0")
 
 
 def _seeded(params, seed):
@@ -117,6 +131,39 @@ def test_small_convnext_bf16_matches_jax(monkeypatch):
     with torch.inference_mode():
         got, got_feats = tm(torch.from_numpy(x).bfloat16(), return_features=True)
     assert got.dtype == torch.bfloat16
+    assert _rel(got, want) < 5e-2
+    for name in tm.feature_names:
+        assert _rel(got_feats[name], want_feats[name]) < 5e-2, name
+
+
+def test_small_convnext_bf16_matches_jax_through_the_fused_block(monkeypatch):
+    # Switched on, both packages run every block whole: the JAX package
+    # through its Pallas kernel in interpret mode (its gate opened by the
+    # TPU backend reported for this test), the port through convnext_block's
+    # plain version.
+    monkeypatch.setenv("TFIMM_TPU_FUSED_CONVNEXT", "1")
+    monkeypatch.setenv("TFIMM_TPU_PALLAS_INTERPRET", "1")
+    calls = []
+    orig = jax_convnext_block.fused_convnext_block
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return functools.partial(orig, interpret=True)(*args, **kwargs)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax_convnext_block, "fused_convnext_block", counted)
+    jm, params, tm, x = _pair(seed=15, embed_dim=(32, 64), nb_blocks=(2, 1))
+    jm.params = params
+    jm.cast(jnp.bfloat16)
+    want, want_feats = jm.apply(jm.params, jnp.asarray(x, jnp.bfloat16),
+                                return_features=True)
+    assert len(calls) == sum(jm.cfg.nb_blocks) == 3
+    tm = tm.to(torch.bfloat16)
+    before = dict(dispatch.launch_counts)
+    with torch.inference_mode(), capture_dispatches() as seen:
+        got, got_feats = tm(torch.from_numpy(x).bfloat16(), return_features=True)
+    assert seen == {"convnext_block"}
+    assert dispatch.launch_counts == before   # CPU: plain version
     assert _rel(got, want) < 5e-2
     for name in tm.feature_names:
         assert _rel(got_feats[name], want_feats[name]) < 5e-2, name

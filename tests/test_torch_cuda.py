@@ -26,7 +26,11 @@ pvt_sra: 2e-2 * max|plain| in bf16 (the kernel rounds q, p and o where the
 plain version does, its sums run in another order) and 1e-5 * max|plain|
 in f32. poolformer_block: 2e-2 * max|plain| in bf16 and 1e-4 * max|plain|
 in f32 (two whole-map GroupNorm reductions and two products, each summed
-in another order).
+in another order). convnext_block: 2e-2 * max|plain| in bf16 (the plain
+version rounds z and h to bf16 at the same places; the sums run in another
+order, so a rounding may land on the other side) and 1e-4 * max|plain| in
+f32 (the 49 taps, the LayerNorm and two products, each summed in another
+order).
 """
 
 import numpy as np
@@ -44,6 +48,11 @@ from tfimm_tpu_torch.ops.kernels.cait_attention import (
     talking_head_attention_reference,
 )
 from tfimm_tpu_torch.ops.kernels import dispatch
+from tfimm_tpu_torch.ops.kernels.convnext_block import (
+    MAX_CHANNELS,
+    convnext_block,
+    convnext_block_reference,
+)
 from tfimm_tpu_torch.ops.kernels.convnext_mlp import (
     convnext_mlp,
     convnext_mlp_reference,
@@ -885,5 +894,105 @@ def test_models_launch_their_kernel_when_switched_on(card, monkeypatch, name,
         ref = tfm.create_model(name, device="cpu", input_size=(64, 64))
         ref.load_state_dict(sd)
         want = ref.predict(x)
+        err = (out.float().cpu() - want).abs().max() / want.abs().max()
+        assert bool(torch.isfinite(out).all()) and err < 5e-2, err
+
+
+# -- convnext_block (ConvNeXt with TFIMM_TPU_FUSED_CONVNEXT=1) ---------------
+
+# (B, H, W, C, hidden): ConvNeXt-B's four stage shapes (B cut), ConvNeXt-T's
+# C = 96, a ragged 9 x 13 map (the taps' edges at every offset),
+# convnext_xlarge's widest stage (C = 2048, hidden 8192, 24 KB of f32 a
+# pixel in shared memory) and an odd C = 12 (element loads).
+CONVNEXT_BLOCK_SHAPES = [(2, 56, 56, 128, 512), (2, 28, 28, 256, 1024),
+                         (2, 14, 14, 512, 2048), (2, 7, 7, 1024, 4096),
+                         (2, 56, 56, 96, 384), (3, 9, 13, 24, 96),
+                         (1, 7, 7, 2048, 8192), (2, 5, 3, 12, 48)]
+
+
+def _convnext_block_inputs(b, h, w, c, hidden, dtype, device, seed):
+    """x normal, the taps of a unit-size output, the LN weight and gamma near
+    1 (at gamma's init of 1e-6 the block is x to bf16 precision), the MLP
+    scaled to unit-size products."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device=device) * scale + shift
+
+    near_one = dict(scale=0.1, shift=1.0)
+    return (rnd(b, h, w, c).to(dtype), rnd(c, 1, 7, 7, scale=0.2),
+            rnd(c, scale=0.1), rnd(c, **near_one), rnd(c, scale=0.1),
+            rnd(hidden, c, scale=c ** -0.5).to(dtype), rnd(hidden, scale=0.1),
+            rnd(c, hidden, scale=hidden ** -0.5).to(dtype), rnd(c, scale=0.1),
+            rnd(c, **near_one))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,h,w,c,hidden", CONVNEXT_BLOCK_SHAPES)
+def test_convnext_block_kernel_matches_plain(card, b, h, w, c, hidden, dtype,
+                                             tol):
+    args = _convnext_block_inputs(b, h, w, c, hidden, dtype, card, h * w + c)
+    before = dict(dispatch.launch_counts)
+    got = convnext_block(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {
+        **before, "convnext_block": before["convnext_block"] + 1}
+    want = convnext_block_reference(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    _held_by(got, want, tol)
+
+
+def test_convnext_block_repeats(card):
+    args = _convnext_block_inputs(4, 28, 28, 256, 1024, torch.bfloat16, card, 3)
+    assert torch.equal(convnext_block(*args), convnext_block(*args))
+
+
+def test_convnext_block_refuses_what_it_does_not_take(card):
+    args = list(_convnext_block_inputs(1, 4, 4, 8, 32, torch.float32, card, 4))
+    with pytest.raises(ValueError):   # f16
+        convnext_block(args[0].half(), *args[1:])
+    with pytest.raises(ValueError):   # w1 of the wrong shape
+        convnext_block(*args[:5], args[5][:, :4], *args[6:])
+    with pytest.raises(ValueError):   # a 3x3 depthwise weight
+        convnext_block(args[0], args[1][..., :3, :3], *args[2:])
+    with pytest.raises(ValueError):   # mixed devices
+        convnext_block(*args[:9], args[9].cpu())
+    with pytest.raises(ValueError):   # not contiguous
+        convnext_block(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(NotImplementedError):   # no backward
+        convnext_block(args[0].requires_grad_(), *args[1:])
+    c = MAX_CHANNELS + 8
+    wide = _convnext_block_inputs(1, 1, 1, c, 8, torch.bfloat16, card, 5)
+    with pytest.raises(ValueError):   # wider than a block's shared memory
+        convnext_block(*wide)
+
+
+def test_convnext_launches_convnext_block_when_switched_on(card, monkeypatch):
+    """convnext_tiny at its full widths on the card in bf16: with the switch
+    on, one convnext_block launch a block and no convnext_mlp; off, the
+    reverse. Logits within 5e-2 of the same weights in f32 on the CPU."""
+    import tfimm_tpu_torch as tfm
+
+    model = tfm.create_model("convnext_tiny", device=card, dtype=torch.bfloat16,
+                             input_size=(64, 64), seed=0)
+    g = torch.Generator().manual_seed(0)
+    sd = {k: (1.0 + 0.1 * torch.randn(v.shape, generator=g)
+              if k.endswith("gamma") else v.float())
+          for k, v in model.state_dict().items()}
+    model.load_state_dict(sd)
+    x = torch.randn(2, 64, 64, 3, generator=g)
+    blocks = sum(model.cfg.nb_blocks)
+    ref = tfm.create_model("convnext_tiny", device="cpu", input_size=(64, 64))
+    ref.load_state_dict(sd)
+    want = ref.predict(x)
+    for switch, fused in (("1", blocks), ("0", 0)):
+        monkeypatch.setenv("TFIMM_TPU_FUSED_CONVNEXT", switch)
+        before = dict(dispatch.launch_counts)
+        out = model.predict(x.to(card, torch.bfloat16))
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts == {
+            **before, "convnext_block": before["convnext_block"] + fused,
+            "convnext_mlp": before["convnext_mlp"] + blocks - fused}
         err = (out.float().cpu() - want).abs().max() / want.abs().max()
         assert bool(torch.isfinite(out).all()) and err < 5e-2, err

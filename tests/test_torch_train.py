@@ -33,6 +33,8 @@ import tfimm_tpu_torch
 import tfimm_tpu_torch.train as ttrain
 from tfimm_tpu.architectures.cait import CaiT as JaxCaiT
 from tfimm_tpu.architectures.cait import CaiTConfig as JaxCaiTConfig
+from tfimm_tpu.architectures.convnext import ConvNeXt as JaxConvNeXt
+from tfimm_tpu.architectures.convnext import ConvNeXtConfig as JaxConvNeXtConfig
 from tfimm_tpu.architectures.swin import SwinTransformer as JaxSwin
 from tfimm_tpu.architectures.swin import SwinTransformerConfig as JaxSwinConfig
 from tfimm_tpu.architectures.vit import ViT as JaxViT
@@ -44,6 +46,7 @@ from tfimm_tpu.train import optimizers as jopt
 from tfimm_tpu.train import transforms as jtransforms
 from tfimm_tpu.utils.tree import flatten_params
 from tfimm_tpu_torch.architectures.cait import CaiT, CaiTConfig
+from tfimm_tpu_torch.architectures.convnext import ConvNeXt, ConvNeXtConfig
 from tfimm_tpu_torch.architectures.swin import SwinTransformer
 from tfimm_tpu_torch.architectures.swin import SwinTransformerConfig
 from tfimm_tpu_torch.architectures.vit import ViT, ViTConfig
@@ -704,6 +707,80 @@ def test_run_trains_cait_step_for_step_with_jax(small_cait, monkeypatch):
         ttrain.run(dict(cfg, device="cpu"), parse_cmdline_args=False)
     assert port_seen == {"talking_head_attention"}
     assert len(seen["torch"]) == len(seen["jax"]) == 4 + 3
+    for got, want in zip(seen["torch"], seen["jax"]):
+        if isinstance(want, dict):
+            assert got == want
+        else:
+            assert _rel(got, want) < 1e-5
+
+
+# -- ConvNeXt through run() --------------------------------------------------------------
+
+CONVNEXT_NAME = "train_parity_convnext"
+CONVNEXT_SMALL = dict(input_size=(32, 32), embed_dim=(32, 64), nb_blocks=(2, 1),
+                      nb_classes=7, drop_path_rate=0.0, init_scale=1.0)
+
+
+@pytest.fixture
+def small_convnext(monkeypatch):
+    """A small ConvNeXt under CONVNEXT_NAME in both model registries, for one
+    test."""
+    for reg, cls, cfg_cls in ((jax_registry, JaxConvNeXt, JaxConvNeXtConfig),
+                              (torch_registry, ConvNeXt, ConvNeXtConfig)):
+        monkeypatch.setitem(reg._model_class, CONVNEXT_NAME, cls)
+        monkeypatch.setitem(reg._model_config, CONVNEXT_NAME,
+                            cfg_cls(name=CONVNEXT_NAME, **CONVNEXT_SMALL))
+    return CONVNEXT_NAME
+
+
+def test_run_trains_convnext_step_for_step_with_jax(small_convnext, monkeypatch):
+    """run() of a small ConvNeXt (widths 32 and 64, blocks 2 and 1, 32x32,
+    the layer scales at 1) from the same config dict in both packages: the
+    same per-step losses and validation accuracies, SGD with momentum and
+    L2 weight decay (which covers the depthwise kernels), all rates 0. In
+    training both packages run the blocks per op (no kernel has a
+    backward); in validation the JAX package takes its XLA composition on
+    the CPU and the port convnext_mlp's plain version. The port starts from
+    the JAX model's initial parameters."""
+    monkeypatch.delenv("TFIMM_TPU_FUSED_CONVNEXT", raising=False)
+    jm = jtrain.ModelFactory(jtrain.ModelConfig(model_name=CONVNEXT_NAME))()[0]
+    init = state_dict_from_jax(jm.params)
+    assert all(torch.all(v == 1.0) for k, v in init.items()
+               if k.endswith("gamma"))
+    make = ttrain.ModelFactory.__call__
+
+    def make_with_jax_init(self, device):
+        model, pp = make(self, device)
+        model.load_state_dict(init)
+        return model, pp
+
+    monkeypatch.setattr(ttrain.ModelFactory, "__call__", make_with_jax_init)
+    seen = {"jax": [], "torch": []}
+    for key, pkg in (("jax", jtrain), ("torch", ttrain)):
+        cls = pkg.ClassificationProblem
+
+        def record(method, key=key):
+            def wrapped(self, *args):
+                out = method(self, *args)
+                seen[key].append(out[0] if isinstance(out, tuple) else out)
+                return out
+            return wrapped
+
+        monkeypatch.setattr(cls, "train_step", record(cls.train_step))
+        monkeypatch.setattr(cls, "validation", record(cls.validation))
+    cfg = _run_cfg()
+    cfg["problem"]["model"]["model_name"] = CONVNEXT_NAME
+    for part in ("train_dataset", "val_dataset"):
+        cfg[part] = dict(cfg[part], input_size=(32, 32))
+    with jax_capture() as jax_seen:
+        jtrain.run(cfg, parse_cmdline_args=False)
+    assert jax_seen == set(), jax_seen
+    before = dict(dispatch.launch_counts)
+    with dispatch.capture_dispatches() as port_seen:
+        ttrain.run(dict(cfg, device="cpu"), parse_cmdline_args=False)
+    assert port_seen == {"convnext_mlp"}   # validation only
+    assert dispatch.launch_counts == before
+    assert len(seen["torch"]) == len(seen["jax"]) == 6 + 4
     for got, want in zip(seen["torch"], seen["jax"]):
         if isinstance(want, dict):
             assert got == want

@@ -8,15 +8,21 @@ timm's (``stem.0``, ``stages.1.downsample.1``,
 ``load_state_dict``.
 
 At inference each block's LN -> fc1 -> GELU -> fc2 -> gamma -> +shortcut
-runs as one call of ``convnext_mlp`` (the hand-written kernel on the card,
-its plain version on the CPU), gated as the JAX package gates its Pallas
-kernel (``ConvNeXtBlock._mlp_kernel_ok``).
+runs as one call of ``convnext_mlp`` after the depthwise conv (the
+hand-written kernel on the card, its plain version on the CPU), gated as the
+JAX package gates its Pallas kernel (``ConvNeXtBlock._mlp_kernel_ok``). With
+``TFIMM_TPU_FUSED_CONVNEXT=1``, the JAX package's opt-in, read from the same
+variable, a bf16 block at inference runs whole, depthwise conv included, as
+one call of ``convnext_block`` (``ConvNeXtBlock.fused_kernel_ok``); that
+function keeps the conv's output in f32 and takes the tanh GELU, as the
+Pallas kernel does.
 
 Paper: A ConvNet for the 2020s, https://arxiv.org/abs/2201.03545.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -30,6 +36,7 @@ from tfimm_tpu_torch.models.config import ModelConfig
 from tfimm_tpu_torch.models.registry import register_model
 from tfimm_tpu_torch.ops.basic import Dense
 from tfimm_tpu_torch.ops.conv import Conv2d, DepthwiseConv2d
+from tfimm_tpu_torch.ops.kernels.convnext_block import convnext_block
 from tfimm_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
 from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
 from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP
@@ -92,6 +99,30 @@ class ConvNeXtBlock(nn.Module):
         self.norm_name = norm_layer
         self.act_name = act_layer
 
+    def _autograd_records(self, x: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+
+    def fused_kernel_ok(self, x: torch.Tensor) -> bool:
+        """Gate for ``convnext_block``, as the JAX package's
+        ``_use_fused_kernel``: the opt-in ``TFIMM_TPU_FUSED_CONVNEXT=1``, off
+        by default; not ``TFIMM_TPU_EXACT_GELU=1`` (the kernel takes the tanh
+        GELU); inference, the Dense MLP and no dropout; x in bf16. Like the
+        JAX gate it does not check the norm or the activation. It declines
+        f16, which the JAX gate takes (the port has no f16 kernel), and has
+        no VMEM estimate (the TPU's layout) and no backend test (on the CPU
+        the kernel's plain version runs). The kernel has no backward, so
+        where autograd records the block it takes the per-op path. The JAX
+        package's int8 check (``any_quantized``) waits for the port of
+        quantization."""
+        if os.environ.get("TFIMM_TPU_FUSED_CONVNEXT", "0") != "1":
+            return False
+        if os.environ.get("TFIMM_TPU_EXACT_GELU", "0") == "1":
+            return False
+        if current_context().training or self.conv_mlp_block or self.drop_rate:
+            return False
+        return x.dtype == torch.bfloat16 and not self._autograd_records(x)
+
     def _mlp_kernel_ok(self, x: torch.Tensor) -> bool:
         """Gate for ``convnext_mlp``, as the JAX package's: inference (drop
         path and dropout are the identity), Dense MLP, LayerNorm + GELU. The
@@ -103,16 +134,21 @@ class ConvNeXtBlock(nn.Module):
         if not (self.norm_name.startswith("layer_norm")
                 and self.act_name == "gelu"):
             return False
-        return not (torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters())))
+        return not self._autograd_records(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mlp = self.mlp
+        if self.fused_kernel_ok(x):
+            log_dispatch("convnext_block")
+            return convnext_block(
+                x.contiguous(), self.conv_dw.weight, self.conv_dw.bias,
+                self.norm.weight, self.norm.bias, mlp.fc1.weight, mlp.fc1.bias,
+                mlp.fc2.weight, mlp.fc2.bias, self.gamma, self.norm.eps)
         shortcut = x
         x = self.conv_dw(x)
         if self._mlp_kernel_ok(x):
             log_dispatch("convnext_mlp")
             c = x.shape[-1]
-            mlp = self.mlp
             out = convnext_mlp(x.reshape(-1, c), shortcut.reshape(-1, c),
                                self.norm.weight, self.norm.bias,
                                mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,

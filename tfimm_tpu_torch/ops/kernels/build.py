@@ -214,6 +214,20 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_poolformer_block.restype = ctypes.c_int
+    lib.tfimm_convnext_block.argtypes = [
+        ctypes.c_void_p,  # x (B, H, W, C)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 taps (49, C), dw bias
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 ln weight, ln bias
+        ctypes.c_void_p, ctypes.c_void_p,  # w1 (hidden, C), f32 b1
+        ctypes.c_void_p, ctypes.c_void_p,  # w2 (C, hidden), f32 b2
+        ctypes.c_void_p,  # f32 gamma
+        ctypes.c_void_p, ctypes.c_void_p,  # scratch z (M, C), h (M, hidden)
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, C
+        ctypes.c_int, ctypes.c_float, ctypes.c_int,  # hidden, eps, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_convnext_block.restype = ctypes.c_int
     return lib
 
 

@@ -219,6 +219,43 @@ which ends the run with a non-zero exit code on failure:
    autograd); every loss must be finite. The rate over steps 2-6 and a
    profile of one step with the device's idle share.
 
+26. ``flash_attention`` against its plain version on the card at the
+   slice's shape (64 images x 12 heads, N = 1025, d = 64), SAM-B's global
+   shape (12 rows, N = 4096) and the edges (N = 1024, 1 and 63; d = 8, 128
+   and 256), a row whose scores sit near 300, in bf16 and in f32 with TF32
+   off: the output within 2e-2 and 1e-5 of the largest plain value, the lse
+   within 1e-5. Control: the clamped no-max softmax of ``fused_mha`` must
+   miss the bar by ``CONTROL_FACTOR`` on the large-score row. The packed
+   route (q, k, v as strided views of one qkv) must equal contiguous
+   copies. Kernel, plain, bound and library times with the operands out of
+   L2: the library is ``F.scaled_dot_product_attention`` held to its flash
+   backend, on (B, H, N, d).
+27. ``flash_attention_bwd`` in the same way at the training shape (32
+   images x 12 heads) and the same edges: dq, dk, dv within 2e-2 and 1e-4;
+   control: the clamped softmax's masked backward; two calls bit-identical.
+   The library is SDPA's flash backward alone.
+28. ViT at 512x512 serving: ``create_model("vit_base_patch16_384",
+   interpolate_input=True)`` in bf16 with seeded random weights answers 5
+   requests of 64 uint8 512x512 images; the 24 x 24 position table is
+   resized to 32 x 32 (N = 1025) at each call. Every request must launch
+   ``flash_attention`` 12 times and nothing else; logits finite and
+   non-zero, and on 4 images within 5e-2 of the same weights in f32
+   through the plain attention (capturing the weights, which launches
+   nothing). Then a profile of one request.
+29. ViT at 512x512 training: ``train.run`` trains it with
+   ``ModelConfig.input_size=(512, 512)`` at batch 32 in bf16 mixed
+   precision with AdamW for 6 steps: 12 ``flash_attention`` and 12
+   ``flash_attention_bwd`` launches a step and nothing else; finite
+   losses, the last below the first; a seeded step on 4 images, bf16
+   through the kernels against f32 through the plain attention (no
+   launch): the loss within 2e-2, two gradients within 1e-1. The rate over
+   steps 2-6 and a profile of one step with the device's idle share.
+30. float16: ConvNeXt-B, Swin-T, CaiT-S24, PVTv2-B2 and PoolFormer-S12
+   (their switches on) answer 8 uint8 images through ``predict`` in
+   float16, and SAM-B encodes 8 images through ``set_image``, with no
+   kernel launch (no kernel takes f16: each gate declines it); each within
+   5e-2 of the largest value of the same weights in f32 on the card.
+
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
 
@@ -227,7 +264,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-25) alone, for a quicker look at one
+runs phase 1 and the phases named (2-30) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -391,6 +428,36 @@ CONVNEXT_BLOCK_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 CONVNEXT_FUSED_RUNS = [("1", {"convnext_block": 36}),
                        ("0", {"convnext_mlp": 36})]
 CONVNEXT_TRAIN_BATCH = 64
+# ViT-B/16 at 512x512 (N = 1025): the 384 variant's 24 x 24 position table
+# resized at each call (serving), or built at 32 x 32 (training).
+VIT512 = "vit_base_patch16_384"
+VIT512_SIZE = (512, 512)
+VIT512_BATCH = 64
+VIT512_TRAIN_BATCH = 32
+VIT512_CHECK_IMAGES = 4
+VIT512_LAUNCHES = {"flash_attention": 12}
+VIT512_TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention_bwd": 12}
+# flash_attention (B, H, N, d): the slice's serving and training shapes and
+# SAM-B's global shape, then the edges: N = 1024, one token, a ragged 63,
+# d = 8, 128 and 256; and a row whose scores sit near 300.
+FLASH_SHAPE = (VIT512_BATCH, 12, 1025, 64)
+FLASH_TRAIN_SHAPE = (VIT512_TRAIN_BATCH, 12, 1025, 64)
+FLASH_SAM_SHAPE = (1, 12, 4096, 64)
+FLASH_EDGES = [(2, 3, 1024, 64), (3, 2, 1, 64), (2, 2, 63, 64),
+               (4, 2, 300, 8), (1, 2, 300, 128), (1, 2, 200, 256)]
+FLASH_BIG = (2, 3, 197, 64)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+FLASH_LSE_TOL = 1e-5
+# At N = 1 the true dq and dk are 0: both versions' rounding noise, held
+# against max|dv|.
+FLASH_ZERO_GRAD_TOL = 1e-4
+# float16 (phase 30): a model of each family with a kernel, run with every
+# opt-in kernel switched on.
+F16_MODELS = [CONVNEXT, SWIN, CAIT, "pvt_v2_b2", POOLFORMER]
+F16_SWITCHES = ("TFIMM_TPU_FUSED_CONVNEXT", "TFIMM_TPU_FUSED_PVT_SRA",
+                "TFIMM_TPU_FUSED_POOLFORMER")
+F16_IMAGES = 8
 # The 50 MB L2 is evicted before each cold-timed call by a write this large.
 L2_FLUSH_BYTES = 512 * 2 ** 20
 CONTROL_FACTOR = 5.0
@@ -407,6 +474,9 @@ KERNEL_GROUPS = [("convnext_block (convnext_block.cu: depthwise + LayerNorm, "
                  ("poolformer_block (poolformer_block.cu: GroupNorm "
                   "statistics, pool, GEMMs)", ("gn_stats", "pool_x1",
                                                "pf_gemm")),
+                 ("flash attention backward (flash_attention_bwd.cu)",
+                  ("flash_bwd",)),
+                 ("flash attention (flash_attention.cu)", ("flash_fwd",)),
                  ("rel-pos flash attention backward "
                   "(flash_attention_relpos_bwd.cu)", ("relpos_bwd",)),
                  ("rel-pos flash attention (flash_attention_relpos.cu)",
@@ -2904,11 +2974,11 @@ def phase_sra_kernel(report, gpu_line):
           f" + F.linear {report['library_ms']!r} ms; on {gpu_line}", flush=True)
 
 
-def family_requests(model, pp, requests, launches):
-    """Serve ``requests`` through ``model.predict``; each must launch the
-    kernels of ``launches`` (name -> count) as many times and nothing else,
-    and give finite, non-zero logits. Returns (request seconds, the first
-    logits)."""
+def family_requests(model, pp, requests, launches, batch=BATCH):
+    """Serve ``requests`` of ``batch`` images through ``model.predict``;
+    each must launch the kernels of ``launches`` (name -> count) as many
+    times and nothing else, and give finite, non-zero logits. Returns
+    (request seconds, the first logits)."""
     import torch
 
     from tfimm_tpu_torch.ops.kernels import dispatch
@@ -2923,7 +2993,7 @@ def family_requests(model, pp, requests, launches):
         rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
         check(rose == expected(**launches), f"one {model.cfg.name} request "
               f"launched {rose}, expected {launches} and nothing else")
-        check(tuple(logits.shape) == (BATCH, model.cfg.nb_classes),
+        check(tuple(logits.shape) == (batch, model.cfg.nb_classes),
               f"logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
         check(bool(logits.abs().max() > 0), "all-zero logits")
@@ -3350,13 +3420,471 @@ def phase_convnext_train(reports, gpu_line):
                  lambda: problem.train_step(batch, 0), step_s * 1e3, steps=1)
 
 
+def flash_inputs(shape, dtype, seed, big=False):
+    """Seeded q, k, v (B, H, N, d) normal on the card. With ``big``, query 0
+    of every row points along keys 3 and 5, so that two of its scores sit
+    near 300, far above the clamp of 80 of ``fused_mha``."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    if big:
+        q[..., 0, :] = 300.0 / shape[-1] ** 0.5 * (k[..., 3, :] + k[..., 5, :])
+    return [t.to(dtype) for t in (q, k, v)]
+
+
+def flash_bound(b, h, n, d, backward=False):
+    """(ms, what bounds it) of the flash forward (q, k, v read, out and the
+    f32 lse written; q k^T and p v) or backward (qs, k, v, out, do and the
+    lse read, dq, dk, dv written; its five products), in bf16."""
+    rows = b * h
+    if backward:
+        return bound(2 * 8 * rows * n * d + 4 * rows * n,
+                     10 * rows * n * n * d)
+    return bound(2 * 4 * rows * n * d + 4 * rows * n, 4 * rows * n * n * d)
+
+
+def clamped_attention(q, k, v, scale):
+    """The attention of ``fused_mha``'s plain version on (..., N, d): the
+    clamped no-max softmax in f32 (the control of phase 26)."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.dispatch import softmax_nomax
+    from tfimm_tpu_torch.ops.kernels.flash_attention import scale_query
+
+    s = torch.matmul(scale_query(q, scale).float(),
+                     k.float().transpose(-1, -2))
+    return torch.matmul(softmax_nomax(s), v.float())
+
+
+def clamped_bwd(qs, k, v, do):
+    """dq, dk, dv of the clamped no-max softmax with its mask (the backward
+    of ``fused_mha``'s plain version) from the scaled q, in f32: the control
+    of phase 27."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.dispatch import (
+        softmax_clamp_grad_mask,
+        softmax_nomax,
+    )
+
+    qs, k, v, do = (t.float() for t in (qs, k, v, do))
+    s = torch.matmul(qs, k.transpose(-1, -2))
+    p = softmax_nomax(s)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = softmax_clamp_grad_mask(
+        s, p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), qs),
+            torch.matmul(p.transpose(-1, -2), do))
+
+
+def sdpa_flash(fn):
+    """``fn()`` with ``F.scaled_dot_product_attention`` held to its flash
+    backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return fn()
+
+
+def phase_flash_kernel(report, gpu_line):
+    """Phase 26: ``flash_attention`` against its plain version, the
+    control, the packed route, then the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_packed,
+        flash_attention_reference,
+        flash_attention_with_lse,
+    )
+
+    cases = [(shape, False) for shape in
+             [FLASH_SHAPE, FLASH_SAM_SHAPE, *FLASH_EDGES]]
+    cases.append((FLASH_BIG, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (shape, big) in enumerate(cases):
+            q, k, v = flash_inputs(shape, dtype, 2600 + i, big)
+            what = f"{dname:8s} (B, H, N, d)={shape}{' big' if big else ''}"
+            out, lse = flash_attention_with_lse(q, k, v)
+            ref, ref_lse = flash_attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            err, bar, ok = held(out, ref, FLASH_TOL[dname])
+            lerr, lbar, lok = held(lse, ref_lse, FLASH_LSE_TOL)
+            note = ""
+            if big:
+                top = ref_lse[..., 0].min().item()
+                far = (out.float() - clamped_attention(
+                    q, k, v, shape[-1] ** -0.5)).abs().max().item()
+                ok = ok and top > 100.0 and far > CONTROL_FACTOR * bar
+                note = (f" (row 0's lse {top!r}; the clamped softmax off by "
+                        f"{far!r}, {far / bar!r} bars)")
+            print(f"flash_attention {what}: max_abs_err={err!r} bar={bar!r}; "
+                  f"lse max_abs_err={lerr!r} bar={lbar!r}{note} "
+                  f"{'ok' if ok and lok else 'FAIL'}", flush=True)
+            check(ok and lok, f"flash_attention disagrees with its plain "
+                  f"version ({what}): {err} > {bar} or lse {lerr} > {lbar}")
+            if dtype == torch.bfloat16 and i == 0:
+                report["max_abs_err"] = err
+            del q, k, v, out, lse, ref, ref_lse
+
+    b, h, n, d = FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2690)
+    qkv = torch.randn(4, n, 3 * h * d, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    parts = qkv.view(4, n, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+    got = flash_attention_packed(qkv, h, d ** -0.5)
+    want = flash_attention(*parts).transpose(1, 2).reshape(4, n, h * d)
+    check(torch.equal(got, want), "flash_attention: the packed route "
+          "differs from contiguous copies")
+    print("flash_attention packed qkv (4, 1025, 3 x 12 x 64): equal to "
+          "contiguous copies ok", flush=True)
+
+    for shape in (FLASH_SHAPE, FLASH_SAM_SHAPE):
+        q, k, v = flash_inputs(shape, torch.bfloat16, 2650)
+        times = {
+            "ms": cold_ms(lambda: flash_attention(q, k, v)),
+            "plain_ms": cold_ms(lambda: flash_attention_reference(q, k, v),
+                                calls=3, warmup=1),
+            "library_ms": cold_ms(lambda: sdpa_flash(
+                lambda: F.scaled_dot_product_attention(q, k, v))),
+        }
+        times["bound_ms"], times["bound_by"] = flash_bound(*shape)
+        lib_err = (sdpa_flash(lambda: F.scaled_dot_product_attention(q, k, v))
+                   .float() - flash_attention_reference(q, k, v)[0].float()
+                   ).abs().max().item()
+        if shape == FLASH_SHAPE:
+            report.update(times)
+        else:
+            report["sam_global"] = times
+        print(f"flash_attention bf16 (B, H, N, d) = {shape}, operands out of "
+              f"L2: kernel {times['ms']!r} ms, {times['bound_ms'] / times['ms']!r}"
+              f" of the bound {times['bound_ms']!r} ms ({times['bound_by']}); "
+              f"plain {times['plain_ms']!r} ms; scaled_dot_product_attention "
+              f"(flash backend) {times['library_ms']!r} ms (its max abs diff "
+              f"to plain {lib_err!r}); on {gpu_line}", flush=True)
+        del q, k, v
+
+
+def phase_flash_bwd_kernel(report, gpu_line):
+    """Phase 27: ``flash_attention_bwd`` against its plain version, the
+    control, determinism, then the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_with_lse,
+        scale_query,
+    )
+
+    def case(shape, dtype, seed, big=False):
+        q, k, v = flash_inputs(shape, dtype, seed, big)
+        out, lse = flash_attention_with_lse(q, k, v)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        return scale_query(q, shape[-1] ** -0.5), k, v, out, lse, do
+
+    cases = [(shape, False) for shape in
+             [FLASH_TRAIN_SHAPE, FLASH_SAM_SHAPE, *FLASH_EDGES]]
+    cases.append((FLASH_BIG, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (shape, big) in enumerate(cases):
+            args = case(shape, dtype, 2700 + 2 * i, big)
+            what = f"{dname:8s} (B, H, N, d)={shape}{' big' if big else ''}"
+            got = flash_attention_bwd(*args)
+            want = flash_attention_bwd_reference(*args)
+            torch.cuda.synchronize()
+            errs, bars, ok = [], [], True
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, bar, good = held(g, w, FLASH_BWD_TOL[dname])
+                if shape[2] == 1 and name != "dv":
+                    # One key: p = 1, so dq and dk are 0, and both versions
+                    # give the rounding noise of dp - delta.
+                    bar = FLASH_ZERO_GRAD_TOL * want[2].float().abs().max().item()
+                    good = err <= bar and bool(torch.isfinite(g).all())
+                errs.append(err)
+                bars.append(bar)
+                ok = ok and good
+            note = ""
+            if big:
+                far = max((g.float() - c).abs().max().item() / bar
+                          for g, c, bar in zip(got, clamped_bwd(*args[:3],
+                                                                args[5]),
+                                               bars))
+                ok = ok and far > CONTROL_FACTOR
+                note = f" (the clamped softmax's backward off by {far!r} bars)"
+            print(f"flash_attention_bwd {what}: dq, dk, dv max_abs_err="
+                  f"{errs!r} bars={bars!r}{note} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"flash_attention_bwd disagrees with its plain version "
+                  f"({what}): {errs} > {bars}")
+            if dtype == torch.bfloat16 and i == 0:
+                report["max_abs_err"] = max(errs)
+                again = flash_attention_bwd(*args)
+                check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                      "flash_attention_bwd: two calls differ")
+            del args, got, want
+
+    for shape in (FLASH_TRAIN_SHAPE, FLASH_SAM_SHAPE):
+        args = case(shape, torch.bfloat16, 2750)
+        q, k, v = (t.detach().clone().requires_grad_() for t in
+                   flash_inputs(shape, torch.bfloat16, 2750))
+        out = sdpa_flash(lambda: F.scaled_dot_product_attention(q, k, v))
+        times = {
+            "ms": cold_ms(lambda: flash_attention_bwd(*args)),
+            "plain_ms": cold_ms(lambda: flash_attention_bwd_reference(*args),
+                                calls=3, warmup=1),
+            "library_ms": cold_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), args[5], retain_graph=True)),
+        }
+        times["bound_ms"], times["bound_by"] = flash_bound(*shape,
+                                                           backward=True)
+        b, h, n, d = shape
+        recompute_ms = 14 * b * h * n * n * d / PEAK_BF16_FLOPS * 1e3
+        if shape == FLASH_TRAIN_SHAPE:
+            report.update(times)
+        else:
+            report["sam_global"] = times
+        print(f"flash_attention_bwd bf16 (B, H, N, d) = {shape}, operands out "
+              f"of L2: kernel (delta and two launches) {times['ms']!r} ms, "
+              f"{times['bound_ms'] / times['ms']!r} of the bound "
+              f"{times['bound_ms']!r} ms ({times['bound_by']}; the two "
+              f"launches' seven products {recompute_ms!r} ms); plain "
+              f"{times['plain_ms']!r} ms; scaled_dot_product_attention's "
+              f"flash backward {times['library_ms']!r} ms; on {gpu_line}",
+              flush=True)
+        del args, q, k, v, out
+
+
+def phase_vit512_slice(reports, gpu_line):
+    """Phase 28: ViT-B/16 at 512x512 serving through flash attention, the
+    position table resized at each call."""
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(VIT512, interpolate_input=True, device="cuda",
+                             dtype=torch.bfloat16, seed=0)
+    sd = seeded_state_dict(model, seed=28)
+    model.load_state_dict(sd)
+    pp = tfm.create_preprocessing(VIT512, dtype=torch.bfloat16, device="cuda")
+    check(model.cfg.grid_size == (24, 24), f"{VIT512} grid {model.cfg.grid_size}")
+    g = torch.Generator(device="cuda").manual_seed(28)
+    requests = [torch.randint(0, 256, (VIT512_BATCH, *VIT512_SIZE, 3),
+                              generator=g, device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    seconds, logits = family_requests(model, pp, requests, VIT512_LAUNCHES,
+                                      batch=VIT512_BATCH)
+    counts = dict(dispatch.launch_counts)
+    check(counts == expected(**{k: REQUESTS * n
+                                for k, n in VIT512_LAUNCHES.items()}),
+          f"the {VIT512} 512x512 run launched {counts}")
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_vit512"] = counts[name]
+    img_s = [VIT512_BATCH / t for t in seconds[1:]]
+    request_ms = statistics.median(seconds[1:]) * 1e3
+    print(f"slice {VIT512} interpolate_input 512x512 (N = 1025) "
+          f"bs{VIT512_BATCH} bf16: request seconds {seconds!r}", flush=True)
+    print(f"slice {VIT512} 512x512 bs{VIT512_BATCH} bf16: "
+          f"{statistics.median(img_s)!r} img/s (median of requests "
+          f"2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}), launches a "
+          f"request {VIT512_LAUNCHES}; on {gpu_line}", flush=True)
+
+    # The same weights in f32 through the plain attention: capturing the
+    # attention weights makes every block decline the kernel.
+    x = requests[0][:VIT512_CHECK_IMAGES]
+    model32 = tfm.create_model(VIT512, interpolate_input=True, device="cuda",
+                               dtype=torch.float32, seed=0)
+    model32.load_state_dict(sd)
+    pp32 = tfm.create_preprocessing(VIT512, dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        (ref, _), rose = launches_of(
+            lambda: model32(pp32(x), return_features=True))
+    check(rose == expected(), f"the f32 reference launched {rose}")
+    got = logits[:VIT512_CHECK_IMAGES].float()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    print(f"slice {VIT512} 512x512 logits: bf16 flash path vs f32 plain path "
+          f"rel err {rel!r} (bar 5e-2)", flush=True)
+    check(rel < 5e-2, f"{VIT512} 512x512 logits rel err {rel} >= 5e-2")
+    del model32, ref
+    profile_idle(f"{VIT512} 512x512 request",
+                 lambda: model.predict(pp(requests[1])), request_ms)
+
+
+def vit512_train_config() -> dict:
+    """ViT-B/16 (the 384 variant's config) built at 512x512, batch 32, bf16
+    mixed precision, AdamW at lr 1e-4, TRAIN_STEPS epochs of one step each
+    on the same 32 synthetic images."""
+    config = train_config()
+    data = dict(config["train_dataset"], batch_size=VIT512_TRAIN_BATCH,
+                nb_samples=VIT512_TRAIN_BATCH, input_size=VIT512_SIZE)
+    config["train_dataset"] = data
+    config["problem"]["model"] = {"model_name": VIT512,
+                                  "input_size": VIT512_SIZE}
+    config["timekeeping"] = {"nb_epochs": TRAIN_STEPS,
+                             "batch_size": VIT512_TRAIN_BATCH,
+                             "nb_samples_per_epoch": VIT512_TRAIN_BATCH}
+    return config
+
+
+def phase_vit512_train(reports, gpu_line):
+    """Phase 29: ``train.run`` trains ViT-B/16 at 512x512 through the flash
+    kernels; a seeded step against f32 through the plain attention."""
+    import torch
+
+    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
+
+    trainer, steps, counts = run_watched(vit512_train_config())
+    problem = trainer.problem
+    check(problem.model.cfg.grid_size == (32, 32),
+          f"grid {problem.model.cfg.grid_size}")
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} training steps")
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"vit512 train step {it}: loss {loss!r}, {seconds!r} s, "
+              f"launches {rose}", flush=True)
+        check(rose == expected(**VIT512_TRAIN_LAUNCHES),
+              f"step {it} launched {rose}, expected {VIT512_TRAIN_LAUNCHES}")
+        check(math.isfinite(loss), f"step {it}: loss {loss}")
+    check(steps[-1][0] < steps[0][0],
+          f"the loss did not fall: {steps[0][0]} -> {steps[-1][0]}")
+    for name, report in reports.items():
+        report["launches_by_path"]["train_vit512"] = counts[name]
+    timed = [s for _, s, _ in steps[1:]]
+    step_s = sum(timed) / len(timed)
+    print(f"train {VIT512} 512x512 bs{VIT512_TRAIN_BATCH} bf16 mixed "
+          f"precision adamw: {VIT512_TRAIN_BATCH * len(timed) / sum(timed)!r} "
+          f"img/s ({len(timed)} steps 2-{TRAIN_STEPS} in "
+          f"{sum(timed) * 1e3!r} ms; median step "
+          f"{statistics.median(timed) * 1e3!r} ms, slowest "
+          f"{max(timed) * 1e3!r} ms) on {gpu_line}", flush=True)
+
+    # One seeded step on VIT512_CHECK_IMAGES images: bf16 through the
+    # kernels against f32 through the plain attention (capturing the
+    # weights makes every block decline the kernels).
+    model, pp = problem.model, problem.preprocessing
+    model.load_state_dict(seeded_state_dict(model, seed=29))
+    model.train()
+    images, labels = next(iter(trainer.train_ds))
+    images = torch.as_tensor(images[:VIT512_CHECK_IMAGES], device="cuda")
+    labels = torch.as_tensor(labels[:VIT512_CHECK_IMAGES], device="cuda")
+    names = ("blocks.0.attn.qkv.weight", "pos_embed")
+
+    def loss_and_grads(x, return_features):
+        model.zero_grad(set_to_none=True)
+        out = model(x, return_features=return_features)
+        logits = out[0] if return_features else out
+        loss = cross_entropy_loss(logits.float(), labels)
+        loss.backward()
+        params = dict(model.named_parameters())
+        return loss.item(), {n: params[n].grad.float() for n in names}
+
+    (loss_k, grads_k), rose = launches_of(
+        lambda: loss_and_grads(pp(images).to(torch.bfloat16), False))
+    check(rose == expected(**VIT512_TRAIN_LAUNCHES),
+          f"the bf16 step launched {rose}")
+    (loss_r, grads_r), rose = launches_of(
+        lambda: loss_and_grads(pp(images), True))
+    check(rose == expected(), f"the f32 reference launched {rose}")
+    rel = abs(loss_k - loss_r) / abs(loss_r)
+    print(f"vit512 train loss: bf16 flash path {loss_k!r} vs f32 plain path "
+          f"{loss_r!r}, rel err {rel!r} (bar 2e-2)", flush=True)
+    check(rel < 2e-2, f"loss rel err {rel} >= 2e-2")
+    for name in names:
+        ref = grads_r[name]
+        rel = ((grads_k[name] - ref).abs().max() / ref.abs().max()).item()
+        print(f"vit512 train grad {name}: max|diff| / max|ref| {rel!r} "
+              f"(bar 1e-1)", flush=True)
+        check(rel < 1e-1, f"{name} gradient rel err {rel} >= 1e-1")
+        check(ref.abs().max().item() > 0, f"{name}: zero reference gradient")
+    del grads_k, grads_r
+    batch = next(iter(trainer.train_ds))
+    profile_idle(f"{VIT512} 512x512 train step",
+                 lambda: problem.train_step(batch, 0), step_s * 1e3, steps=1)
+
+
+def phase_float16(reports, gpu_line):
+    """Phase 30: float16 models take their plain paths: no launch, each
+    within 5e-2 of f32 of the same weights on the card."""
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.architectures.segment_anything import SAMPredictor
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    images = torch.randint(0, 256, (F16_IMAGES, 224, 224, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    dispatch.reset_launch_counts()
+    with restored_env(F16_SWITCHES[0]), restored_env(F16_SWITCHES[1]), \
+            restored_env(F16_SWITCHES[2]):
+        for var in F16_SWITCHES:
+            os.environ[var] = "1"
+        for name in F16_MODELS:
+            outs = {}
+            for dtype in (torch.float32, torch.float16):
+                model = tfm.create_model(name, device="cuda", dtype=dtype,
+                                         seed=0)
+                model.load_state_dict(seeded_state_dict(model, seed=30))
+                pp = tfm.create_preprocessing(name, dtype=dtype,
+                                              device="cuda")
+                outs[dtype], rose = launches_of(
+                    lambda: model.predict(pp(images)))
+                torch.cuda.synchronize()
+                check(dtype == torch.float32 or rose == expected(),
+                      f"{name} float16 launched {rose}")
+                del model
+            got, want = outs[torch.float16], outs[torch.float32]
+            check(got.dtype == torch.float16
+                  and bool(torch.isfinite(got).all()),
+                  f"{name} float16: non-finite or {got.dtype} logits")
+            rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+            print(f"float16 {name} (switches on): predict on {F16_IMAGES} "
+                  f"images, no launch, rel err to f32 {rel!r} (bar 5e-2)",
+                  flush=True)
+            check(rel < 5e-2, f"{name} float16 rel err {rel} >= 5e-2")
+
+    embeddings = {}
+    for dtype in (torch.float32, torch.float16):
+        model = tfm.create_model(SAM, device="cuda", dtype=dtype, seed=0)
+        model.load_state_dict(sam_state_dict(model, seed=30))
+        predictor = SAMPredictor(model)
+        embs = []
+        for img in images.cpu().numpy():
+            _, rose = launches_of(lambda: predictor.set_image(img))
+            embs.append(predictor.image_embedding)
+            check(dtype == torch.float32 or rose == expected(),
+                  f"{SAM} float16 set_image launched {rose}")
+        torch.cuda.synchronize()
+        embeddings[dtype] = torch.cat(embs)
+        del model, predictor
+    got, want = embeddings[torch.float16], embeddings[torch.float32]
+    check(bool(torch.isfinite(got).all()), f"{SAM} float16: non-finite")
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    print(f"float16 {SAM}: set_image on {F16_IMAGES} images, no launch, rel "
+          f"err to f32 {rel!r} (bar 5e-2)", flush=True)
+    check(rel < 5e-2, f"{SAM} float16 rel err {rel} >= 5e-2")
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_f16"] = 0
+    print(f"float16 phase on {gpu_line}", flush=True)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 26))
+    all_phases = list(range(2, 31))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 25",
+            print("chip_smoke: --phases takes numbers from 2 to 30",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -3478,6 +4006,22 @@ def main(argv) -> int:
                          for n, shape in zip(CONVNEXT_DEPTHS,
                                              CONVNEXT_BLOCK_STAGES))
                      + " (three launches, counted as one)")}
+        reports["flash_attention"] = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tfimm_tpu/ops/pallas/flash_attention_kernel.py:74",
+            "work": (f"bf16 (B, H, N, d) = {FLASH_SHAPE}: one block of a "
+                     f"{VIT512} bs{VIT512_BATCH} request at 512x512; "
+                     f"'sam_global': {FLASH_SAM_SHAPE}; operands out of L2")}
+        reports["flash_attention_bwd"] = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "tfimm_tpu/ops/pallas/flash_attention_kernel.py:189",
+            "work": (f"bf16 (B, H, N, d) = {FLASH_TRAIN_SHAPE}: one block's "
+                     f"backward of a {VIT512} bs{VIT512_TRAIN_BATCH} training "
+                     f"step at 512x512 (delta and two launches, counted as "
+                     f"one); 'sam_global': {FLASH_SAM_SHAPE}; operands out "
+                     f"of L2")}
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
@@ -3521,6 +4065,13 @@ def main(argv) -> int:
                 "TFIMM_TPU_FUSED_CONVNEXT",
                 [(CONVNEXT, sw, n) for sw, n in CONVNEXT_FUSED_RUNS], seed=24),
             25: lambda: phase_convnext_train(reports, gpu_line),
+            26: lambda: phase_flash_kernel(reports["flash_attention"],
+                                           gpu_line),
+            27: lambda: phase_flash_bwd_kernel(reports["flash_attention_bwd"],
+                                               gpu_line),
+            28: lambda: phase_vit512_slice(reports, gpu_line),
+            29: lambda: phase_vit512_train(reports, gpu_line),
+            30: lambda: phase_float16(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()
@@ -3537,7 +4088,8 @@ def main(argv) -> int:
         if phases != all_phases and not all(k in report for k in keys):
             continue   # a kernel the chosen phases did not measure
         entry = {k: report[k] for k in keys}
-        for extra in ("cublas_floor_ms", "windowed", "default_path_ms"):
+        for extra in ("cublas_floor_ms", "windowed", "default_path_ms",
+                      "sam_global"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

@@ -292,9 +292,19 @@ def test_registry_matches_jax():
 
 
 def test_another_grid_raises():
+    """Another input grid without ``interpolate_input`` cannot add the
+    position table, as in the JAX package; with it the table (no class
+    token in it) is resized, and the model matches the JAX model's
+    interpolation within 1e-4 (48x48: a 6 x 6 grid from 4 x 4)."""
     tm = tfimm_tpu_torch.create_model(NAME, device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError, match="interpolate"):
+    with pytest.raises(RuntimeError, match="size"):
         tm.predict(torch.zeros(1, 48, 48, 3))
+    jm, params, tm, _ = _pair(seed=40, interpolate_input=True)
+    x = np.random.default_rng(41).normal(size=(2, 48, 48, 3)).astype(np.float32)
+    want = jm.apply(params, jnp.asarray(x))
+    got = tm.predict(torch.from_numpy(x))
+    assert np.abs(np.asarray(want)).max() > 0
+    assert _rel(got, want) < 1e-4
 
 
 def test_import_pulls_in_no_jax():

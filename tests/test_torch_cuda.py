@@ -30,7 +30,16 @@ in another order). convnext_block: 2e-2 * max|plain| in bf16 (the plain
 version rounds z and h to bf16 at the same places; the sums run in another
 order, so a rounding may land on the other side) and 1e-4 * max|plain| in
 f32 (the 49 taps, the LayerNorm and two products, each summed in another
-order).
+order). flash_attention: the output within 2e-2 * max|plain| in bf16 (the
+kernel rounds p to bf16 relative to its running max, the plain version
+relative to the row's max) and 1e-5 * max|plain| in f32, the lse within
+1e-5 of max|lse| in both. Its backward: dq, dk and dv within 2e-2 *
+max|plain| in bf16 (the kernel rounds p and ds to bf16 before their
+products) and 1e-4 * max|plain| in f32 (sums in another order); at N = 1,
+where dq and dk are 0, both versions' rounding noise within 1e-4 *
+max|dv|. float16
+models (no kernel takes f16): logits within 5e-2 of max|f32| of the same
+weights, with no launch.
 """
 
 import numpy as np
@@ -65,6 +74,14 @@ from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
     flash_attention_relpos_reference,
     flash_attention_relpos_with_lse,
     scale_query,
+)
+from tfimm_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_packed,
+    flash_attention_reference,
+    flash_attention_with_lse,
 )
 from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha,
@@ -996,3 +1013,224 @@ def test_convnext_launches_convnext_block_when_switched_on(card, monkeypatch):
             "convnext_mlp": before["convnext_mlp"] + blocks - fused}
         err = (out.float().cpu() - want).abs().max() / want.abs().max()
         assert bool(torch.isfinite(out).all()) and err < 5e-2, err
+
+
+# -- flash_attention (ViT at N >= 1024, the public attention op) -------------
+
+# (B, H, N, d): ViT-B/16 at 512x512 (B cut), SAM-B's global shape (12 heads
+# of one image at 64 x 64), N = 1024, one token, a ragged 63, d = 8, 128
+# and 256, d = 136 (the split head columns with a ragged half), and more
+# rows (B * H = 70,000) than one launch's gridDim.y of 65,535.
+FLASH_SHAPES = [(2, 12, 1025, 64), (1, 12, 4096, 64), (2, 3, 1024, 64),
+                (3, 2, 1, 64), (2, 2, 63, 64), (2, 2, 130, 8),
+                (1, 2, 300, 128), (1, 2, 200, 256), (1, 2, 77, 136),
+                (70000, 1, 16, 8)]
+
+
+# Each shape plain and, where it has keys 3 and 5, with large scores.
+FLASH_CASES = [(shape, big) for shape in FLASH_SHAPES for big in (False, True)
+               if not big or shape[2] > 5]
+
+
+def _flash_inputs(shape, dtype, device, seed, big=False):
+    """q, k, v normal; with ``big``, query 0 of every row points along keys
+    3 and 5, so that two of its scores sit near 300: far above the clamp of
+    80 of ``fused_mha``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=device)
+               for _ in range(3))
+    if big:
+        q[..., 0, :] = 300.0 / shape[-1] ** 0.5 * (k[..., 3, :] + k[..., 5, :])
+    return [t.to(dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape,big", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(card, shape, big, dtype, tol):
+    q, k, v = _flash_inputs(shape, dtype, card, sum(shape), big)
+    before = dict(dispatch.launch_counts)
+    out, lse = flash_attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {
+        **before, "flash_attention": before["flash_attention"] + 1}
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    ref, ref_lse = flash_attention_reference(q, k, v)
+    _held_by(out, ref, tol)
+    _held_by(lse, ref_lse, 1e-5)
+    if big:   # most rows' query 0 (a short k_3 at d = 8 may fall short)
+        assert ref_lse[..., 0].median().item() > 100.0
+
+
+def test_flash_attention_reads_the_packed_qkv(card):
+    """q, k, v as strided views of one (B, N, 3 * H * d) projection and o
+    written as (B, N, H * d): the output of contiguous copies."""
+    b, n, h, d = 2, 1025, 12, 64
+    gen = torch.Generator(device=card).manual_seed(4)
+    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=card).bfloat16()
+    q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+    want = flash_attention(q, k, v, scale=0.125)
+    got = flash_attention_packed(qkv, h, 0.125)
+    assert got.shape == (b, n, h * d) and got.is_contiguous()
+    assert torch.equal(got, want.transpose(1, 2).reshape(b, n, h * d))
+
+
+def _flash_bwd_case(shape, dtype, device, seed, big=False):
+    """The backward's inputs: qs, k, v, the kernel forward's out and lse,
+    and a normal cotangent do."""
+    q, k, v = _flash_inputs(shape, dtype, device, seed, big)
+    out, lse = flash_attention_with_lse(q, k, v)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+    return scale_query(q, shape[-1] ** -0.5), k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape,big", FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(card, shape, big, dtype,
+                                                  tol):
+    args = _flash_bwd_case(shape, dtype, card, sum(shape) + 1, big)
+    before = dict(dispatch.launch_counts)
+    got = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {
+        **before, "flash_attention_bwd": before["flash_attention_bwd"] + 1}
+    want = flash_attention_bwd_reference(*args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        if shape[2] == 1 and name != "dv":
+            # One key: p = 1, so dq and dk are 0, and both versions give the
+            # rounding noise of dp - delta; held against max|dv|.
+            err = g.float().abs().max().item()
+            assert err <= 1e-4 * want[2].float().abs().max().item(), name
+        else:
+            _held_by(g, w, tol)
+
+
+def test_flash_attention_bwd_reads_strided_inputs_and_repeats(card):
+    """qs, k, v as views of one packed tensor give the gradients of
+    contiguous copies, and two calls are bit-identical."""
+    shape = (2, 4, 1025, 64)
+    qs, k, v, out, lse, do = _flash_bwd_case(shape, torch.bfloat16, card, 6)
+    packed = torch.cat([qs, k, v], dim=-1)
+    views = [packed[..., j * 64:(j + 1) * 64] for j in range(3)]
+    assert not views[1].is_contiguous()
+    first = flash_attention_bwd(qs, k, v, out, lse, do)
+    again = flash_attention_bwd(qs, k, v, out, lse, do)
+    strided = flash_attention_bwd(*views, out, lse, do)
+    for a, b_, c in zip(first, again, strided):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+def test_flash_attention_gives_gradients_through_the_kernels(card):
+    """autograd through the Function: one forward and one backward launch,
+    the gradients of autograd through the plain forward (f32)."""
+    q, k, v = _flash_inputs((2, 3, 1030, 32), torch.float32, card, 8)
+    do = torch.randn_like(q)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, scale=0.2)
+        (out[0] if isinstance(out, tuple) else out).backward(do)
+        return [t.grad for t in leaves]
+
+    before = dict(dispatch.launch_counts)
+    got = grads(flash_attention)
+    assert dispatch.launch_counts == {
+        **before, "flash_attention": before["flash_attention"] + 1,
+        "flash_attention_bwd": before["flash_attention_bwd"] + 1}
+    for g, w in zip(got, grads(flash_attention_reference)):
+        _held_by(g, w, 1e-4)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(card):
+    q, k, v = _flash_inputs((2, 2, 64, 64), torch.float32, card, 0)
+    with pytest.raises(ValueError):   # f16
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):   # d = 60
+        flash_attention(q[..., :60], k[..., :60], v[..., :60])
+    wide = torch.zeros(1, 1, 8, 264, device=card)
+    with pytest.raises(ValueError):   # d = 264
+        flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError):   # mixed devices
+        flash_attention(q, k, v.cpu())
+    with pytest.raises(ValueError):   # k of another length
+        flash_attention(q, k[..., :32, :], v[..., :32, :])
+    qs, k, v, out, lse, do = _flash_bwd_case((2, 2, 64, 64), torch.float32,
+                                             card, 1)
+    with pytest.raises(ValueError):   # do of another dtype
+        flash_attention_bwd(qs, k, v, out, lse, do.bfloat16())
+    with pytest.raises(ValueError):   # an f64 lse
+        flash_attention_bwd(qs, k, v, out, lse.double(), do)
+
+
+def test_vit_attention_routes_by_length_on_the_card(card):
+    """MultiHeadAttention at N = 1025 launches flash (and its backward under
+    autograd), at N = 197 fused_mha, in bf16."""
+    from tfimm_tpu_torch.ops import MultiHeadAttention
+
+    layer = MultiHeadAttention(768, 12).to(card, torch.bfloat16)
+    for n, fwd, bwd in ((1025, "flash_attention", "flash_attention_bwd"),
+                        (197, "fused_mha", "fused_mha_bwd")):
+        x = torch.randn(2, n, 768, device=card, dtype=torch.bfloat16,
+                        requires_grad=True)
+        before = dict(dispatch.launch_counts)
+        layer(x).float().sum().backward()
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts == {**before, fwd: before[fwd] + 1,
+                                          bwd: before[bwd] + 1}
+        assert bool(torch.isfinite(x.grad).all())
+
+
+# -- float16 models take their plain paths (no f16 kernel) -------------------
+
+F16_MODELS = [
+    ("convnext_tiny", dict(input_size=(64, 64)), {}),
+    ("swin_tiny_patch4_window7_224", {}, {}),
+    ("cait_xxs24_224", dict(nb_blocks=2), {}),
+    ("pvt_v2_b0", dict(input_size=(64, 64)), {"TFIMM_TPU_FUSED_PVT_SRA": "1"}),
+    ("poolformer_s12", dict(input_size=(64, 64)),
+     {"TFIMM_TPU_FUSED_POOLFORMER": "1"}),
+    ("vit_base_patch16_224", dict(nb_blocks=2, input_size=(512, 512)), {}),
+    ("sam_vit_b", dict(input_size=(256, 256), encoder_nb_blocks=2,
+                       encoder_global_attn_indices=(1,)), {}),
+]
+
+
+@pytest.mark.parametrize("name,overrides,env", F16_MODELS)
+def test_float16_models_run_their_plain_paths(card, monkeypatch, name,
+                                              overrides, env):
+    """A registered variant in float16 on the card, switches on: no kernel
+    launch and no error, and the output within 5e-2 of max|f32| of the same
+    weights (the f32 model on the card, its kernels included). SAM: the
+    image encoder, as ``set_image`` runs it."""
+    import tfimm_tpu_torch as tfm
+
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    model = tfm.create_model(name, device=card, seed=0, **overrides)
+    g = torch.Generator().manual_seed(0)
+    sd = {k: (1.0 + 0.1 * torch.randn(v.shape, generator=g)
+              if k.rsplit(".", 1)[-1].startswith(("gamma", "layer_scale"))
+              else v.float()) for k, v in model.state_dict().items()}
+    sd = {k: (0.02 * torch.randn(v.shape, generator=g)
+              if k.startswith("head") else v) for k, v in sd.items()}
+    model.load_state_dict(sd)
+    size = model.cfg.input_size
+    x = torch.randn(2, *size, 3, generator=g).to(card)
+
+    def run(m, dtype):
+        with torch.inference_mode():
+            if name.startswith("sam"):
+                return m.image_encoder(x.to(dtype))
+            return m.predict(x.to(dtype))
+
+    want = run(model, torch.float32).float()
+    before = dict(dispatch.launch_counts)
+    got = run(model.half(), torch.float16)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == before
+    assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+    _held_by(got, want, 5e-2)

@@ -173,11 +173,23 @@ def test_registry_matches_jax(monkeypatch):
 
 
 def test_interpolate_input_waits_for_its_port():
+    """``interpolate_input`` (ported since): a 96x96 input resizes each
+    stage's position table, the last with its class token kept, and the
+    small PVT matches the JAX model within 1e-3, features included."""
     name, cfg = SMALL["pvt"]
-    tm = tfimm_tpu_torch.create_model(name, device="cpu",
-                                      **dict(cfg, interpolate_input=True))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tm.predict(torch.zeros(1, 96, 96, 3))
+    cfg = dict(cfg, interpolate_input=True)
+    jm = tfimm_tpu.create_model(name, **cfg)
+    params = _seeded(jm.params, 42)
+    tm = tfimm_tpu_torch.create_model(name, device="cpu", **cfg)
+    tm.load_state_dict(state_dict_from_jax(params))
+    x = np.random.default_rng(43).normal(size=(2, 96, 96, 3)).astype(np.float32)
+    want, want_feats = jm.apply(params, jnp.asarray(x), return_features=True)
+    with torch.inference_mode():
+        got, got_feats = tm(torch.from_numpy(x), return_features=True)
+    assert got_feats["pos_embedding_3"].shape == (2, 1 + 3 * 3, 64)
+    assert _rel(got, want) < 1e-3
+    for name in tm.feature_names:
+        assert _rel(got_feats[name], want_feats[name]) < 1e-3, name
 
 
 @pytest.mark.parametrize("patch,stride,padding,flatten",

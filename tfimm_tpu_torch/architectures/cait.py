@@ -14,8 +14,8 @@ kernel on the card, its plain version on the CPU; differentiable through
 the backward kernel) unless attention dropout is live in training, as the
 JAX package's gate does; that case, and a shape the kernels do not take,
 runs ``forward_eager``, the JAX package's XLA path. The class-attention
-blocks have no kernel in either package. Position-embedding interpolation
-(``interpolate_input`` with another grid) is not ported yet.
+blocks have no kernel in either package. With ``interpolate_input`` another
+input size resizes the position table (no class token in it) bicubically.
 
 Paper: Going deeper with Image Transformers, https://arxiv.org/abs/2103.17239.
 """
@@ -33,12 +33,12 @@ from tfimm_tpu_torch.models.base import Model
 from tfimm_tpu_torch.models.config import ModelConfig
 from tfimm_tpu_torch.models.registry import register_model
 from tfimm_tpu_torch.ops.basic import Dense, trunc_normal_
-from tfimm_tpu_torch.ops.embed import PatchEmbeddings
+from tfimm_tpu_torch.ops.embed import PatchEmbeddings, interpolate_pos_embeddings
 from tfimm_tpu_torch.ops.kernels.cait_attention import (
     talking_head_attention_packed,
     talking_head_attention_supports,
 )
-from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
+from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.mlp import MLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
@@ -153,7 +153,8 @@ class TalkingHeadAttention(nn.Module):
         _, n, d = x.shape
         if current_context().training and self.attn_drop_rate > 0.0:
             return False
-        return talking_head_attention_supports(n, d, self.nb_heads)
+        return x.dtype in KERNEL_DTYPES and talking_head_attention_supports(
+            n, d, self.nb_heads)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.kernel_ok(x):
@@ -284,12 +285,11 @@ class CaiT(Model):
         cfg = self.cfg
         ctx = current_context()
         x, grid = self.patch_embed(x)
-        if grid != cfg.grid_size:
-            raise NotImplementedError(
-                f"input grid {grid} != {cfg.grid_size}: interpolate_input "
-                "waits for the interpolate_pos_embeddings port (ROADMAP.md, "
-                "queue A, item 12)")
-        x = x + self.pos_embed.to(x.dtype)
+        pos_embed = self.pos_embed
+        if cfg.interpolate_input and grid != cfg.grid_size:
+            pos_embed = interpolate_pos_embeddings(
+                pos_embed, src_grid=cfg.grid_size, dst_grid=grid, nb_tokens=0)
+        x = x + pos_embed.to(x.dtype)
         x = dropout(x, cfg.drop_rate, ctx.training, ctx.generator)
         capture_feature("patch_embedding", x)
         for j, block in enumerate(self.blocks):

@@ -38,7 +38,7 @@ from tfimm_tpu_torch.ops.basic import Dense
 from tfimm_tpu_torch.ops.conv import Conv2d, DepthwiseConv2d
 from tfimm_tpu_torch.ops.kernels.convnext_block import convnext_block
 from tfimm_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
-from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
+from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
@@ -132,7 +132,7 @@ class ConvNeXtBlock(nn.Module):
         if current_context().training or self.conv_mlp_block or self.drop_rate:
             return False
         if not (self.norm_name.startswith("layer_norm")
-                and self.act_name == "gelu"):
+                and self.act_name == "gelu") or x.dtype not in KERNEL_DTYPES:
             return False
         return not self._autograd_records(x)
 

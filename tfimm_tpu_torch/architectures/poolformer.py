@@ -31,7 +31,7 @@ from tfimm_tpu_torch.models.config import ModelConfig
 from tfimm_tpu_torch.models.registry import register_model
 from tfimm_tpu_torch.ops.basic import Dense
 from tfimm_tpu_torch.ops.embed import PatchEmbeddings
-from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
+from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.kernels.poolformer_block import poolformer_block
 from tfimm_tpu_torch.ops.mlp import ConvMLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
@@ -87,16 +87,18 @@ class PoolFormerBlock(nn.Module):
         self.drop_path_rate = drop_path_rate
         self.fusable = norm_layer == "group_norm_1grp" and act_layer == "gelu"
 
-    def kernel_ok(self) -> bool:
+    def kernel_ok(self, x: torch.Tensor) -> bool:
         """Gate for ``poolformer_block``, as the JAX package's: the default
         norm and activation, inference and the opt-in, the JAX package's
-        variable, off by default. The JAX package's int8 check
-        (``any_quantized``) waits for the port of quantization."""
+        variable, off by default; and x in a dtype the kernel takes. The
+        JAX package's int8 check (``any_quantized``) waits for the port of
+        quantization."""
         return (self.fusable and not current_context().training
+                and x.dtype in KERNEL_DTYPES
                 and os.environ.get("TFIMM_TPU_FUSED_POOLFORMER", "0") == "1")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.kernel_ok():
+        if self.kernel_ok(x):
             log_dispatch("poolformer_block")
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
             return poolformer_block(

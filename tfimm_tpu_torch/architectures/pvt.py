@@ -31,8 +31,8 @@ from tfimm_tpu_torch.models.config import ModelConfig
 from tfimm_tpu_torch.models.registry import register_model
 from tfimm_tpu_torch.ops.basic import Dense, act_layer_factory, trunc_normal_
 from tfimm_tpu_torch.ops.conv import Conv2d
-from tfimm_tpu_torch.ops.embed import PatchEmbeddings
-from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
+from tfimm_tpu_torch.ops.embed import PatchEmbeddings, interpolate_pos_embeddings
+from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.kernels.pvt_sra import pvt_sra
 from tfimm_tpu_torch.ops.mlp import MLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
@@ -120,12 +120,13 @@ class SpatialReductionAttention(nn.Module):
             self.sr = Conv2d(embed_dim, embed_dim, k, generator=g)
             self.norm = norm_layer_factory("layer_norm")(embed_dim)
 
-    def kernel_ok(self) -> bool:
+    def kernel_ok(self, x: torch.Tensor) -> bool:
         """Gate for ``pvt_sra``, as the JAX package's: one head, inference
-        and the opt-in, the JAX package's variable, off by default. The JAX
-        package's int8 check (``kernel_q``) waits for the port of
-        quantization."""
+        and the opt-in, the JAX package's variable, off by default; and x in
+        a dtype the kernel takes. The JAX package's int8 check
+        (``kernel_q``) waits for the port of quantization."""
         return (self.nb_heads == 1 and not current_context().training
+                and x.dtype in KERNEL_DTYPES
                 and os.environ.get("TFIMM_TPU_FUSED_PVT_SRA", "0") == "1")
 
     def forward(self, x: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
@@ -142,7 +143,7 @@ class SpatialReductionAttention(nn.Module):
                 kv_in = self.act(kv_in)
         kv = self.kv(kv_in)
 
-        if self.kernel_ok():
+        if self.kernel_ok(x):
             log_dispatch("pvt_sra")
             out = pvt_sra(x, kv, self.q.weight, self.q.bias, self.proj.weight,
                           self.proj.bias, self.scale)
@@ -226,14 +227,15 @@ class PyramidVisionTransformer(Model):
         for j in range(nb_stages):
             x, grid = getattr(self, f"patch_embed{j + 1}")(x)
             capture_feature(f"patch_embedding_{j}", x)
-            if cfg.interpolate_input and grid != cfg.grid_size[j]:
-                raise NotImplementedError(
-                    "interpolate_input waits for the interpolate_pos_embeddings"
-                    " port (ROADMAP.md, queue A, A12)")
             if j == nb_stages - 1:
                 cls = self.cls_token.to(x.dtype).expand(batch, -1, -1)
                 x = torch.cat([cls, x], dim=1)
-            x = x + getattr(self, f"pos_embed{j + 1}").to(x.dtype)
+            pos_embed = getattr(self, f"pos_embed{j + 1}")
+            if cfg.interpolate_input and grid != cfg.grid_size[j]:
+                pos_embed = interpolate_pos_embeddings(
+                    pos_embed, src_grid=cfg.grid_size[j], dst_grid=grid,
+                    nb_tokens=cfg.nb_tokens[j])
+            x = x + pos_embed.to(x.dtype)
             x = dropout(x, cfg.drop_rate, ctx.training, ctx.generator)
             capture_feature(f"pos_embedding_{j}", x)
             for block in getattr(self, f"block{j + 1}"):

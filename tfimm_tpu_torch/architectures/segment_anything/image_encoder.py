@@ -44,7 +44,7 @@ from tfimm_tpu_torch.core import capture_feature, current_context
 from tfimm_tpu_torch.ops.basic import Dense
 from tfimm_tpu_torch.ops.conv import Conv2d
 from tfimm_tpu_torch.ops.embed import PatchEmbeddings
-from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
+from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
     flash_attention_relpos,
     flash_attention_relpos_supports,
@@ -159,9 +159,10 @@ class RelPosAttention(nn.Module):
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * h - 1, self.head_dim))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * w - 1, self.head_dim))
 
-    def kernel_ok(self, grid: Tuple[int, int]) -> bool:
-        """The gate (see the module's note) for a ``grid`` of tokens."""
-        if not (self.use_rel_pos
+    def kernel_ok(self, grid: Tuple[int, int], dtype: torch.dtype) -> bool:
+        """The gate (see the module's note) for a ``grid`` of tokens in
+        ``dtype``."""
+        if not (self.use_rel_pos and dtype in KERNEL_DTYPES
                 and flash_attention_relpos_supports(self.head_dim, grid)):
             return False
         return (grid[0] * grid[1] >= GLOBAL_MIN_TOKENS
@@ -173,7 +174,7 @@ class RelPosAttention(nn.Module):
         qkv = qkv.permute(2, 0, 3, 1, 4).reshape(3, n * self.nb_heads, h * w,
                                                  self.head_dim)
         q, k, v = qkv.unbind(0)
-        if self.kernel_ok((h, w)):
+        if self.kernel_ok((h, w), q.dtype):
             log_dispatch("flash_attention_relpos")
             interpolate = not self.fixed_input_size
             r_h = get_rel_pos(h, h, self.rel_pos_h, interpolate).to(q.dtype)

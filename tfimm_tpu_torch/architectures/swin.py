@@ -39,7 +39,7 @@ from tfimm_tpu_torch.models.config import ModelConfig
 from tfimm_tpu_torch.models.registry import register_model
 from tfimm_tpu_torch.ops.basic import Dense, trunc_normal_
 from tfimm_tpu_torch.ops.embed import PatchEmbeddings
-from tfimm_tpu_torch.ops.kernels.dispatch import log_dispatch
+from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.kernels.swin_block import SwinBlockParams, swin_block
 from tfimm_tpu_torch.ops.kernels.window_mha import (
     window_mha_packed,
@@ -209,7 +209,8 @@ class WindowAttention(nn.Module):
         _, n, c = x.shape
         if current_context().training and self.attn_drop_rate > 0.0:
             return False
-        return window_mha_supports(n, c, self.nb_heads)
+        return x.dtype in KERNEL_DTYPES and window_mha_supports(
+            n, c, self.nb_heads)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -291,7 +292,7 @@ class SwinTransformerBlock(nn.Module):
         h, w = self.input_size
         ws, c = self.window_size, x.shape[-1]
         if current_context().training or not self.fused_block_ok or h % ws \
-                or w % ws:
+                or w % ws or x.dtype not in KERNEL_DTYPES:
             return False
         if not window_mha_supports(ws * ws, c, self.attn.nb_heads):
             return False

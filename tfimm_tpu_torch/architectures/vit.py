@@ -3,8 +3,9 @@
 Class/dist tokens, learned position embeddings, optional representation
 (pre-logits) layer and distilled dual heads. Parameter names are timm's
 (``blocks.0.attn.qkv.weight`` ...), so timm checkpoints load with
-``load_state_dict``. Position-embedding interpolation (``interpolate_input``)
-and the hybrid patch embedding are not ported yet.
+``load_state_dict``. With ``interpolate_input`` another input size resizes
+the position table bicubically at each call, as the JAX package does; the
+hybrid patch embedding is not ported yet.
 
 Papers: ViT https://arxiv.org/abs/2010.11929, DeiT https://arxiv.org/abs/2012.12877.
 """
@@ -23,7 +24,7 @@ from tfimm_tpu_torch.models.config import ModelConfig
 from tfimm_tpu_torch.models.registry import register_model
 from tfimm_tpu_torch.ops.attention import MultiHeadAttention
 from tfimm_tpu_torch.ops.basic import Dense, trunc_normal_
-from tfimm_tpu_torch.ops.embed import PatchEmbeddings
+from tfimm_tpu_torch.ops.embed import PatchEmbeddings, interpolate_pos_embeddings
 from tfimm_tpu_torch.ops.mlp import MLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
@@ -156,20 +157,29 @@ class ViT(Model):
         self.head_dist = (Dense(d, cfg.nb_classes, zero_init=True)
                           if cfg.distilled and cfg.nb_classes > 0 else None)
 
+    def transform_pos_embed(self, weight: torch.Tensor,
+                            target_cfg: ViTConfig) -> torch.Tensor:
+        """The weight-transfer hook: ``weight``, a position table of this
+        model's grid, resized to ``target_cfg``'s."""
+        return interpolate_pos_embeddings(
+            weight, src_grid=self.cfg.grid_size, dst_grid=target_cfg.grid_size,
+            nb_tokens=self.cfg.nb_tokens)
+
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         ctx = current_context()
         batch = x.shape[0]
         x, grid = self.patch_embed(x)
-        if cfg.interpolate_input and grid != cfg.grid_size:
-            raise NotImplementedError(
-                "interpolate_input waits for the interpolate_pos_embeddings "
-                "port (ROADMAP.md, queue A, item 1)")
         tokens = [self.cls_token.to(x.dtype).expand(batch, -1, -1)]
         if cfg.distilled:
             tokens.append(self.dist_token.to(x.dtype).expand(batch, -1, -1))
         x = torch.cat(tokens + [x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
+        pos_embed = self.pos_embed
+        if cfg.interpolate_input and grid != cfg.grid_size:
+            pos_embed = interpolate_pos_embeddings(
+                pos_embed, src_grid=cfg.grid_size, dst_grid=grid,
+                nb_tokens=cfg.nb_tokens)
+        x = x + pos_embed.to(x.dtype)
         x = dropout(x, cfg.drop_rate, ctx.training, ctx.generator)
         capture_feature("patch_embedding", x)
 

@@ -1,6 +1,13 @@
-from tfimm_tpu_torch.ops.attention import MultiHeadAttention  # noqa: F401
+from tfimm_tpu_torch.ops.attention import (  # noqa: F401
+    MultiHeadAttention,
+    scaled_dot_product_attention,
+)
 from tfimm_tpu_torch.ops.basic import Dense, act_layer_factory  # noqa: F401
 from tfimm_tpu_torch.ops.conv import Conv2d, DepthwiseConv2d  # noqa: F401
-from tfimm_tpu_torch.ops.embed import PatchEmbeddings  # noqa: F401
+from tfimm_tpu_torch.ops.embed import (  # noqa: F401
+    PatchEmbeddings,
+    interpolate_pos_embeddings,
+    interpolate_pos_embeddings_grid,
+)
 from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP  # noqa: F401
 from tfimm_tpu_torch.ops.norm import LayerNorm, norm_layer_factory  # noqa: F401

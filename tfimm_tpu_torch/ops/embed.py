@@ -1,8 +1,8 @@
-"""Patch embedding; mirror of ``PatchEmbeddings`` in tfimm_tpu/ops/embed.py.
-
-Position-embedding interpolation is not ported yet (ROADMAP.md): the JAX
-package resizes with ``jax.image.resize`` bicubic (Keys a = -0.5,
-antialiased), which ``F.interpolate`` bicubic (a = -0.75) does not match.
+"""Patch embedding and position-embedding interpolation; mirror of
+tfimm_tpu/ops/embed.py. The interpolation resizes with ``ops/resize.py ·
+resize_cubic``, the port's copy of ``jax.image.resize`` bicubic (Keys
+a = -0.5, antialiased), which ``F.interpolate`` bicubic (a = -0.75) does
+not match.
 """
 
 from __future__ import annotations
@@ -14,8 +14,10 @@ import torch.nn as nn
 
 from tfimm_tpu_torch.ops.conv import Conv2d
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
+from tfimm_tpu_torch.ops.resize import resize_cubic
 
-__all__ = ["PatchEmbeddings"]
+__all__ = ["PatchEmbeddings", "interpolate_pos_embeddings",
+           "interpolate_pos_embeddings_grid"]
 
 
 class PatchEmbeddings(nn.Module):
@@ -47,3 +49,27 @@ class PatchEmbeddings(nn.Module):
         if self.norm is not None:
             x = self.norm(x)
         return x, grid
+
+
+def interpolate_pos_embeddings_grid(pos_embed: torch.Tensor,
+                                    src_grid: Tuple[int, int],
+                                    dst_grid: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of a (1, H * W, D) or (H, W, D) grid of position
+    embeddings to (1, H' * W', D), in float32, cast back to the table's
+    dtype."""
+    d = pos_embed.shape[-1]
+    grid = pos_embed.reshape(src_grid[0], src_grid[1], d).float()
+    grid = resize_cubic(grid, (dst_grid[0], dst_grid[1], d))
+    return grid.reshape(1, dst_grid[0] * dst_grid[1], d).to(pos_embed.dtype)
+
+
+def interpolate_pos_embeddings(pos_embed: torch.Tensor,
+                               src_grid: Tuple[int, int],
+                               dst_grid: Tuple[int, int],
+                               nb_tokens: int = 1) -> torch.Tensor:
+    """Interpolate token-layout position embeddings (1, nb_tokens + H * W,
+    D), keeping the leading class and distillation tokens fixed."""
+    tokens = pos_embed[:, :nb_tokens]
+    grid = interpolate_pos_embeddings_grid(pos_embed[:, nb_tokens:],
+                                           src_grid, dst_grid)
+    return torch.cat([tokens, grid], dim=1)

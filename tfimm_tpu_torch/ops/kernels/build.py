@@ -228,6 +228,27 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_convnext_block.restype = ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_int64)  # (B, H, N) strides of each
+    lib.tfimm_flash_attention_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q (scaled), k, v
+        ctypes.c_void_p, ctypes.c_void_p,  # out, f32 lse (B * H, N)
+        strides,  # of q, k, v, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B*H, H, N, d
+        ctypes.c_int,  # dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_flash_attention_fwd.restype = ctypes.c_int
+    lib.tfimm_flash_attention_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q (scaled), k, v
+        ctypes.c_void_p,  # do
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 lse, delta (B * H, N)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dq, dk, dv
+        strides,  # of q, k, v, do, dq, dk, dv
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B*H, H, N, d
+        ctypes.c_int,  # dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 

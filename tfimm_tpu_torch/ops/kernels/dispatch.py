@@ -18,11 +18,16 @@ from typing import Optional, Set
 
 import torch
 
-__all__ = ["SOFTMAX_CLAMP", "softmax_nomax", "softmax_clamp_grad_mask",
-           "on_cuda", "log_dispatch", "capture_dispatches", "launch_counts",
-           "count_launch", "reset_launch_counts", "launch"]
+__all__ = ["SOFTMAX_CLAMP", "KERNEL_DTYPES", "softmax_nomax",
+           "softmax_clamp_grad_mask", "on_cuda", "log_dispatch",
+           "capture_dispatches", "launch_counts", "count_launch",
+           "reset_launch_counts", "launch"]
 
 SOFTMAX_CLAMP = 80.0
+
+# The dtypes every hand-written kernel takes. A float16 model fails each
+# gate and takes its layer's plain path (the port has no float16 kernel).
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _dispatch_log: Optional[Set[str]] = None
 
@@ -30,7 +35,8 @@ launch_counts = {"fused_mha": 0, "fused_mha_bwd": 0, "convnext_mlp": 0,
                  "window_mha": 0, "window_mha_bwd": 0, "swin_block": 0,
                  "talking_head_attention": 0, "talking_head_attention_bwd": 0,
                  "flash_attention_relpos": 0, "flash_attention_relpos_bwd": 0,
-                 "pvt_sra": 0, "poolformer_block": 0, "convnext_block": 0}
+                 "pvt_sra": 0, "poolformer_block": 0, "convnext_block": 0,
+                 "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def count_launch(name: str) -> None:

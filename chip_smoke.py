@@ -256,6 +256,44 @@ which ends the run with a non-zero exit code on failure:
    kernel launch (no kernel takes f16: each gate declines it); each within
    5e-2 of the largest value of the same weights in f32 on the card.
 
+31. ``ln_dense`` (LayerNorm + Dense) and its backward against their plain
+   versions on the card at ViT-B/16's widths: LN1 -> qkv (O = 2304) and
+   LN2 -> fc1 (O = 3072) at training batch 64 (M = 12,608) and, forward
+   only, serving batch 128 (M = 25,216), and at the edges (M = 197, C = 96
+   with O = 40 and no bias, ViT-L's C = 1024, C = 100, C = 3072), in bf16
+   and in f32 with TF32 off: the output and dx within 2e-2 and 1e-5,
+   dgamma, dbeta, dW and db within 2e-2 and 1e-4 of the largest plain
+   value; two backward calls bit-identical. Then, with the operands out of
+   L2, kernel, plain, bound and library times at the training and serving
+   shapes: the library is one eager ``F.layer_norm`` + ``F.linear``
+   (cuBLAS) on the same operands, for the backward that composition's
+   autograd backward alone; beside it the port's own eager pair
+   (``ops/norm.py · LayerNorm`` then ``Dense``).
+32. ``ln_dense_or_none`` at its place in ViT-B/16: a bf16 model with seeded
+   weights runs a bs64 batch; on each of its 12 blocks' real inputs the op
+   against the block's own ``norm1`` -> ``attn.qkv`` and ``norm2`` ->
+   ``mlp.fc1``, forward within 2e-2 and, with a seeded cotangent, the five
+   gradients within 5e-2 of the largest eager value (the eager composition
+   rounds dz to bf16, the kernel keeps it in f32): 24 ``ln_dense`` and 24
+   ``ln_dense_bwd`` launches and no others. With ``TFIMM_TPU_LN_DENSE=0``
+   the op returns None. Then the 24 pairs' forward and backward timed
+   through the kernels, the eager modules and ``F.layer_norm`` +
+   ``F.linear``.
+
+33. The models API on the card: ``save_model`` of a bf16 ViT-B/16 with
+   seeded weights, then ``load_model(device="cuda")``: the logits of 8
+   images equal the original's bit for bit. ``create_model(...,
+   model_path=..., input_size=(512, 512))`` in bf16 carries the weights
+   across through the position-embedding hook (14 x 14 -> 32 x 32, N =
+   1025) and answers 5 requests of 64 uint8 512x512 images: 12
+   ``flash_attention`` launches a request and nothing else, logits finite
+   and non-zero, and on 4 images within 5e-2 of the same transfer in f32
+   through the plain attention. An ``EmbeddingModel`` over ConvNeXt-B
+   (bf16, seeded weights) gives finite (128, 128) embeddings in eval mode
+   (36 ``convnext_mlp`` launches); in training mode its BatchNorm moves the
+   running statistics by the momentum rule, within 2e-2 of the update
+   computed from the batch.
+
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
 
@@ -264,7 +302,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-30) alone, for a quicker look at one
+runs phase 1 and the phases named (2-33) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -458,6 +496,26 @@ F16_MODELS = [CONVNEXT, SWIN, CAIT, "pvt_v2_b2", POOLFORMER]
 F16_SWITCHES = ("TFIMM_TPU_FUSED_CONVNEXT", "TFIMM_TPU_FUSED_PVT_SRA",
                 "TFIMM_TPU_FUSED_POOLFORMER")
 F16_IMAGES = 8
+# ln_dense (phases 31-32): (M, C, O) at ViT-B/16's widths, LN1 -> qkv and
+# LN2 -> fc1, at training batch 64 (forward and backward) and serving batch
+# 128 (forward); the edges as (M, C, O, bias).
+LN_DENSE_TRAIN = [(64 * 197, 768, 2304), (64 * 197, 768, 3072)]
+LN_DENSE_SERVE = [(128 * 197, 768, 2304), (128 * 197, 768, 3072)]
+LN_DENSE_EDGES = [(197, 768, 2304, True), (197, 96, 40, False),
+                  (394, 1024, 3072, True), (130, 100, 36, True),
+                  (40, 3072, 64, True)]
+LN_DENSE_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+LN_DENSE_SUM_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LN_DENSE_EPS = 1e-6
+LN_DENSE_BATCH = 64
+LN_DENSE_VIT_TOL = {"forward": 2e-2, "backward": 5e-2}
+LN_DENSE_VIT_LAUNCHES = {"ln_dense": 24, "ln_dense_bwd": 24}
+# The models API (phase 33): a bf16 ViT-B/16 saved and loaded; the same
+# weights carried to 512x512 and served as phase 28; an EmbeddingModel over
+# ConvNeXt-B.
+API_IMAGES = 8
+EMBED_DIM = 128
+EMBED_LAUNCHES = {"convnext_mlp": 36}
 # The 50 MB L2 is evicted before each cold-timed call by a write this large.
 L2_FLUSH_BYTES = 512 * 2 ** 20
 CONTROL_FACTOR = 5.0
@@ -3878,13 +3936,404 @@ def phase_float16(reports, gpu_line):
     print(f"float16 phase on {gpu_line}", flush=True)
 
 
+def ln_dense_inputs(m, c, o, dtype, seed, bias=True):
+    """Seeded (x, gamma, beta, w, b, g) of ``ln_dense`` on the card: x away
+    from zero mean, gamma near 1, w scaled to unit-size outputs, the f32
+    vectors, a unit cotangent g."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    return (rnd(m, c, scale=2.0, shift=0.5).to(dtype),
+            rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+            rnd(o, c, scale=c ** -0.5).to(dtype),
+            rnd(o, scale=0.1) if bias else None, rnd(m, o).to(dtype))
+
+
+def ln_dense_bound(m, c, o, backward=False):
+    """(ms, what bounds it) in bf16: the forward reads x and w and writes y
+    (2 M C O operations); the backward reads x, g and w and writes dx and dW
+    (4 M C O); the f32 vectors beside them."""
+    if backward:
+        nbytes = 2 * (2 * m * c + m * o + 2 * o * c) + 4 * (4 * c + o)
+        return bound(nbytes, 4 * m * c * o)
+    return bound(2 * (m * c + o * c + m * o) + 4 * (2 * c + o), 2 * m * c * o)
+
+
+def library_ln_dense(x, gamma, beta, w, b):
+    """One eager F.layer_norm + F.linear (cuBLAS) in x's dtype."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    z = F.layer_norm(x, (x.shape[-1],), gamma.to(dt), beta.to(dt),
+                     LN_DENSE_EPS)
+    return F.linear(z, w, None if b is None else b.to(dt))
+
+
+def eager_pair(gamma, beta, w, b):
+    """(fn, parameters): the port's own eager LayerNorm then Dense in w's
+    dtype, as a model cast to it holds them, with these weights."""
+    import torch
+
+    from tfimm_tpu_torch.ops.basic import Dense
+    from tfimm_tpu_torch.ops.norm import LayerNorm
+
+    norm = LayerNorm(w.shape[1], eps=LN_DENSE_EPS)
+    dense = Dense(w.shape[1], w.shape[0], use_bias=b is not None)
+    norm, dense = (mod.to(device="cuda", dtype=w.dtype) for mod in (norm, dense))
+    with torch.no_grad():
+        for p, v in zip([*norm.parameters(), *dense.parameters()],
+                        (gamma, beta, w, b)):
+            p.copy_(v)
+    return (lambda x: dense(norm(x)),
+            [*norm.parameters(), *dense.parameters()])
+
+
+def backward_of(fn, x, params, g):
+    """A closure that runs the autograd backward alone of ``fn(x)`` with
+    respect to x and ``params`` (the graph is built once and kept)."""
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_(), *params]
+    y = fn(leaves[0])
+    return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+
+def phase_ln_dense_kernel(reports, gpu_line):
+    """Phase 31: ``ln_dense`` and its backward against their plain
+    versions, then the times."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.ln_dense import (
+        ln_dense,
+        ln_dense_bwd,
+        ln_dense_bwd_reference,
+        ln_dense_reference,
+    )
+
+    cases = [(*shape, True) for shape in LN_DENSE_TRAIN] + LN_DENSE_EDGES
+    names = ("dx", "dgamma", "dbeta", "dW", "db")
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for i, (m, c, o, bias) in enumerate(cases):
+            x, gamma, beta, w, b, gy = ln_dense_inputs(m, c, o, dtype, 3100 + i,
+                                                       bias)
+            what = f"{dname:8s} (M, C, O)=({m}, {c}, {o}){'' if bias else ' no bias'}"
+            y = ln_dense(x, gamma, beta, w, b, eps=LN_DENSE_EPS)
+            ref = ln_dense_reference(x, gamma, beta, w, b, LN_DENSE_EPS)
+            torch.cuda.synchronize()
+            err, bar, ok = held(y, ref, LN_DENSE_TOL[dname])
+            print(f"ln_dense {what}: max_abs_err={err!r} bar={bar!r} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"ln_dense disagrees with its plain version ({what}): "
+                  f"{err} > {bar}")
+            if dtype == torch.bfloat16 and i == 0:
+                reports["ln_dense"]["max_abs_err"] = err
+            got = ln_dense_bwd(x, gamma, beta, w, gy, bias, LN_DENSE_EPS)
+            want = ln_dense_bwd_reference(x, gamma, beta, w, gy, bias,
+                                          LN_DENSE_EPS)
+            torch.cuda.synchronize()
+            check((got[4] is None) == (not bias), f"ln_dense_bwd db ({what})")
+            errs = []
+            for k, (a, r) in enumerate(zip(got, want)):
+                if r is None:
+                    continue
+                tol = (LN_DENSE_TOL if k == 0 else LN_DENSE_SUM_TOL)[dname]
+                err, bar, ok = held(a, r, tol)
+                errs.append(err)
+                print(f"ln_dense_bwd {what} {names[k]}: max_abs_err={err!r} "
+                      f"bar={bar!r} {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"ln_dense_bwd {names[k]} disagrees with its plain "
+                      f"version ({what}): {err} > {bar}")
+            if dtype == torch.bfloat16 and i == 0:
+                reports["ln_dense_bwd"]["max_abs_err"] = max(errs)
+                again = ln_dense_bwd(x, gamma, beta, w, gy, bias, LN_DENSE_EPS)
+                check(all(torch.equal(a, r) for a, r in zip(got, again)),
+                      "ln_dense_bwd: two calls differ")
+                print(f"ln_dense_bwd {what}: two calls bit-identical ok",
+                      flush=True)
+            del x, gamma, beta, w, b, gy, y, ref, got, want
+
+    for backward in (False, True):
+        name = "ln_dense_bwd" if backward else "ln_dense"
+        shapes = LN_DENSE_TRAIN + ([] if backward else LN_DENSE_SERVE)
+        for j, (m, c, o) in enumerate(shapes):
+            x, gamma, beta, w, b, gy = ln_dense_inputs(m, c, o, torch.bfloat16,
+                                                       3150 + j)
+            eager, eager_params = eager_pair(gamma, beta, w, b)
+            if backward:
+                lib_params = [t.detach().clone().requires_grad_()
+                              for t in (gamma, beta, w, b)]
+                fns = {
+                    "ms": lambda: ln_dense_bwd(x, gamma, beta, w, gy, True,
+                                               LN_DENSE_EPS),
+                    "plain_ms": lambda: ln_dense_bwd_reference(
+                        x, gamma, beta, w, gy, True, LN_DENSE_EPS),
+                    "library_ms": backward_of(
+                        lambda t: library_ln_dense(t, *lib_params), x,
+                        lib_params, gy),
+                    "eager_ms": backward_of(eager, x, eager_params, gy),
+                }
+            else:
+                fns = {
+                    "ms": lambda: ln_dense(x, gamma, beta, w, b,
+                                           eps=LN_DENSE_EPS),
+                    "plain_ms": lambda: ln_dense_reference(
+                        x, gamma, beta, w, b, LN_DENSE_EPS),
+                    "library_ms": lambda: library_ln_dense(x, gamma, beta, w,
+                                                           b),
+                    "eager_ms": lambda: eager(x),
+                }
+            with torch.inference_mode(not backward):
+                times = {k: cold_ms(fn, calls=3 if k == "plain_ms" else 10,
+                                    warmup=1 if k == "plain_ms" else 2)
+                         for k, fn in fns.items()}
+            times["bound_ms"], times["bound_by"] = ln_dense_bound(m, c, o,
+                                                                  backward)
+            times["shape"] = (m, c, o)
+            if j == 0:
+                reports[name].update(times)
+            else:
+                reports[name].setdefault("shapes", []).append(times)
+            print(f"{name} bf16 (M, C, O) = ({m}, {c}, {o}), operands out of "
+                  f"L2: kernel {times['ms']!r} ms, "
+                  f"{times['bound_ms'] / times['ms']!r} of the bound "
+                  f"{times['bound_ms']!r} ms ({times['bound_by']}); plain "
+                  f"{times['plain_ms']!r} ms; F.layer_norm + F.linear"
+                  f"{' backward' if backward else ''} {times['library_ms']!r} "
+                  f"ms; the port's LayerNorm + Dense{' backward' if backward else ''} "
+                  f"{times['eager_ms']!r} ms; on {gpu_line}", flush=True)
+            del x, gamma, beta, w, b, gy, eager, eager_params, fns
+
+
+def phase_ln_dense_vit(reports, gpu_line):
+    """Phase 32: ``ln_dense_or_none`` on the real inputs of ViT-B/16's 24
+    LayerNorm -> Dense pairs against the blocks' own modules."""
+    import torch
+    import torch.nn.functional as F
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.ops.kernels.ln_dense import ln_dense_or_none
+
+    model = tfm.create_model(MODEL, device="cuda", dtype=torch.bfloat16, seed=0)
+    model.load_state_dict(seeded_state_dict(model, seed=32))
+    pp = tfm.create_preprocessing(MODEL, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    images = torch.randint(0, 256, (LN_DENSE_BATCH, 224, 224, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+    pairs = []
+    with torch.no_grad():
+        _, feats = model(pp(images), return_features=True)
+        for j, block in enumerate(model.blocks):
+            x_in = feats["patch_embedding" if j == 0 else f"block_{j - 1}"]
+            x_mid = x_in + block.attn(block.norm1(x_in))
+            pairs.append((f"block {j} norm1 -> qkv", x_in, block.norm1,
+                          block.attn.qkv))
+            pairs.append((f"block {j} norm2 -> fc1", x_mid, block.norm2,
+                          block.mlp.fc1))
+    del feats
+    cots = [torch.randn(*x.shape[:-1], lin.out_features, generator=gen,
+                        device="cuda").to(x.dtype) for _, x, _, lin in pairs]
+    torch.cuda.synchronize()
+
+    def grads_of(fn, x, params, cot):
+        xl = x.detach().clone().requires_grad_()
+        for p in params:
+            p.grad = None
+        y = fn(xl)
+        y.backward(cot)
+        return y.detach(), [xl.grad] + [p.grad for p in params]
+
+    worst = {"forward": 0.0, "backward": 0.0}
+    dispatch.reset_launch_counts()
+    for (what, x, norm, lin), cot in zip(pairs, cots):
+        params = [norm.weight, norm.bias, lin.weight, lin.bias]
+        with dispatch.capture_dispatches() as seen:
+            y, got = grads_of(lambda t: ln_dense_or_none(
+                t, norm.weight, norm.bias, lin.weight, lin.bias,
+                eps=norm.eps), x, params, cot)
+        check(seen == {"ln_dense"}, f"{what}: the op dispatched {seen}")
+        ye, want = grads_of(lambda t: lin(norm(t)), x, params, cot)
+        err, bar, ok = held(y, ye, LN_DENSE_VIT_TOL["forward"])
+        worst["forward"] = max(worst["forward"], err / bar)
+        check(ok, f"ln_dense at {what}: forward {err} > {bar}")
+        for name, a, r in zip(("dx", "dgamma", "dbeta", "dW", "db"), got, want):
+            err, bar, ok = held(a, r, LN_DENSE_VIT_TOL["backward"])
+            worst["backward"] = max(worst["backward"], err / bar)
+            check(ok, f"ln_dense at {what}: {name} {err} > {bar}")
+    counts = dict(dispatch.launch_counts)
+    check(counts == expected(**LN_DENSE_VIT_LAUNCHES),
+          f"the 24 ViT-B/16 pairs launched {counts}")
+    for name, report in reports.items():
+        report["launches_by_path"]["vit_blocks"] = counts[name]
+    print(f"ln_dense at ViT-B/16's 12 blocks (bs{LN_DENSE_BATCH}, bf16, "
+          f"seeded weights): 24 pairs against the blocks' eager norm -> "
+          f"Dense, worst error in bars: forward {worst['forward']!r} (bar "
+          f"{LN_DENSE_VIT_TOL['forward']} of max), five gradients "
+          f"{worst['backward']!r} (bar {LN_DENSE_VIT_TOL['backward']}); "
+          f"launches {counts['ln_dense']} + {counts['ln_dense_bwd']} ok",
+          flush=True)
+
+    x, norm, lin = pairs[0][1], pairs[0][2], pairs[0][3]
+    with restored_env("TFIMM_TPU_LN_DENSE"):
+        os.environ["TFIMM_TPU_LN_DENSE"] = "0"
+        check(ln_dense_or_none(x, norm.weight, norm.bias, lin.weight,
+                               lin.bias) is None,
+              "TFIMM_TPU_LN_DENSE=0 did not decline")
+    print("ln_dense_or_none with TFIMM_TPU_LN_DENSE=0: None ok", flush=True)
+
+    def library(t, norm, lin):
+        return F.linear(F.layer_norm(t, (t.shape[-1],), norm.weight,
+                                     norm.bias, norm.eps), lin.weight,
+                        lin.bias)
+
+    routes = {
+        "ms": lambda t, norm, lin: ln_dense_or_none(
+            t, norm.weight, norm.bias, lin.weight, lin.bias, eps=norm.eps),
+        "eager_ms": lambda t, norm, lin: lin(norm(t)),
+        "library_ms": library,
+    }
+    timed = {}
+    for key, route in routes.items():
+        def step():
+            for (_, x, norm, lin), cot in zip(pairs, cots):
+                xl = x.detach().requires_grad_()
+                route(xl, norm, lin).backward(cot)
+        timed[key] = cuda_time_ms(step, iters=3, repeats=3, warmup=1)
+    reports["ln_dense"]["vit_blocks"] = timed
+    print(f"ViT-B/16 bs{LN_DENSE_BATCH} bf16, the 24 LayerNorm -> Dense pairs "
+          f"forward and backward (parameter gradients accumulating): through "
+          f"ln_dense {timed['ms']!r} ms; the blocks' eager LayerNorm + Dense "
+          f"{timed['eager_ms']!r} ms; F.layer_norm + F.linear "
+          f"{timed['library_ms']!r} ms; on {gpu_line}", flush=True)
+    model.zero_grad(set_to_none=True)
+
+
+def phase_models_api(reports, gpu_line):
+    """Phase 33: save/load, create_model from a saved model with the
+    position-embedding transfer, and EmbeddingModel, on the card."""
+    import tempfile
+
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(MODEL, device="cuda", dtype=torch.bfloat16, seed=0)
+    model.load_state_dict(seeded_state_dict(model, seed=33))
+    pp = tfm.create_preprocessing(MODEL, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    x = torch.randint(0, 256, (API_IMAGES, 224, 224, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.perf_counter()
+        tfm.save_model(model, path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = tfm.load_model(path, device="cuda")
+        t_load = time.perf_counter() - t0
+        check(loaded.pos_embed.dtype == torch.bfloat16,
+              f"load_model gave {loaded.pos_embed.dtype}")
+        check(torch.equal(model.predict(pp(x)), loaded.predict(pp(x))),
+              "the loaded model's logits differ from the saved model's")
+        print(f"save_model {MODEL} bf16: {t_save!r} s; load_model to the card "
+              f"{t_load!r} s; logits of {API_IMAGES} images equal bit for bit "
+              f"ok", flush=True)
+        del loaded
+        big = tfm.create_model(MODEL, model_path=path, input_size=VIT512_SIZE,
+                               device="cuda", dtype=torch.bfloat16)
+        big32 = tfm.create_model(MODEL, model_path=path,
+                                 input_size=VIT512_SIZE, device="cuda",
+                                 dtype=torch.float32)
+    check(tuple(big.pos_embed.shape) == (1, 1025, 768),
+          f"the transferred position table is {tuple(big.pos_embed.shape)}")
+    check(torch.equal(big.blocks[0].attn.qkv.weight,
+                      model.blocks[0].attn.qkv.weight),
+          "transfer_weights changed a block's weights")
+    pp512 = tfm.create_preprocessing(MODEL, dtype=torch.bfloat16, device="cuda")
+    requests = [torch.randint(0, 256, (VIT512_BATCH, *VIT512_SIZE, 3),
+                              generator=gen, device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    seconds, logits = family_requests(big, pp512, requests, VIT512_LAUNCHES,
+                                      batch=VIT512_BATCH)
+    counts = dict(dispatch.launch_counts)
+    check(counts == expected(**{k: REQUESTS * n
+                                for k, n in VIT512_LAUNCHES.items()}),
+          f"the transferred 512x512 run launched {counts}")
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_vit512_transferred"] = counts[name]
+    img_s = [VIT512_BATCH / t for t in seconds[1:]]
+    print(f"create_model({MODEL}, model_path=..., input_size={VIT512_SIZE}) "
+          f"bs{VIT512_BATCH} bf16: {statistics.median(img_s)!r} img/s (median "
+          f"of requests 2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}), "
+          f"launches a request {VIT512_LAUNCHES}; on {gpu_line}", flush=True)
+    pp32 = tfm.create_preprocessing(MODEL, dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        (ref, _), rose = launches_of(lambda: big32(
+            pp32(requests[0][:VIT512_CHECK_IMAGES]), return_features=True))
+    check(rose == expected(), f"the f32 reference launched {rose}")
+    rel = ((logits[:VIT512_CHECK_IMAGES].float() - ref).abs().max()
+           / ref.abs().max()).item()
+    print(f"transferred 512x512 logits: bf16 flash path vs f32 plain path rel "
+          f"err {rel!r} (bar 5e-2)", flush=True)
+    check(rel < 5e-2, f"transferred 512x512 logits rel err {rel} >= 5e-2")
+    del model, big, big32, ref, requests
+
+    backbone = tfm.create_model(CONVNEXT, device="cuda", dtype=torch.bfloat16,
+                                seed=0, drop_path_rate=0.0)
+    backbone.load_state_dict(seeded_state_dict(backbone, seed=34, std=0.05))
+    emb = tfm.EmbeddingModel(backbone, EMBED_DIM).to(device="cuda",
+                                                     dtype=torch.bfloat16)
+    pp_cnx = tfm.create_preprocessing(CONVNEXT, dtype=torch.bfloat16,
+                                      device="cuda")
+    images = pp_cnx(torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen,
+                                  device="cuda", dtype=torch.uint8))
+    emb.eval()
+    dispatch.reset_launch_counts()
+    with torch.inference_mode():
+        out = emb(images)
+    counts = dict(dispatch.launch_counts)
+    check(counts == expected(**EMBED_LAUNCHES),
+          f"the EmbeddingModel's eval pass launched {counts}")
+    for name, report in reports.items():
+        report["launches_by_path"]["embed_convnext"] = counts[name]
+    check(tuple(out.shape) == (BATCH, EMBED_DIM)
+          and bool(torch.isfinite(out).all()),
+          f"EmbeddingModel gave {tuple(out.shape)}, finite "
+          f"{bool(torch.isfinite(out).all())}")
+    fc_out = []
+    hook = emb.fc.register_forward_hook(lambda m, i, o: fc_out.append(o))
+    emb.train()
+    with torch.no_grad():
+        emb(images[:16])
+    hook.remove()
+    z = fc_out[0].float()
+    n = z.shape[0]
+    want_mean = 0.1 * z.mean(dim=0)
+    want_var = 0.9 + 0.1 * z.var(dim=0, unbiased=True)
+    for what, got, want in (("running_mean", emb.bn.running_mean, want_mean),
+                            ("running_var", emb.bn.running_var, want_var)):
+        err, bar, ok = held(got, want, 2e-2)
+        check(ok, f"EmbeddingModel BatchNorm {what}: {err} > {bar}")
+    print(f"EmbeddingModel({CONVNEXT}, {EMBED_DIM}) bf16: eval embeddings "
+          f"{tuple(out.shape)} finite, {EMBED_LAUNCHES} launches; a training "
+          f"pass on {n} images moved the BatchNorm's running statistics by the "
+          f"momentum rule ok", flush=True)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 31))
+    all_phases = list(range(2, 34))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 30",
+            print("chip_smoke: --phases takes numbers from 2 to 33",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -4022,6 +4471,23 @@ def main(argv) -> int:
                      f"step at 512x512 (delta and two launches, counted as "
                      f"one); 'sam_global': {FLASH_SAM_SHAPE}; operands out "
                      f"of L2")}
+        reports["ln_dense"] = {
+            "name": "ln_dense", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/ln_dense.cu",
+            "replaces": "tfimm_tpu/ops/pallas/ln_dense.py:84",
+            "work": (f"bf16 (M, C, O) = {LN_DENSE_TRAIN[0]}: ViT-B/16's LN1 "
+                     f"-> qkv at training bs64 (row statistics and the GEMM, "
+                     f"two launches counted as one); 'shapes': LN2 -> fc1 and "
+                     f"serving bs128; operands out of L2")}
+        reports["ln_dense_bwd"] = {
+            "name": "ln_dense_bwd", "route": "cuda",
+            "source": "tfimm_tpu_torch/csrc/ln_dense.cu",
+            "replaces": "tfimm_tpu/ops/pallas/ln_dense.py:139",
+            "work": (f"bf16 (M, C, O) = {LN_DENSE_TRAIN[0]}: the backward of "
+                     f"ViT-B/16's LN1 -> qkv at bs64 (_bwd_dx_call at :139 "
+                     f"and _bwd_dw_call at :211: dx, dgamma, dbeta, dW and "
+                     f"db in seven launches counted as one); 'shapes': LN2 "
+                     f"-> fc1; operands out of L2")}
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
@@ -4072,6 +4538,9 @@ def main(argv) -> int:
             28: lambda: phase_vit512_slice(reports, gpu_line),
             29: lambda: phase_vit512_train(reports, gpu_line),
             30: lambda: phase_float16(reports, gpu_line),
+            31: lambda: phase_ln_dense_kernel(reports, gpu_line),
+            32: lambda: phase_ln_dense_vit(reports, gpu_line),
+            33: lambda: phase_models_api(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()
@@ -4089,7 +4558,7 @@ def main(argv) -> int:
             continue   # a kernel the chosen phases did not measure
         entry = {k: report[k] for k in keys}
         for extra in ("cublas_floor_ms", "windowed", "default_path_ms",
-                      "sam_global"):
+                      "sam_global", "eager_ms", "shapes", "vit_blocks"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

@@ -37,7 +37,10 @@ relative to the row's max) and 1e-5 * max|plain| in f32, the lse within
 max|plain| in bf16 (the kernel rounds p and ds to bf16 before their
 products) and 1e-4 * max|plain| in f32 (sums in another order); at N = 1,
 where dq and dk are 0, both versions' rounding noise within 1e-4 *
-max|dv|. float16
+max|dv|. ln_dense: the output and dx within 2e-2 * max|plain| in bf16
+(a rounding of z, y or dx may land on the other side) and 1e-5 in f32;
+dgamma, dbeta, dW and db, which sum over every row, within 2e-2 and 1e-4.
+float16
 models (no kernel takes f16): logits within 5e-2 of max|f32| of the same
 weights, with no launch.
 """
@@ -82,6 +85,13 @@ from tfimm_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_packed,
     flash_attention_reference,
     flash_attention_with_lse,
+)
+from tfimm_tpu_torch.ops.kernels.ln_dense import (
+    ln_dense,
+    ln_dense_bwd,
+    ln_dense_bwd_reference,
+    ln_dense_or_none,
+    ln_dense_reference,
 )
 from tfimm_tpu_torch.ops.kernels.fused_mha import (
     fused_mha,
@@ -1182,6 +1192,105 @@ def test_vit_attention_routes_by_length_on_the_card(card):
         assert dispatch.launch_counts == {**before, fwd: before[fwd] + 1,
                                           bwd: before[bwd] + 1}
         assert bool(torch.isfinite(x.grad).all())
+
+
+# -- ln_dense -----------------------------------------------------------------
+# (M, C, O, bias): ViT-B/16's LN1 -> qkv and LN2 -> fc1 with M cut to a few
+# images, ViT-L's C = 1024, C = 96 with O = 40 and no bias (which the TPU
+# declines), C = 100 (element copies in bf16), a C that needs the 16-row dx
+# block, and M = 1.
+LN_DENSE_SHAPES = [(394, 768, 2304, True), (394, 768, 3072, True),
+                   (197, 1024, 3072, True), (197, 96, 40, False),
+                   (130, 100, 36, True), (40, 3072, 64, True),
+                   (1, 768, 256, True)]
+
+
+def _ln_dense_inputs(m, c, o, bias, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device=device) * scale + shift
+
+    return (rnd(m, c, scale=2.0, shift=0.5).to(dtype),
+            rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+            rnd(o, c, scale=c ** -0.5).to(dtype),
+            rnd(o, scale=0.1) if bias else None, rnd(m, o).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("m,c,o,bias", LN_DENSE_SHAPES)
+def test_ln_dense_kernel_matches_plain(card, m, c, o, bias, dtype, tol):
+    x, gamma, beta, w, b, _ = _ln_dense_inputs(m, c, o, bias, dtype, card,
+                                               m + c + o)
+    before = dispatch.launch_counts["ln_dense"]
+    got = ln_dense(x, gamma, beta, w, b, eps=1e-6)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["ln_dense"] == before + 1
+    _held_by(got, ln_dense_reference(x, gamma, beta, w, b, 1e-6), tol)
+
+
+@pytest.mark.parametrize("dtype,tol,sum_tol", [(torch.bfloat16, 2e-2, 2e-2),
+                                               (torch.float32, 1e-5, 1e-4)])
+@pytest.mark.parametrize("m,c,o,bias", LN_DENSE_SHAPES)
+def test_ln_dense_bwd_kernel_matches_plain(card, m, c, o, bias, dtype, tol,
+                                           sum_tol):
+    x, gamma, beta, w, _, gy = _ln_dense_inputs(m, c, o, bias, dtype, card,
+                                                m + c + o + 1)
+    before = dispatch.launch_counts["ln_dense_bwd"]
+    got = ln_dense_bwd(x, gamma, beta, w, gy, bias, 1e-6)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["ln_dense_bwd"] == before + 1
+    want = ln_dense_bwd_reference(x, gamma, beta, w, gy, bias, 1e-6)
+    assert (got[4] is None) == (not bias)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is not None:
+            assert a.dtype == b.dtype and a.shape == b.shape
+            _held_by(a, b, tol if i == 0 else sum_tol)
+
+
+def test_ln_dense_bwd_repeats_bit_for_bit(card):
+    args = _ln_dense_inputs(394, 768, 2304, True, torch.bfloat16, card, 7)
+    x, gamma, beta, w, _, gy = args
+    first = ln_dense_bwd(x, gamma, beta, w, gy, True, 1e-6)
+    second = ln_dense_bwd(x, gamma, beta, w, gy, True, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ln_dense_gives_gradients_through_the_kernels(card):
+    x, gamma, beta, w, b, gy = _ln_dense_inputs(2 * 197, 768, 2304, True,
+                                                torch.bfloat16, card, 9)
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta, w, b)]
+    counts = dict(dispatch.launch_counts)
+    y = ln_dense_or_none(leaves[0].view(2, 197, 768), *leaves[1:], eps=1e-6)
+    assert y.shape == (2, 197, 2304)
+    y.backward(gy.view(2, 197, 2304))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["ln_dense"] == counts["ln_dense"] + 1
+    assert dispatch.launch_counts["ln_dense_bwd"] == counts["ln_dense_bwd"] + 1
+    want = ln_dense_bwd_reference(x, gamma, beta, w, gy, True, 1e-6)
+    for leaf, ref in zip(leaves, want):
+        _held_by(leaf.grad, ref, 2e-2)
+
+
+def test_ln_dense_refuses_what_it_does_not_take(card):
+    x, gamma, beta, w, b, gy = _ln_dense_inputs(8, 96, 40, True,
+                                                torch.float32, card, 11)
+    with pytest.raises(ValueError):
+        ln_dense(x.half(), gamma, beta, w.half(), b)
+    with pytest.raises(ValueError):
+        ln_dense(x[:, ::2], gamma[:48], beta[:48], w[:, :48], b)
+    with pytest.raises(ValueError):
+        ln_dense(x, gamma, beta, w.t().contiguous(), b)
+    with pytest.raises(ValueError):
+        ln_dense(x, gamma.cpu(), beta, w, b)
+    wide = torch.zeros(2, 4096, device=card)
+    with pytest.raises(ValueError):
+        ln_dense(wide, torch.ones(4096, device=card),
+                 torch.zeros(4096, device=card),
+                 torch.zeros(8, 4096, device=card), None)
+    with pytest.raises(ValueError):
+        ln_dense_bwd(x, gamma, beta, w, gy[:, :8])
 
 
 # -- float16 models take their plain paths (no f16 kernel) -------------------

@@ -71,7 +71,7 @@ def test_layer_norm_one_pass_variance():
     _close(tl(torch.from_numpy(x)).detach(), jl(p, jnp.asarray(x)))
     assert isinstance(tl, LayerNorm) and tl.eps == 1e-6
     with pytest.raises(NotImplementedError):
-        norm_layer_factory("batch_norm")
+        norm_layer_factory("affine")
 
 
 def test_gelu_policy(monkeypatch):

@@ -839,7 +839,7 @@ def test_what_is_not_ported_raises(small_vit, monkeypatch):
             ttrain.get_class(name)
     with pytest.raises(KeyError):
         ttrain.get_class("NoSuchClass")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         ttrain.Trainer(None, None, None, tk,
                        ttrain.TrainerConfig(ckpt_dir="ckpt"))
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -13,6 +13,11 @@ each kernel wrapper runs its plain PyTorch version.
                                   dtype=torch.bfloat16, device="cuda")
     logits = model.predict(pp(images_uint8_nhwc))
 
+    tfm.save_model(model, "vit_dir")           # the JAX package's format
+    model = tfm.load_model("vit_dir", device="cuda")
+    big = tfm.create_model("vit_base_patch16_224", model_path="vit_dir",
+                           input_size=(384, 384), device="cuda")
+
 This package imports ``torch`` and never ``jax`` or ``tfimm_tpu``.
 """
 
@@ -20,6 +25,7 @@ from tfimm_tpu_torch.models.config import ModelConfig  # noqa: F401
 from tfimm_tpu_torch.models.registry import (  # noqa: F401
     is_model,
     list_models,
+    list_modules,
     model_class,
     model_config,
     register_model,
@@ -27,9 +33,26 @@ from tfimm_tpu_torch.models.registry import (  # noqa: F401
 from tfimm_tpu_torch.models.factory import (  # noqa: F401
     create_model,
     create_preprocessing,
+    transfer_weights,
 )
 from tfimm_tpu_torch.models.base import Model  # noqa: F401
-from tfimm_tpu_torch.utils.convert import state_dict_from_jax  # noqa: F401
+from tfimm_tpu_torch.models.serialization import (  # noqa: F401
+    load_model,
+    save_model,
+)
+from tfimm_tpu_torch.models.embedding import EmbeddingModel  # noqa: F401
+from tfimm_tpu_torch.utils.cache import (  # noqa: F401
+    cached_model_path,
+    clear_model_cache,
+    get_dir,
+    list_cached_models,
+    set_dir,
+    set_model_cache,
+)
+from tfimm_tpu_torch.utils.convert import (  # noqa: F401
+    jax_from_state_dict,
+    state_dict_from_jax,
+)
 
 # Architectures register themselves with the model registry at import time.
 import tfimm_tpu_torch.architectures  # noqa: F401, E402

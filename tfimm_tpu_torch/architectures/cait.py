@@ -85,6 +85,10 @@ class CaiTConfig(ModelConfig):
     def nb_patches(self) -> int:
         return self.grid_size[0] * self.grid_size[1]
 
+    @property
+    def transform_weights(self):
+        return {"pos_embed": CaiT.transform_pos_embed}
+
 
 def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
     """The scale rounded to ``dtype``, as JAX rounds a Python float that
@@ -255,6 +259,8 @@ class LayerScaleBlockClassAttention(nn.Module):
 
 
 class CaiT(Model):
+    cfg_class = CaiTConfig
+
     def __init__(self, cfg: CaiTConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)
@@ -280,6 +286,15 @@ class CaiT(Model):
         self.norm = norm_layer_factory(cfg.norm_layer)(d)
         self.head = (Dense(d, cfg.nb_classes, generator=g)
                      if cfg.nb_classes > 0 else None)
+
+    def transform_pos_embed(self, weight: torch.Tensor,
+                            target_cfg: CaiTConfig) -> torch.Tensor:
+        """The weight-transfer hook: the position table (no class token:
+        CaiT adds it only before the class-attention stage) resized to
+        ``target_cfg``'s grid."""
+        return interpolate_pos_embeddings(
+            weight, src_grid=self.cfg.grid_size, dst_grid=target_cfg.grid_size,
+            nb_tokens=0)
 
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

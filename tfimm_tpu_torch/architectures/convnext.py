@@ -193,6 +193,8 @@ class ConvNeXtStage(nn.Module):
 
 
 class ConvNeXt(Model):
+    cfg_class = ConvNeXtConfig
+
     def __init__(self, cfg: ConvNeXtConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)

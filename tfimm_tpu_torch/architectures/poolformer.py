@@ -119,6 +119,8 @@ class PoolFormerBlock(nn.Module):
 
 
 class PoolFormer(Model):
+    cfg_class = PoolFormerConfig
+
     def __init__(self, cfg: PoolFormerConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)

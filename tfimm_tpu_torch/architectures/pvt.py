@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -86,6 +87,12 @@ class PyramidVisionTransformerConfig(ModelConfig):
     @property
     def nb_patches(self) -> Tuple:
         return tuple(g[0] * g[1] for g in self.grid_size)
+
+    @property
+    def transform_weights(self):
+        return {f"pos_embed{j + 1}": partial(
+                    PyramidVisionTransformer.transform_pos_embed, stage=j)
+                for j in range(len(self.nb_blocks))}
 
 
 class SpatialReductionAttention(nn.Module):
@@ -188,6 +195,8 @@ class PVTBlock(nn.Module):
 
 
 class PyramidVisionTransformer(Model):
+    cfg_class = PyramidVisionTransformerConfig
+
     def __init__(self, cfg: PyramidVisionTransformerConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)
@@ -217,6 +226,15 @@ class PyramidVisionTransformer(Model):
         self.norm = norm_layer_factory(cfg.norm_layer)(self.nb_features)
         self.head = (Dense(self.nb_features, cfg.nb_classes, generator=g)
                      if cfg.nb_classes > 0 else None)
+
+    def transform_pos_embed(self, weight: torch.Tensor,
+                            target_cfg: PyramidVisionTransformerConfig,
+                            stage: int) -> torch.Tensor:
+        """The weight-transfer hook of stage ``stage``'s position table."""
+        return interpolate_pos_embeddings(
+            weight, src_grid=self.cfg.grid_size[stage],
+            dst_grid=target_cfg.grid_size[stage],
+            nb_tokens=self.cfg.nb_tokens[stage])
 
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

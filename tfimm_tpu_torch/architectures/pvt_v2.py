@@ -123,6 +123,8 @@ class PVTv2Block(nn.Module):
 
 
 class PyramidVisionTransformerV2(Model):
+    cfg_class = PyramidVisionTransformerV2Config
+
     def __init__(self, cfg: PyramidVisionTransformerV2Config, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)

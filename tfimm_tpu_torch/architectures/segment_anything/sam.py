@@ -7,10 +7,12 @@ masks, as the JAX package's does. Parameter names are Meta's, so the JAX
 package's parameters load through ``state_dict_from_jax``. The image
 encoder's attention runs the ``flash_attention_relpos`` kernel on the card
 (see ``image_encoder.py``); the rest is plain PyTorch in both packages.
+The config's ``transform_weights`` resizes the position embedding and the
+global blocks' rel-pos tables when ``transfer_weights`` moves the weights
+to another input size.
 
-Not ported here: the resolution transfer of ``transform_weights`` (it comes
-with ``transfer_weights``, ROADMAP.md queue A, item 12) and the automatic
-mask generator (``amg.py``, queue A, item 2).
+Not ported here: the automatic mask generator (``amg.py``, ROADMAP.md
+queue A).
 
 Paper: Segment Anything, https://arxiv.org/abs/2304.02643.
 """
@@ -18,6 +20,7 @@ Paper: Segment Anything, https://arxiv.org/abs/2304.02643.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -79,8 +82,34 @@ class SegmentAnythingModelConfig(ModelConfig):
     std: Tuple[float, float, float] = IMAGENET_DEFAULT_STD
     first_conv: str = "image_encoder.patch_embed.proj"
 
+    @property
+    def transform_weights(self):
+        transforms = {"image_encoder.pos_embed": _transform_pos_embed}
+        for j in self.encoder_global_attn_indices:
+            prefix = f"image_encoder.blocks.{j}.attn.rel_pos"
+            transforms[prefix + "_h"] = partial(_transform_rel_pos, axis=0)
+            transforms[prefix + "_w"] = partial(_transform_rel_pos, axis=1)
+        return transforms
+
+
+def _transform_rel_pos(model, rel_pos, target_cfg, axis: int):
+    """A global block's rel-pos table resized (bilinear, as
+    ``jax.image.resize``) to ``target_cfg``'s grid along ``axis``."""
+    grid_dim = target_cfg.input_size[axis] // target_cfg.encoder_patch_size
+    return resize_linear(rel_pos.float(), (2 * grid_dim - 1, rel_pos.shape[1]))
+
+
+def _transform_pos_embed(model, pos_embed, target_cfg):
+    """The (1, gh, gw, D) position embedding resized (bilinear) to
+    ``target_cfg``'s grid."""
+    grid = (target_cfg.input_size[0] // target_cfg.encoder_patch_size,
+            target_cfg.input_size[1] // target_cfg.encoder_patch_size)
+    return resize_linear(pos_embed.float(), (1, *grid, pos_embed.shape[-1]))
+
 
 class SegmentAnythingModel(Model):
+    cfg_class = SegmentAnythingModelConfig
+
     def __init__(self, cfg: SegmentAnythingModelConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)

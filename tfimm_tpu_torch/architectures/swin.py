@@ -428,6 +428,8 @@ class SwinTransformerStage(nn.Module):
 
 
 class SwinTransformer(Model):
+    cfg_class = SwinTransformerConfig
+
     def __init__(self, cfg: SwinTransformerConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)

@@ -65,6 +65,7 @@ class ViTConfig(ModelConfig):
     interpolation: str = "bicubic"
     mean: Tuple[float, float, float] = IMAGENET_INCEPTION_MEAN
     std: Tuple[float, float, float] = IMAGENET_INCEPTION_STD
+    first_conv: str = "patch_embed.proj"
     classifier: Union[str, Tuple[str, str]] = "head"
 
     @property
@@ -79,6 +80,10 @@ class ViTConfig(ModelConfig):
     @property
     def nb_patches(self) -> int:
         return self.grid_size[0] * self.grid_size[1]
+
+    @property
+    def transform_weights(self):
+        return {"pos_embed": ViT.transform_pos_embed}
 
 
 class ViTBlock(nn.Module):
@@ -113,6 +118,8 @@ class ViTBlock(nn.Module):
 
 
 class ViT(Model):
+    cfg_class = ViTConfig
+
     def __init__(self, cfg: ViTConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)

@@ -77,41 +77,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 row_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
                  float* __restrict__ rstd, int m, int c, float eps, int vec) {
-  constexpr int V = vec_len<T>();
   const int64_t row = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
   if (row >= m) return;
-  const T* xr = x + row * c;
-  float s = 0.f, ss = 0.f;
-  if (vec) {
-    for (int k = lane * V; k < c; k += 32 * V) {
-      Chunk<T> ch;
-      ch.u = *reinterpret_cast<const uint4*>(xr + k);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float v = ch.get(j);
-        s += v;
-        ss += v * v;
-      }
-    }
-  } else {
-    for (int k = lane; k < c; k += 32) {
-      const float v = to_f(xr[k]);
-      s += v;
-      ss += v * v;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  }
-  if (lane == 0) {
-    const float mu = s / (float)c;
-    const float var = fmaxf(ss / (float)c - mu * mu, 0.f);
-    mean[row] = mu;
-    rstd[row] = rsqrtf(var + eps);
-  }
+  row_stats_warp<T>(x + row * c, c, eps, vec, threadIdx.x % 32, mean + row,
+                    rstd + row);
 }
 
 // ---------------------------------------------------------------------------

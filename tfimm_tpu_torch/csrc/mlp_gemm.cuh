@@ -1,4 +1,5 @@
-// The MLP GEMM tiles shared by convnext_mlp.cu and convnext_block.cu: a
+// The MLP GEMM tiles shared by convnext_mlp.cu, convnext_block.cu and
+// ln_dense.cu (its forward): a
 // tiled "A row-major times B row-major transposed" product, out = epi(A @
 // B^T), with an optional LayerNorm prologue on the A tiles. See the note at
 // the top of convnext_mlp.cu for the tiling. Every function here is inline
@@ -11,7 +12,8 @@
 // statistics, rounded to the dtype (0 outside the matrix).
 // Epilogues (Epi): kGeluErf and kGeluTanh give gelu(acc + bias) in f32,
 // rounded to the dtype; kResidual gives shortcut + gamma * (acc + bias) in
-// f32, rounded once.
+// f32, rounded once; kBias gives acc + bias in f32 (acc alone where bias is
+// NULL), rounded once.
 
 #pragma once
 
@@ -23,7 +25,7 @@ namespace cnx {
 
 constexpr int kThreads = 256;
 
-enum Epi { kGeluErf = 0, kGeluTanh = 1, kResidual = 2 };
+enum Epi { kGeluErf = 0, kGeluTanh = 1, kResidual = 2, kBias = 3 };
 
 struct GemmArgs {
   const void* a;         // (M, K): x (LN prologue), z or h
@@ -34,7 +36,7 @@ struct GemmArgs {
   const float* rstd;     // LN prologue: (M,)
   const float* ln_w;     // LN prologue: (K,)
   const float* ln_b;     // LN prologue: (K,)
-  const float* bias;     // (N,)
+  const float* bias;     // (N,); kBias: may be NULL
   const float* gamma;    // kResidual: (N,)
   int m, n, k;           // output rows, output columns, depth
   int vec;               // 16-byte loads of A and B allowed
@@ -100,6 +102,47 @@ __device__ __forceinline__ float gelu_tanh(float s) {
   return 0.5f * s * (1.f + tanhf(u));
 }
 
+// One row's LayerNorm statistics, by the 32 lanes of a warp: the f32 mean
+// and rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps), the one-pass variance of
+// the JAX package's LayerNorm. vec: 16-byte loads (c % vec_len == 0 and x
+// 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void row_stats_warp(const T* __restrict__ xr, int c,
+                                               float eps, int vec, int lane,
+                                               float* mean, float* rstd) {
+  constexpr int V = vec_len<T>();
+  float s = 0.f, ss = 0.f;
+  if (vec) {
+    for (int k = lane * V; k < c; k += 32 * V) {
+      Chunk<T> ch;
+      ch.u = *reinterpret_cast<const uint4*>(xr + k);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float v = ch.get(j);
+        s += v;
+        ss += v * v;
+      }
+    }
+  } else {
+    for (int k = lane; k < c; k += 32) {
+      const float v = to_f(xr[k]);
+      s += v;
+      ss += v * v;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  }
+  if (lane == 0) {
+    const float mu = s / (float)c;
+    const float var = fmaxf(ss / (float)c - mu * mu, 0.f);
+    *mean = mu;
+    *rstd = rsqrtf(var + eps);
+  }
+}
+
 // Load vec_len<T>() consecutive elements (row, k .. k + V - 1) of a
 // row-major (rows, depth) matrix; zeros outside it.
 template <typename T>
@@ -148,6 +191,8 @@ __device__ __forceinline__ void store_out(const GemmArgs& p, int row, int col,
     v = gelu_erf(acc + __ldg(p.bias + col));
   } else if (E == kGeluTanh) {
     v = gelu_tanh(acc + __ldg(p.bias + col));
+  } else if (E == kBias) {
+    v = p.bias ? acc + __ldg(p.bias + col) : acc;
   } else {
     const T sc = static_cast<const T*>(p.shortcut)[off];
     v = to_f(sc) + __ldg(p.gamma + col) * (acc + __ldg(p.bias + col));

@@ -16,3 +16,10 @@ class ModelConfig:
     nb_classes: int = 1000
     in_channels: int = 3
     input_size: Tuple[int, int] = (224, 224)
+
+    @property
+    def transform_weights(self):
+        """dict: state-dict key -> fn(src_model, weight, dst_cfg), the hooks
+        ``transfer_weights`` runs for shape-dependent weights (e.g. a
+        position embedding at another input size)."""
+        return {}

@@ -11,15 +11,16 @@ import fnmatch
 import sys
 from collections import defaultdict
 from copy import deepcopy
-from typing import Callable, Dict, List, Set, Tuple, Union
+from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
-__all__ = ["register_model", "list_models", "is_model", "model_class",
-           "model_config"]
+__all__ = ["register_model", "list_models", "list_modules", "is_model",
+           "model_class", "model_config", "architecture_class"]
 
 _model_class: Dict[str, type] = {}
 _model_config: Dict[str, object] = {}
 _model_module: Dict[str, str] = {}
 _module_to_models: Dict[str, Set[str]] = defaultdict(set)
+_class_by_name: Dict[str, type] = {}  # architecture class name -> class
 
 
 def register_model(fn: Callable[[], Tuple[type, object]]):
@@ -42,6 +43,7 @@ def register_model(fn: Callable[[], Tuple[type, object]]):
     _model_config[name] = deepcopy(cfg)
     _model_module[name] = module_name
     _module_to_models[module_name].add(name)
+    _class_by_name[cls.__name__] = cls
     return fn
 
 
@@ -81,6 +83,10 @@ def list_models(
     return models
 
 
+def list_modules() -> List[str]:
+    return sorted(m for m, models in _module_to_models.items() if models)
+
+
 def is_model(name: str) -> bool:
     return name in _model_class
 
@@ -95,3 +101,8 @@ def model_config(name: str):
     if name not in _model_config:
         raise KeyError(f"Unknown model: {name}")
     return deepcopy(_model_config[name])
+
+
+def architecture_class(class_name: str) -> Optional[type]:
+    """Look up an architecture class by its Python class name (serialization)."""
+    return _class_by_name.get(class_name)

@@ -9,5 +9,10 @@ from tfimm_tpu_torch.ops.embed import (  # noqa: F401
     interpolate_pos_embeddings,
     interpolate_pos_embeddings_grid,
 )
+from tfimm_tpu_torch.ops.kernels.ln_dense import (  # noqa: F401
+    ln_dense,
+    ln_dense_diff,
+    ln_dense_or_none,
+)
 from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP  # noqa: F401
 from tfimm_tpu_torch.ops.norm import LayerNorm, norm_layer_factory  # noqa: F401

@@ -6,3 +6,8 @@ from tfimm_tpu_torch.ops.kernels.fused_mha import (  # noqa: F401
     fused_mha_or_none,
     fused_mha_reference,
 )
+from tfimm_tpu_torch.ops.kernels.ln_dense import (  # noqa: F401
+    ln_dense,
+    ln_dense_diff,
+    ln_dense_or_none,
+)

@@ -249,6 +249,32 @@ def _declare(lib):
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_flash_attention_bwd.restype = ctypes.c_int
+    lib.tfimm_ln_dense_fwd.argtypes = [
+        ctypes.c_void_p,  # x (M, C)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 gamma, beta
+        ctypes.c_void_p, ctypes.c_void_p,  # w (O, C), f32 bias or NULL
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch mean, rstd (M,)
+        ctypes.c_void_p,  # out (M, O)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, C, O
+        ctypes.c_float, ctypes.c_int,  # eps, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_ln_dense_fwd.restype = ctypes.c_int
+    lib.tfimm_ln_dense_bwd.argtypes = [
+        ctypes.c_void_p,  # x (M, C)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 gamma, beta
+        ctypes.c_void_p, ctypes.c_void_p,  # w (O, C), g (M, O)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch mean, rstd (M,)
+        ctypes.c_void_p,  # dx (M, C)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch partials, f32 out (2, C)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch dW, db partials
+        ctypes.c_void_p, ctypes.c_void_p,  # dw (O, C), f32 db (O,)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, C, O
+        ctypes.c_int, ctypes.c_int,  # dx block rows, dW row slices
+        ctypes.c_float, ctypes.c_int,  # eps, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tfimm_ln_dense_bwd.restype = ctypes.c_int
     return lib
 
 

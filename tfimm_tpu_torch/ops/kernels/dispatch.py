@@ -36,7 +36,8 @@ launch_counts = {"fused_mha": 0, "fused_mha_bwd": 0, "convnext_mlp": 0,
                  "talking_head_attention": 0, "talking_head_attention_bwd": 0,
                  "flash_attention_relpos": 0, "flash_attention_relpos_bwd": 0,
                  "pvt_sra": 0, "poolformer_block": 0, "convnext_block": 0,
-                 "flash_attention": 0, "flash_attention_bwd": 0}
+                 "flash_attention": 0, "flash_attention_bwd": 0,
+                 "ln_dense": 0, "ln_dense_bwd": 0}
 
 
 def count_launch(name: str) -> None:

@@ -1,10 +1,10 @@
-"""LayerNorm, GroupNorm and the norm factory; mirror of
+"""LayerNorm, GroupNorm, BatchNorm and the norm factory; mirror of
 tfimm_tpu/ops/norm.py.
 
 Statistics and the affine transform run in float32 whatever the input
 dtype. LayerNorm's variance is the one-pass ``max(E[x^2] - E[x]^2, 0)`` of
-the JAX layer, GroupNorm's the two-pass ``mean((x - mean)^2)`` of its JAX
-layer, so both packages round alike.
+the JAX layer, GroupNorm's and BatchNorm's the two-pass
+``mean((x - mean)^2)`` of their JAX layers, so both packages round alike.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-__all__ = ["LayerNorm", "GroupNorm", "norm_layer_factory"]
+from tfimm_tpu_torch.core import current_context
+
+__all__ = ["LayerNorm", "GroupNorm", "BatchNorm", "norm_layer_factory"]
 
 
 class LayerNorm(nn.Module):
@@ -61,6 +63,53 @@ class GroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class BatchNorm(nn.Module):
+    """Batch norm over all axes but the last (NHWC / NC). Parameters:
+    weight (the JAX scale, with ``use_scale``) and bias (``use_bias``);
+    buffers running_mean and running_var (the JAX mean and var).
+
+    When the forward's context trains, the batch's f32 statistics
+    normalise, and the running statistics are updated in place:
+    ``momentum * running + (1 - momentum) * batch``, the variance by its
+    unbiased estimator (the JAX layer records the same update on its
+    context, PyTorch's semantics). Otherwise the running statistics
+    normalise.
+    """
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9,
+                 use_scale: bool = True, use_bias: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.momentum = momentum  # decay of the running statistic
+        self.weight = nn.Parameter(torch.ones(dim)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if current_context().training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(dim=axes)
+            var = (x32 - mean).square().mean(dim=axes)
+            n = x32.numel() // self.dim
+            unbiased = var * (n / max(n - 1, 1))
+            m = self.momentum
+            with torch.no_grad():
+                for buf, stat in ((self.running_mean, mean),
+                                  (self.running_var, unbiased)):
+                    buf.copy_(m * buf + (1 - m) * stat.to(buf.dtype))
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
 def norm_layer_factory(norm_layer: str):
     """String -> norm layer constructor taking ``dim``."""
     if norm_layer == "layer_norm":
@@ -71,6 +120,10 @@ def norm_layer_factory(norm_layer: str):
         return lambda dim: GroupNorm(dim)
     if norm_layer == "group_norm_1grp":
         return lambda dim: GroupNorm(dim, nb_groups=1)
+    if norm_layer == "batch_norm":
+        return lambda dim: BatchNorm(dim, eps=1e-5, momentum=0.9)
+    if norm_layer == "batch_norm_tf":
+        return lambda dim: BatchNorm(dim, eps=1e-3, momentum=0.9)
     raise NotImplementedError(
         f"Normalization layer {norm_layer!r} is not ported yet; it comes "
         f"with the families that use it (ROADMAP.md, queue A)")

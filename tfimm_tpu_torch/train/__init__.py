@@ -4,7 +4,7 @@ Importing this package registers all @cfg_serializable classes, under the
 JAX package's class names. Entry point: ``run(ExperimentConfig)`` ->
 ``Trainer`` -> ``ClassificationProblem.train_step``. Distillation, the
 TFDS/Grain/ImageFolder pipelines and checkpoints are not ported yet
-(ROADMAP.md, queue A, items 12 and 13).
+(ROADMAP.md, queue A, item 13).
 """
 
 from tfimm_tpu_torch.train.config import (  # noqa: F401

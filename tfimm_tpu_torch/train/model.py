@@ -1,8 +1,8 @@
 """Model factories for the training framework; mirror of tfimm_tpu/train/model.py.
 
 ``ModelFactory`` builds a registered model and its preprocessing on the
-device it is given. ``SavedModel`` and ``EmbeddingModelFactory`` wait for
-save/load and ``EmbeddingModel`` (ROADMAP.md, queue A, item 12).
+device it is given. ``SavedModel`` and ``EmbeddingModelFactory`` are not
+ported yet (ROADMAP.md, queue A, item 13).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ problem owns (the JAX package draws them with ``jax.random`` in its step).
 
 The problem runs on the device it is given; a CUDA device without a card
 raises, there is no CPU fallback. Meshes and ``save_model`` are not ported
-yet (ROADMAP.md, queue A, items 14 and 12).
+yet (ROADMAP.md, queue A, items 14 and 13).
 """
 
 from __future__ import annotations
@@ -200,4 +200,4 @@ class ClassificationProblem(ProblemBase):
 
     def save_model(self, save_dir: str):
         raise NotImplementedError(
-            "save_model waits for save/load (ROADMAP.md, queue A, item 12)")
+            "save_model is not ported yet (ROADMAP.md, queue A, item 13)")

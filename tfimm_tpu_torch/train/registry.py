@@ -33,10 +33,9 @@ def cfg_serializable(cls):
 _NOT_PORTED = {
     **dict.fromkeys(("DistillationProblem", "DistillationConfig", "TFDSWrapper",
                      "TFDSConfig", "GrainDataset", "GrainDatasetConfig",
-                     "ImageFolderDataset", "ImageFolderConfig"),
-                    "queue A, item 13"),
-    **dict.fromkeys(("SavedModel", "SavedModelConfig", "EmbeddingModelFactory",
-                     "EmbeddingModelConfig"), "queue A, item 12"),
+                     "ImageFolderDataset", "ImageFolderConfig", "SavedModel",
+                     "SavedModelConfig", "EmbeddingModelFactory",
+                     "EmbeddingModelConfig"), "queue A, item 13"),
 }
 
 

@@ -3,7 +3,7 @@
 The problem owns the training step; the trainer owns the epoch/step loop,
 the validation cadence, throughput logging (img/s per epoch) and metric
 forwarding. Checkpoints (``ckpt_dir``, ``init_ckpt``; orbax in the JAX
-package) raise until save/load is ported (ROADMAP.md, queue A, item 12).
+package) raise until they are ported (ROADMAP.md, queue A, item 13).
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ class Trainer:
         self.log_wandb = log_wandb
         if cfg.ckpt_dir or cfg.init_ckpt:
             raise NotImplementedError(
-                "ckpt_dir / init_ckpt: checkpoints wait for save/load "
-                "(ROADMAP.md, queue A, item 12)")
+                "ckpt_dir / init_ckpt: checkpoints are not ported yet "
+                "(ROADMAP.md, queue A, item 13)")
 
     # -- loop -------------------------------------------------------------------
     def train(self):

@@ -1,4 +1,4 @@
-"""Parameter-tree conversion from the JAX package to this package.
+"""Parameter-tree conversion between the JAX package and this package.
 
 ``state_dict_from_jax`` is the inverse of the JAX package's timm conversion
 (``tfimm_tpu/utils/pt_convert.py``): both packages name parameters after
@@ -15,7 +15,8 @@ leaf rename, plus a layout transpose for ``kernel`` leaves:
     var    -> running_var
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts, so this
-module needs no JAX.
+module needs no JAX. ``jax_from_state_dict`` goes the other way, naming
+each leaf by the module that holds it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "jax_from_state_dict"]
 
 _LEAF_RENAMES = {
     "kernel": "weight",
@@ -64,4 +65,50 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         leaf = _LEAF_RENAMES.get(leaf, leaf)
         key = f"{head}.{leaf}" if head else leaf
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def _jax_leaf(module, name: str):
+    """(JAX leaf name, layout permutation or None) of ``module``'s tensor
+    ``name``: the inverse of ``state_dict_from_jax``'s rules, decided by the
+    module's type."""
+    from tfimm_tpu_torch.ops.basic import Dense
+    from tfimm_tpu_torch.ops.conv import Conv2d, ConvTranspose2d, DepthwiseConv2d
+    from tfimm_tpu_torch.ops.norm import BatchNorm, GroupNorm, LayerNorm
+
+    if name == "weight":
+        if isinstance(module, Dense):
+            return "kernel", (1, 0)
+        if isinstance(module, (Conv2d, DepthwiseConv2d)):
+            return "kernel", (2, 3, 1, 0)   # OIHW -> HWIO
+        if isinstance(module, ConvTranspose2d):
+            return "kernel", _CONV_TRANSPOSE_KERNEL   # (I, O, kh, kw) -> (kh, kw, I, O)
+        if isinstance(module, (LayerNorm, GroupNorm, BatchNorm)):
+            return "scale", None
+    if isinstance(module, BatchNorm) and name in ("running_mean", "running_var"):
+        return name[len("running_"):], None
+    return name, None
+
+
+def jax_from_state_dict(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters and persistent buffers as the JAX package's
+    flattened parameter paths, in the JAX layouts, as numpy arrays (bf16 as
+    float32, which numpy holds exactly)."""
+    persistent = model.state_dict(keep_vars=True)
+    out = {}
+    for prefix, module in model.named_modules():
+        tensors = dict(module.named_parameters(recurse=False))
+        tensors.update(module.named_buffers(recurse=False))
+        for name, value in tensors.items():
+            key = f"{prefix}.{name}" if prefix else name
+            if key not in persistent:
+                continue   # a non-persistent buffer
+            leaf, perm = _jax_leaf(module, name)
+            t = value.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            arr = t.numpy()
+            if perm is not None:
+                arr = arr.transpose(perm)
+            out[f"{prefix}.{leaf}" if prefix else leaf] = np.ascontiguousarray(arr)
     return out

@@ -16,12 +16,15 @@ which ends the run with a non-zero exit code on failure:
    Kernel and plain times at the ViT-B shapes (CUDA events around 20
    back-to-back calls, median of 5 such runs after warm-up), and the time of the one PyTorch call that computes
    the same function, ``F.scaled_dot_product_attention`` (for the backward:
-   that call's backward alone), on the same q, k, v.
+   that call's backward alone), on the same q, k, v. The forward kernel and
+   SDPA also with their operands out of L2 (``cold_ms``), and the kernel's
+   share of the bound and ratio to SDPA both ways.
 3. The serving path: ``create_model("vit_base_patch16_224")`` in bf16 with
    seeded random weights answers 5 requests of 128 uint8 NHWC images through
    ``create_preprocessing`` and ``model.predict``. Every request must launch
    the fused_mha kernel once per block; outputs must be finite and agree
-   with the same weights run in f32 through the plain attention.
+   with the same weights run in f32 through the plain attention. Then a
+   ``torch.profiler`` split of one request's device time.
 4. The training path: ``tfimm_tpu_torch.train.run`` trains ViT-B/16 at batch
    64 in bf16 mixed precision with AdamW for 6 steps on one fixed synthetic
    batch. Every step must launch fused_mha and its backward once per block,
@@ -128,7 +131,9 @@ which ends the run with a non-zero exit code on failure:
    2e-2 and 1e-5 of the largest plain value. Control: the plain version
    without the bias must miss the bar by ``CONTROL_FACTOR`` at the global
    shape. Kernel, plain, bound times at the two SAM-B shapes, and
-   ``F.scaled_dot_product_attention`` with the bias as a float mask.
+   ``F.scaled_dot_product_attention`` with the bias as a float mask; the
+   kernel and SDPA also with their operands out of L2 (``cold_ms``), and
+   the kernel's share of the bound and ratio to SDPA both ways.
 16. The SAM serving path: ``create_model("sam_vit_b")`` in bf16 with seeded
    random weights (rel-pos tables and position embedding away from their
    zero init) behind a ``SAMPredictor``, which answers requests on three
@@ -638,7 +643,7 @@ def mha_input(b, n, h, d, dtype, seed, clamp=False):
     return x.reshape(b, n, 3 * h * d).to(dtype)
 
 
-def phase_kernels(report):
+def phase_kernels(report, gpu_line):
     import torch
     import torch.nn.functional as F
 
@@ -671,13 +676,32 @@ def phase_kernels(report):
                 report["bound_ms"], report["bound_by"] = bound(
                     2 * b * n * 4 * h * d, 4 * b * h * n * n * d)
                 q, k, v = heads(qkv, h)
-                report["library_ms"] = cuda_time_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+
+                def sdpa_call():
+                    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+                report["library_ms"] = cuda_time_ms(sdpa_call)
                 print(f"fused_mha bf16 {MHA_SHAPES[0]}: kernel "
                       f"{report['ms']!r} ms, plain {report['plain_ms']!r} ms, "
                       f"scaled_dot_product_attention {report['library_ms']!r} "
                       f"ms, bound {report['bound_ms']!r} ms "
                       f"({report['bound_by']})", flush=True)
+                print_shares("fused_mha", report,
+                             cold_ms(lambda: fused_mha(qkv, h, scale)),
+                             cold_ms(sdpa_call), gpu_line)
+
+
+def print_shares(name, times, kernel_cold_ms, library_cold_ms, gpu_line):
+    """A kernel's time back to back (``times["ms"]``, CUDA events around
+    back-to-back calls) and with its operands out of L2 (``cold_ms``), each
+    as a share of the bound and as a ratio to the library call's time taken
+    the same way."""
+    bound_ms, lib_ms = times["bound_ms"], times["library_ms"]
+    print(f"{name}: back to back {times['ms']!r} ms, {bound_ms / times['ms']!r} "
+          f"of the bound, {times['ms'] / lib_ms!r} x SDPA's {lib_ms!r} ms; "
+          f"out of L2 {kernel_cold_ms!r} ms, {bound_ms / kernel_cold_ms!r} of "
+          f"the bound, {kernel_cold_ms / library_cold_ms!r} x SDPA's "
+          f"{library_cold_ms!r} ms; on {gpu_line}", flush=True)
 
 
 def unmasked_bwd(qkv, g, nb_heads, scale):
@@ -854,6 +878,18 @@ def phase_slice(reports, gpu_line):
         print(f"slice {name}: bf16 kernel path vs f32 plain path rel err "
               f"{rel!r} (bar 5e-2)", flush=True)
         check(rel < 5e-2, f"{name} rel err {rel} >= 5e-2")
+    del model32
+
+    # Where a request's device time goes.
+    wall_ms, groups, _ = device_split(lambda: model.predict(pp(x)), steps=2)
+    busy_ms = sum(groups.values())
+    request_ms = statistics.median(seconds[1:]) * 1e3
+    print(f"slice {MODEL} bs{BATCH} request profile: device busy {busy_ms!r} "
+          f"ms; wall {wall_ms!r} ms under the profiler, {request_ms!r} ms "
+          f"without; device idle share {1.0 - busy_ms / request_ms!r}",
+          flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"slice {MODEL} request profile: {group}: {ms!r} ms", flush=True)
 
 
 def expected(**counts) -> dict:
@@ -2386,6 +2422,10 @@ def phase_relpos_kernel(report, gpu_line):
               f"{times['plain_ms']!r} ms; scaled_dot_product_attention with "
               f"the float mask {times['library_ms']!r} ms (its max abs diff "
               f"to plain {sdpa_err!r}); on {gpu_line}", flush=True)
+        print_shares(f"flash_attention_relpos {kind}", times,
+                     cold_ms(lambda: flash_attention_relpos(q, k, v, rh, rw,
+                                                            **kw)),
+                     cold_ms(sdpa_call), gpu_line)
         del q, k, v, q4, k4, v4, rh, rw, mask, sdpa, ref
 
 
@@ -4491,7 +4531,7 @@ def main(argv) -> int:
         for report in reports.values():
             report["launches_by_path"] = {}
         run_phase = {
-            2: lambda: (phase_kernels(reports["fused_mha"]),
+            2: lambda: (phase_kernels(reports["fused_mha"], gpu_line),
                         phase_backward_kernel(reports["fused_mha_bwd"])),
             3: lambda: phase_slice(reports, gpu_line),
             4: lambda: phase_train(reports, gpu_line),

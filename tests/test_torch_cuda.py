@@ -42,8 +42,14 @@ max|dv|. ln_dense: the output and dx within 2e-2 * max|plain| in bf16
 dgamma, dbeta, dW and db, which sum over every row, within 2e-2 and 1e-4.
 float16
 models (no kernel takes f16): logits within 5e-2 of max|f32| of the same
-weights, with no launch.
+weights, with no launch. The bf16 fused_mha and rel-pos forward read their
+operands through TMA boxes of 64 rows x 64 columns: their tests also cover
+N and d around the boxes' edges, a next row of inf that a box running past
+N would carry in as NaN, qkv at a storage offset, packed strided q, k, v
+and bit-identical repeats, at the same bars.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -191,6 +197,95 @@ def test_fused_mha_gives_a_gradient_through_the_kernels(card):
     assert dispatch.launch_counts["fused_mha_bwd"] == counts["fused_mha_bwd"] + 1
     want = fused_mha_bwd_reference(qkv, g, h, d ** -0.5)
     assert (x.grad - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# The TMA layout of the bf16 fused_mha (csrc/fused_mha.cu): N around the
+# 64-row boxes and the 128-row blocks, every class of head dim (one and two
+# 64-column chunks, zero-filled past d) and H from 1 to 16.
+TMA_MHA_N = [1, 17, 64, 65, 196, 197, 256, 257, 1023]
+TMA_MHA_D = [8, 16, 32, 48, 64, 80, 128]
+TMA_MHA_H = [1, 3, 12, 16]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n,d", list(itertools.product(TMA_MHA_N, TMA_MHA_D)))
+def test_fused_mha_kernel_matches_plain_at_the_tma_edges(card, n, d, dtype,
+                                                         tol):
+    for h in TMA_MHA_H:
+        g = torch.Generator(device=card).manual_seed(n * 7 + d * 3 + h)
+        qkv = torch.randn(2, n, 3 * h * d, generator=g, device=card).to(dtype)
+        out = fused_mha(qkv, h, d ** -0.5)
+        ref = fused_mha_reference(qkv, h, d ** -0.5)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"H={h}: {m}")
+
+
+def _next_row_inf(x):
+    """x with every row but the first set to inf: a box of row 0 that ran
+    past N into row 1 would carry 0 * inf = NaN into p @ v."""
+    x = x.clone()
+    x[1:] = float("inf")
+    return x
+
+
+@pytest.mark.parametrize("n", [17, 65, 197])
+def test_fused_mha_boxes_stop_at_n(card, n):
+    h, d = 3, 64
+    g = torch.Generator(device=card).manual_seed(n)
+    qkv = torch.randn(2, n, 3 * h * d, generator=g, device=card).bfloat16()
+    out = fused_mha(_next_row_inf(qkv), h, d ** -0.5)
+    ref = fused_mha_reference(qkv[:1], h, d ** -0.5)
+    torch.testing.assert_close(out[:1].float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_fused_mha_reads_qkv_at_a_storage_offset(card):
+    """qkv 16 bytes into its storage: the tensor maps start at its first
+    element."""
+    b, n, h, d = 2, 197, 12, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    buf = torch.randn(b * n * 3 * h * d + 8, generator=g,
+                      device=card).bfloat16()
+    qkv = buf[8:].view(b, n, 3 * h * d)
+    assert qkv.storage_offset() == 8 and qkv.data_ptr() % 16 == 0
+    out = fused_mha(qkv, h, d ** -0.5)
+    assert torch.equal(out, fused_mha(qkv.clone(), h, d ** -0.5))
+    torch.testing.assert_close(out.float(),
+                               fused_mha_reference(qkv, h, d ** -0.5).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_fused_mha_kernel_clamps_like_plain(card):
+    """Query 0 of every head points along keys 3 and 5, so that two of its
+    scores pass 80: the kernel holds the clamped plain version, and the
+    unclamped softmax is far from both."""
+    b, n, h, d = 2, 197, 12, 64
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(b, n, 3, h, d, generator=g, device=card)
+    x[:, 0, 0] = 20.0 * (x[:, 3, 1] + x[:, 5, 1])
+    qkv = x.reshape(b, n, 3 * h * d).bfloat16()
+    scale = d ** -0.5
+    out = fused_mha(qkv, h, scale).float()
+    ref = fused_mha_reference(qkv, h, scale).float()
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    q, k, v = (t.float() for t in qkv.reshape(b, n, 3, h, d).permute(
+        2, 0, 3, 1, 4))
+    s = torch.matmul(q * scale, k.transpose(-1, -2))
+    assert s[:, :, 0].max().item() > 100.0
+    exact = torch.matmul(torch.softmax(s, dim=-1), v).transpose(1, 2)
+    assert (out - exact.reshape(b, n, h * d)).abs().max().item() > 5 * 2e-2
+
+
+def test_hopper_kernels_repeat_bit_for_bit(card):
+    g = torch.Generator(device=card).manual_seed(6)
+    qkv = torch.randn(4, 197, 3 * 12 * 64, generator=g, device=card).bfloat16()
+    assert torch.equal(fused_mha(qkv, 12, 0.125), fused_mha(qkv, 12, 0.125))
+    q, k, v, rh, rw = _relpos_inputs(12, 32, 32, 64, torch.bfloat16, card, 6)
+    kw = dict(grid_size=(32, 32), scale=0.125)
+    first = flash_attention_relpos_with_lse(q, k, v, rh, rw, **kw)
+    again = flash_attention_relpos_with_lse(q, k, v, rh, rw, **kw)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 # convnext_mlp: (M, C, H) at the four ConvNeXt-B stages (M cut to a few
@@ -635,6 +730,52 @@ def test_flash_attention_relpos_reads_strided_inputs(card):
     kw = dict(grid_size=(gh, gw), scale=d ** -0.5)
     assert torch.equal(flash_attention_relpos(*views, rh, rw, **kw),
                        flash_attention_relpos(q, k, v, rh, rw, **kw))
+
+
+# The TMA layout of the bf16 rel-pos forward: SAM-B's global and windowed
+# grids, a grid with gh != gw, N = 49 and N = 1, at d = 64 and d = 80 (two
+# 64-column chunks), with q, k and v read as strided views of a packed qkv.
+RELPOS_TMA_GRIDS = [(64, 64), (14, 14), (48, 64), (7, 7), (1, 1)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("gh,gw", RELPOS_TMA_GRIDS)
+def test_flash_attention_relpos_reads_a_packed_qkv_at_the_tma_edges(
+        card, gh, gw, d, dtype, tol):
+    """The output and lse of strided q, k, v against the plain version of
+    contiguous copies; where N allows, query 0's scores pass 300 (its lse
+    above 100)."""
+    b, n = (2 if gh * gw > 1024 else 6), gh * gw
+    big = n > 5
+    q, k, v, rh, rw = _relpos_inputs(b, gh, gw, d, dtype, card, gh + gw + d,
+                                     big)
+    packed = torch.cat([q, k, v], dim=-1)
+    views = [packed[..., j * d:(j + 1) * d] for j in range(3)]
+    kw = dict(grid_size=(gh, gw), scale=d ** -0.5)
+    out, lse = flash_attention_relpos_with_lse(*views, rh, rw, **kw)
+    ref, ref_lse = flash_attention_relpos_reference(q, k, v, rh, rw, **kw)
+    for got, want in ((out, ref), (lse, ref_lse)):
+        want = want.float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), err
+    if big:
+        assert ref_lse[:, 0].min().item() > 100.0
+
+
+@pytest.mark.parametrize("gh,gw", [(14, 14), (7, 7), (4, 5)])
+def test_flash_attention_relpos_boxes_stop_at_n(card, gh, gw):
+    q, k, v, rh, rw = _relpos_inputs(2, gh, gw, 64, torch.bfloat16, card, gw)
+    kw = dict(grid_size=(gh, gw), scale=0.125)
+    out, lse = flash_attention_relpos_with_lse(
+        *(_next_row_inf(t) for t in (q, k, v)), rh, rw, **kw)
+    ref, ref_lse = flash_attention_relpos_reference(
+        q[:1], k[:1], v[:1], rh[:1], rw[:1], **kw)
+    for got, want in ((out[:1], ref), (lse[:1], ref_lse)):
+        want = want.float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item(), err
 
 
 def test_flash_attention_relpos_refuses_what_it_does_not_take(card):

@@ -1,0 +1,215 @@
+"""The TMA tensor maps of the Hopper kernels, emulated on the CPU.
+
+``tfimm_tpu_torch/ops/kernels/tma.py`` computes each map's dims, byte
+strides and box; the kernels (``csrc/fused_mha.cu``,
+``csrc/flash_attention_relpos.cu``) pick the boxes' coordinates. Here a box
+is read as TMA reads it, with ``torch.as_strided`` over the tensor's storage
+from the map's base and zeros wherever the box runs past the dims, at the
+coordinates the kernels use. The boxes must give exactly ``fused_mha``'s q,
+k and v heads (``_split_qkv``) and the rel-pos kernel's q, k and v tiles,
+with zeros past N and past d; the output maps, written box by box with the
+part past the dims left out, must give ``fused_mha``'s (B, N, H*d) layout.
+The hardware rules the maps must keep are checked beside them.
+"""
+
+import itertools
+
+import pytest
+import torch
+
+from tfimm_tpu_torch.ops.kernels.fused_mha import _merge_heads, _split_qkv
+from tfimm_tpu_torch.ops.kernels.tma import (
+    ELEM_BYTES,
+    TILE,
+    fused_mha_maps,
+    packed_fused_mha_maps,
+    packed_rows_maps,
+    rows_map,
+)
+
+
+def _check_rules(m):
+    """cuTensorMapEncodeTiled's rules for a bf16 tiled map with the 128-byte
+    swizzle: rank 1-5, strides multiples of 16 bytes, boxes of at most 256
+    elements, an inner box of 16-128 bytes."""
+    assert 1 <= len(m.dims) <= 5
+    assert len(m.strides) == len(m.dims) - 1 and len(m.box) == len(m.dims)
+    assert all(s % 16 == 0 and 0 < s < 2 ** 40 for s in m.strides)
+    assert all(0 < b <= 256 for b in m.box)
+    assert m.box[0] * ELEM_BYTES % 16 == 0 and m.box[0] * ELEM_BYTES <= 128
+
+
+def _ranges(m, coords):
+    """Per dimension (innermost first): the in-bounds part of the box at
+    ``coords`` in the tensor and in the box."""
+    lo = [max(c, 0) for c in coords]
+    hi = [min(c + b, d) for c, b, d in zip(coords, m.box, m.dims)]
+    return lo, hi
+
+
+def _elem_strides(m):
+    return [1] + [s // ELEM_BYTES for s in m.strides]
+
+
+def tma_load(flat, m, coords):
+    """The box at ``coords`` (innermost first) of the map ``m`` over the
+    elements ``flat`` from the map's base, outermost dim first; elements out
+    of bounds are zeros."""
+    box = torch.zeros(m.box[::-1], dtype=flat.dtype)
+    lo, hi = _ranges(m, coords)
+    if any(h <= l for l, h in zip(lo, hi)):
+        return box
+    strides = _elem_strides(m)
+    view = torch.as_strided(flat, [h - l for l, h in zip(lo, hi)][::-1],
+                            strides[::-1],
+                            flat.storage_offset()
+                            + sum(l * s for l, s in zip(lo, strides)))
+    box[tuple(slice(l - c, h - c)
+              for l, h, c in zip(lo, hi, coords))[::-1]] = view
+    return box
+
+
+def tma_store(flat, m, coords, box):
+    """Write ``box`` at ``coords`` through the map ``m`` into ``flat``,
+    leaving out the elements out of bounds."""
+    lo, hi = _ranges(m, coords)
+    if any(h <= l for l, h in zip(lo, hi)):
+        return
+    strides = _elem_strides(m)
+    view = torch.as_strided(flat, [h - l for l, h in zip(lo, hi)][::-1],
+                            strides[::-1],
+                            flat.storage_offset()
+                            + sum(l * s for l, s in zip(lo, strides)))
+    view.copy_(box[tuple(slice(l - c, h - c)
+                         for l, h, c in zip(lo, hi, coords))[::-1]])
+
+
+def _tiles(n):
+    """Row tiles a kernel touches: its blocks own 128 rows (two 64-row q
+    tiles), its K/V ring walks 64-key tiles."""
+    return range(2 * -(-n // (2 * TILE)))
+
+
+def _chunks(d):
+    return range(1 if d <= TILE else 2)
+
+
+def _padded(x, rows, cols):
+    """x (..., N, d) zero-padded to (..., rows, cols)."""
+    out = torch.zeros(*x.shape[:-2], rows, cols, dtype=x.dtype)
+    out[..., :x.shape[-2], :x.shape[-1]] = x
+    return out
+
+
+MHA_N = [1, 17, 64, 65, 196, 197, 256, 257, 1023]
+MHA_D = [8, 16, 32, 48, 64, 80, 128]
+MHA_H = [1, 3, 12, 16]
+
+
+@pytest.mark.parametrize("n,d", list(itertools.product(MHA_N, MHA_D)))
+def test_fused_mha_boxes_give_the_heads(n, d):
+    """At every H: each (64, 1, 1, 64, 1) box at (64 c, h, part, 64 r, b) is
+    rows 64 r... and columns 64 c... of head h's q, k or v of image b, with
+    zeros past N and d. The next image's rows (all far from zero here) never
+    show up in a box that runs past N."""
+    b = 2
+    gen = torch.Generator().manual_seed(n * 131 + d)
+    for h in MHA_H:
+        qkv = (torch.randn(b, n, 3 * h * d, generator=gen) + 10.0).bfloat16()
+        qkv_map, _ = fused_mha_maps(b, n, h, d)
+        _check_rules(qkv_map)
+        flat = qkv.reshape(-1)
+        rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+        for part, want in enumerate(_split_qkv(qkv, h)):
+            got = torch.zeros(b, h, rows, cols, dtype=qkv.dtype)
+            for bi, hi, r, c in itertools.product(range(b), range(h), _tiles(n),
+                                                  _chunks(d)):
+                box = tma_load(flat, qkv_map, (TILE * c, hi, part, TILE * r, bi))
+                # Outermost first: (B, N, 3, H, d) = (1, 64, 1, 1, 64), so
+                # shared memory holds 64 rows of 64 columns.
+                assert box.shape == (1, TILE, 1, 1, TILE)
+                got[bi, hi, TILE * r:TILE * (r + 1),
+                    TILE * c:TILE * (c + 1)] = box[0, :, 0, 0]
+            assert torch.equal(got, _padded(want.bfloat16(), rows, cols)), (
+                h, part)
+
+
+@pytest.mark.parametrize("n,d", [(1, 8), (17, 80), (197, 64), (257, 128),
+                                 (65, 48)])
+def test_fused_mha_out_boxes_write_the_merged_heads(n, d):
+    """Each consumer's (64, 1, 64, 1) box at (64 c, h, 64 r, b), written with
+    the part past N and d left out, lands in (B, N, H*d) exactly where
+    ``fused_mha`` puts head h's rows; nothing else is written."""
+    b, h = 3, 3
+    gen = torch.Generator().manual_seed(n + d)
+    heads = torch.randn(b, h, n, d, generator=gen).bfloat16()
+    _, out_map = fused_mha_maps(b, n, h, d)
+    _check_rules(out_map)
+    rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+    # The tiles as a consumer holds them, with garbage in the padding.
+    tiles = torch.full((b, h, rows, cols), 7.0, dtype=heads.dtype)
+    tiles[:, :, :n, :d] = heads
+    out = torch.full((b * n * h * d + 64,), -1.0, dtype=heads.dtype)
+    for bi, hi, r, c in itertools.product(range(b), range(h), _tiles(n),
+                                          _chunks(d)):
+        box = tiles[bi, hi, TILE * r:TILE * (r + 1), TILE * c:TILE * (c + 1)]
+        tma_store(out, out_map, (TILE * c, hi, TILE * r, bi),
+                  box.reshape(1, TILE, 1, TILE))
+    assert torch.equal(out[:b * n * h * d].reshape(b, n, h * d),
+                       _merge_heads(heads))
+    assert bool((out[b * n * h * d:] == -1.0).all())
+
+
+RELPOS_GRIDS = [(64, 64), (14, 14), (48, 64), (7, 7), (1, 1)]
+
+
+@pytest.mark.parametrize("d", [64, 80, 8, 128])
+@pytest.mark.parametrize("gh,gw", RELPOS_GRIDS)
+def test_relpos_boxes_give_the_tiles(gh, gw, d):
+    """q, k and v as strided views of one packed (B, N, 3 d) tensor, as a
+    fused projection hands them over: each (64, 64, 1) box at (64 c, 64 r,
+    b) of a view's (d, N, B) map is rows 64 r... and columns 64 c... of row
+    b of that view, zeros past N and d; the out map of a contiguous
+    (B, N, d) tensor writes it back."""
+    b, n = 3, gh * gw
+    gen = torch.Generator().manual_seed(gh * gw + d)
+    packed = (torch.randn(b, n, 3 * d, generator=gen) + 10.0).bfloat16()
+    views = [packed[..., j * d:(j + 1) * d] for j in range(3)]
+    rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+    for view in views:
+        m = rows_map(view.shape, view.stride())
+        _check_rules(m)
+        flat = packed.reshape(-1)[view.storage_offset():]
+        got = torch.zeros(b, rows, cols, dtype=view.dtype)
+        for bi, r, c in itertools.product(range(b), _tiles(n), _chunks(d)):
+            box = tma_load(flat, m, (TILE * c, TILE * r, bi))
+            assert box.shape == (1, TILE, TILE)
+            got[bi, TILE * r:TILE * (r + 1), TILE * c:TILE * (c + 1)] = box[0]
+        assert torch.equal(got, _padded(view, rows, cols))
+
+        out = torch.zeros(b, n, d, dtype=view.dtype)
+        out_map = rows_map(out.shape, out.stride())
+        _check_rules(out_map)
+        for bi, r, c in itertools.product(range(b), _tiles(n), _chunks(d)):
+            tma_store(out.reshape(-1), out_map, (TILE * c, TILE * r, bi),
+                      got[bi, TILE * r:TILE * (r + 1),
+                          TILE * c:TILE * (c + 1)][None])
+        assert torch.equal(out, view)
+
+
+def test_packed_maps_are_the_maps_in_order():
+    """The int64 values the C launchers read: rank, dims, strides and box in
+    5, 4 and 5 slots, map after map; cached per shape."""
+    qkv_map, out_map = fused_mha_maps(2, 197, 12, 64)
+    got = list(packed_fused_mha_maps(2, 197, 12, 64))
+    assert got == qkv_map.pack() + out_map.pack()
+    assert got[:15] == [5, 64, 12, 3, 197, 2, 128, 1536, 4608, 907776,
+                        64, 1, 1, 64, 1]
+    assert packed_fused_mha_maps(2, 197, 12, 64) is packed_fused_mha_maps(
+        2, 197, 12, 64)
+    x = torch.zeros(4, 10, 3 * 16)[..., 16:32]
+    y = torch.zeros(4, 10, 16)
+    packed = list(packed_rows_maps(x.shape, x.stride(), y.stride()))
+    assert packed == (rows_map(x.shape, x.stride()).pack()
+                      + rows_map(y.shape, y.stride()).pack())
+    assert packed[:15] == [3, 16, 10, 4, 0, 0, 96, 960, 0, 0, 64, 64, 1, 0, 0]

@@ -9,9 +9,9 @@
 //     p = exp(min(s, 80)) / rowsum                  (clamped no-max softmax)
 //     o = p.astype(io) @ v, accumulated in f32
 //
-// q, k and v are read in place out of the packed rows (row stride 3*D) and
-// the output is written in place into (B, N, D): no transposes, no
-// contiguous copies, and the (B, H, N, N) scores never reach device memory.
+// q, k and v are read in place out of the packed rows and the output is
+// written in place into (B, N, D): no transposes, no contiguous copies, and
+// the (B, H, N, N) scores never reach device memory.
 //
 // Normalisation order: p is rounded to the io dtype BEFORE it is divided by
 // the row sum (the reference divides first). Because the softmax subtracts
@@ -23,20 +23,32 @@
 // accumulator holds at most N * e^80 * max|v|, finite while
 // N * max|v| < 6e3 on rows that saturate the clamp.
 //
-// Two kernels, one per io dtype; both take one thread block per (64 query
-// rows, head, batch row) and stream K and V through shared memory in
-// 64-key tiles.
+// Two kernels, one per io dtype.
 //
-// - bf16 (the serving path): tensor cores through mma.sync m16n8k16 (bf16
-//   in, f32 accumulate). 4 warps, each owning 16 query rows. A warp keeps
-//   its q fragments in registers for the whole key loop, computes its
-//   16 x 64 score tile, exponentiates it in registers, and reuses those
-//   registers as the A operand of p @ v (the accumulator layout of two
-//   adjacent 8-key score tiles is the A layout of one 16-key step), so p
-//   never touches shared memory. q . k is exact in f32 per product; the
-//   scale is applied to the f32 score, which differs from scaling q first
-//   by f32 rounding only. Shared memory rows are padded by 8 elements so
-//   the fragment loads are free of bank conflicts.
+// - bf16 (the serving path), for Hopper (hopper.cuh): the packed qkv is a
+//   5-D TMA tensor (d, H, 3, N, B), innermost first, with byte strides 2d,
+//   2Hd, 6Hd and 6HdN, so a box of (64, 1, 1, 64, 1) is one head's 64 rows
+//   x 64 columns of q, k or v, read straight from the projection's output.
+//   Rows at or beyond N and columns at or beyond d fall out of bounds and
+//   arrive as zeros, so every d up to 128 takes one layout: 64-column,
+//   128-byte-swizzled chunks (one up to d = 64, two above), and a box that
+//   runs past N never reads the next image's rows. A block owns 128 query
+//   rows of one (image, head): one producer warp and two consumer
+//   warpgroups of 64 rows each (288 threads). The producer loads both q
+//   tiles once, then streams the head's K and V through a ring of 64-key
+//   stages (4 stages up to d = 64, which hold all of N <= 256 at once, 2
+//   above), each signalled on a "full" mbarrier by TMA's transaction count
+//   and released on an "empty" one by the consumers' warps. A consumer
+//   computes its 64 x 64 score tile with wgmma (q and k both K-major from
+//   shared memory, d / 16 steps), applies scale and clamp and exponentiates
+//   in registers, keeps the bf16 p in registers as the A operand of p @ v
+//   (the accumulator layout is the A layout, note in hopper.cuh) and reads
+//   v from shared memory as an MN-major (transposed) B operand. Since there
+//   is no running max, tiles just add up. At the end it divides by the row
+//   sum, writes its 64 x d output into its own q tile (swizzled) and stores
+//   it with one TMA store per chunk, which clips rows beyond N and columns
+//   beyond d. One key tile at a time, in few enough registers (ptxas'
+//   report in chip_smoke.py's build log) that two blocks share an SM.
 // - f32: plain f32 FMAs (the tensor cores' TF32 would not hold the f32
 //   results to 1e-5). 256 threads as a 16 x 16 grid, each owning 4 query
 //   rows x 4 keys of a score tile and 4 query rows x up to 8 head columns
@@ -46,192 +58,216 @@
 // one call reads 116 MB of qkv, writes 39 MB and does 4 * B * H * N^2 * d =
 // 15.3 GFLOP, about 100 flops per byte: under the card's ~295 flops/byte
 // ridge for bf16 tensor cores, so an ideal kernel is bounded by device
-// memory, at about 46 us at 3.35 TB/s. This
-// simple form is not there yet: each block loads its K/V tiles once per 64
-// query rows with plain synchronous loads (no cp.async/TMA pipelining), and
-// N = 197 rounds up to 256 rows and keys (23% of the products are padding;
-// warps whose 16 rows all lie beyond N skip their products). The f32 kernel
-// is bounded by shared-memory loads feeding the FMA units.
+// memory, at about 46 us at 3.35 TB/s. The bf16 kernel takes 0.095 ms
+// there, 49% of that bound and 1.04-1.07x SDPA's time (chip_smoke.py
+// phase 2 on an H100 80GB HBM3 at 700 W; PERF.md). What holds it back:
+// each block is a chain (TMA latency, then per key tile the scores, the
+// exponentials and p @ v, each waiting for the last, then the store) with
+// four warpgroups an SM to hide it; N = 197 rounds up to 256 rows and keys
+// (the padding is 41% of the exponentials, which the special-function
+// units take at an eighth of the FMA units' rate); and the two blocks of a
+// head each read its K and V. The f32 kernel is bounded by shared-memory loads
+// feeding the FMA units.
 //
-// Shared memory: bf16 27.6 KB at d = 64 and 52.2 KB at d = 128; f32 66.5 KB
-// at d = 64 and 115.7 KB at d = 128. Above the 48 KB static limit a launch
-// needs the dynamic limit raised, so the launcher sets
+// Shared memory: bf16 81 KB up to d = 64 (two blocks an SM) and 97 KB above;
+// f32 66.5 KB at d = 64 and 115.7 KB at d = 128. Above the 48 KB static
+// limit a launch needs the dynamic limit raised, so the launcher sets
 // cudaFuncAttributeMaxDynamicSharedMemorySize before every launch and
-// returns cudaGetLastError() after it.
+// returns cudaGetLastError() after it (and the error of a tensor map that
+// does not encode).
 //
 // Coverage: any B, any N (ragged edge masked), any H, and every head dim d
-// that is a multiple of 8 up to 128 (the bf16 kernel pads d to a multiple
-// of 16 in shared memory with zeros). bf16 needs qkv 16-byte aligned.
+// that is a multiple of 8 up to 128. bf16 needs qkv 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;               // query rows per block
-constexpr int kBlockK = 64;               // keys per shared-memory tile
+constexpr int kBlockQ = 64;               // query rows per block (f32)
+constexpr int kBlockK = 64;               // keys per shared-memory tile (f32)
 constexpr int kMaxHeadDim = 128;
 constexpr float kSoftmaxClamp = 80.0f;    // dispatch.py SOFTMAX_CLAMP
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16: TMA + wgmma
 
-constexpr int kMmaThreads = 128;          // 4 warps x 16 query rows
+constexpr int kTile = 64;                 // q rows, keys and columns of a tile
+constexpr int kTileBytes = kTile * kTile * 2;
+constexpr int kConsumers = 2;             // warpgroups of 64 query rows
+constexpr int kTmaThreads = 128 * kConsumers + 32;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// DC: 64-column chunks of the head dim (1 up to d = 64, 2 up to 128).
+template <int DC>
+struct MhaTiles {
+  static constexpr int kStages = DC == 1 ? 4 : 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kConsumers * DC * kTileBytes;
+  static constexpr int kV = kK + kStages * DC * kTileBytes;
+  static constexpr int kBars = kV + kStages * DC * kTileBytes;
+  // q_full, full[stages], empty[stages]; 1024 bytes of slack for alignment.
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+template <int DC>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+fused_mha_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                          const __grid_constant__ CUtensorMap out_map, int n,
+                          int d, float scale_log2) {
+  using L = MhaTiles<DC>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* q_s = smem + L::kQ;
+  uint8_t* k_s = smem + L::kK;
+  uint8_t* v_s = smem + L::kV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-// Two bf16 values in one register, the lower column (or k index) in the
-// low half, as the mma fragments expect.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kTile * kConsumers;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nb_tiles = (n + kTile - 1) / kTile;
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-template <int DP>
-__host__ __device__ constexpr int mma_ld() { return DP + 8; }  // padded smem row, bf16 elements
-
-template <int DP>
-size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(kBlockQ + 2 * kBlockK) * mma_ld<DP>();
-}
-
-// Rows [r0, r0 + 64) of one head's q, k or v into shared memory, 16 bytes
-// per load; rows at or beyond n and columns at or beyond d become zeros.
-template <int DP>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          __nv_bfloat16* dst, int r0, int n,
-                                          int d, int64_t row_stride) {
-  constexpr int kChunks = DP / 8;
-  for (int i = threadIdx.x; i < kBlockQ * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n && c < d)
-      v = *reinterpret_cast<const uint4*>(src + (int64_t)row * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * mma_ld<DP>() + c) = v;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kConsumers);   // one arrival a warp
+    }
+    hopper::fence_barrier_init();
   }
-}
+  __syncthreads();
 
-// DP: the head dim rounded up to a multiple of 16 (the mma k depth).
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-fused_mha_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
-                          __nv_bfloat16* __restrict__ out, int n,
-                          int nb_heads, int d, float scale) {
-  constexpr int LD = mma_ld<DP>();
-  constexpr int kSteps = DP / 16;          // k steps of q @ k^T
-  constexpr int kDimTiles = DP / 8;        // 8-column tiles of the output
-  constexpr int kKeyTiles = kBlockK / 8;   // 8-key tiles of a score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kBlockQ * LD;
-  __nv_bfloat16* v_s = k_s + kBlockK * LD;
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int dim = nb_heads * d;
-  const int64_t row_stride = 3 * (int64_t)dim;
-  const __nv_bfloat16* q_g = qkv + (int64_t)b * n * row_stride + (int64_t)h * d;
-  const __nv_bfloat16* k_g = q_g + dim;
-  const __nv_bfloat16* v_g = q_g + 2 * dim;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;                  // fragment row group
-  const int t = lane % 4;                  // thread in group
-  const int wr = warp * 16;                // this warp's first row in the tile
-  const bool active = q0 + wr < n;
-
-  load_tile<DP>(q_g, q_s, q0, n, d, row_stride);
-
-  uint32_t qf[kSteps][4];
-  float o[kDimTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDimTiles; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) o[j][r] = 0.f;
-  float l_lo = 0.f, l_hi = 0.f;            // rows g and g + 8
-
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    __syncthreads();  // previous tile fully read (and q_s written)
-    load_tile<DP>(k_g, k_s, k0, n, d, row_stride);
-    load_tile<DP>(v_g, v_s, k0, n, d, row_stride);
-    __syncthreads();
-    if (!active) continue;
-    if (k0 == 0) {
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        const __nv_bfloat16* p = q_s + (wr + g) * LD + ks * 16 + 2 * t;
-        qf[ks][0] = ld_u32(p);
-        qf[ks][1] = ld_u32(p + 8 * LD);
-        qf[ks][2] = ld_u32(p + 8);
-        qf[ks][3] = ld_u32(p + 8 * LD + 8);
+  if (warp == 4 * kConsumers) {
+    // Producer: both q tiles, then K and V a 64-key tile at a time.
+    if (lane == 0) {
+      hopper::mbar_expect_tx(q_full, kConsumers * DC * kTileBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int dc = 0; dc < DC; ++dc)
+          hopper::tma_load_5d(q_s + (c * DC + dc) * kTileBytes, &qkv_map,
+                              q_full, kTile * dc, h, 0, q0 + kTile * c, b);
+      for (int t = 0; t < nb_tiles; ++t) {
+        const int st = t % kStages;
+        const uint32_t phase = (t / kStages) & 1;
+        if (t >= kStages) hopper::mbar_wait(&empty[st], phase ^ 1);
+        hopper::mbar_expect_tx(&full[st], 2 * DC * kTileBytes);
+        for (int dc = 0; dc < DC; ++dc) {
+          const int slot = (st * DC + dc) * kTileBytes;
+          hopper::tma_load_5d(k_s + slot, &qkv_map, &full[st], kTile * dc, h,
+                              1, kTile * t, b);
+          hopper::tma_load_5d(v_s + slot, &qkv_map, &full[st], kTile * dc, h,
+                              2, kTile * t, b);
+        }
       }
     }
+    return;
+  }
 
-    float s[kKeyTiles][4];
+  // Consumer warpgroup wg: query rows q0 + 64 wg ... + 63.
+  const int wg = warp / 4;
+  const int row = (warp % 4) * 16 + lane / 4;   // and row + 8
+  const int t4 = lane % 4;
+  const int nb_steps = (d + 15) / 16;          // k16 steps of q . k
+  const float clamp_log2 = kSoftmaxClamp * kLog2e;
+  uint8_t* my_q = q_s + wg * DC * kTileBytes;
+
+  float o[DC][32];
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j)
+  for (int dc = 0; dc < DC; ++dc)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+    for (int i = 0; i < 32; ++i) o[dc][i] = 0.f;
+  float s[32];
+  float l_lo = 0.f, l_hi = 0.f;   // this lane's share of the two rows' sums
+
+  // s = q k^T of tile t, issued as one wgmma group.
+  auto issue_scores = [&](int t) {
+    const int st = t % kStages;
+    hopper::mbar_wait(&full[st], (t / kStages) & 1);
 #pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-        const __nv_bfloat16* p = k_s + (8 * j + g) * LD + ks * 16 + 2 * t;
-        mma_16816(s[j], qf[ks], ld_u32(p), ld_u32(p + 8));
+    for (int ks = 0; ks < 4 * DC; ++ks) {
+      if (ks < nb_steps) {
+        const int dc = ks / 4, kk = ks % 4;
+        const uint64_t a = hopper::sw128_desc(my_q + dc * kTileBytes) + 2 * kk;
+        const uint64_t bk =
+            hopper::sw128_desc(k_s + (st * DC + dc) * kTileBytes) + 2 * kk;
+        hopper::wgmma_m64n64k16_ss<0>(s, a, bk, ks > 0);
       }
     }
+    hopper::wgmma_commit();
+  };
 
-    // exp(min(scale * s, 80)) in f32; keys at or beyond n give 0. The
-    // accumulator layout of score tiles 2m and 2m + 1 is the A layout of
-    // the m-th 16-key step of p @ v.
-    uint32_t pf[kKeyTiles / 2][4];
+  // o += p v of tile t, issued as one wgmma group (v MN-major, 16 key rows
+  // of 128 bytes a step).
+  auto issue_pv = [&](int t, uint32_t (&p)[16]) {
+    const int st = t % kStages;
+    hopper::fence_regs(p);
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      const int key = k0 + 8 * j + 2 * t;
-      const bool ok0 = key < n, ok1 = key + 1 < n;
-      const float e0 = ok0 ? expf(fminf(s[j][0] * scale, kSoftmaxClamp)) : 0.f;
-      const float e1 = ok1 ? expf(fminf(s[j][1] * scale, kSoftmaxClamp)) : 0.f;
-      const float e2 = ok0 ? expf(fminf(s[j][2] * scale, kSoftmaxClamp)) : 0.f;
-      const float e3 = ok1 ? expf(fminf(s[j][3] * scale, kSoftmaxClamp)) : 0.f;
+    for (int dc = 0; dc < DC; ++dc) hopper::fence_regs(o[dc]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        const uint64_t bv =
+            hopper::sw128_desc(v_s + (st * DC + dc) * kTileBytes) + 128 * m;
+        hopper::wgmma_m64n64k16_rs<1>(o[dc], &p[4 * m], bv, 1);
+      }
+    }
+    hopper::wgmma_commit();
+  };
+
+  // exp(min(scale * s, 80)) of tile t as 2^min(scale log2(e) s, 80 log2(e));
+  // keys at or beyond n give 0. Column blocks 2m and 2m + 1 are the A
+  // registers of k16 step m of p @ v; the sums take the unrounded values.
+  auto softmax = [&](int t, uint32_t (&p)[16]) {
+    const bool ragged = kTile * (t + 1) > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = kTile * t + 8 * j + 2 * t4;
+      float e0 = hopper::exp2_approx(fminf(s[4 * j] * scale_log2, clamp_log2));
+      float e1 = hopper::exp2_approx(fminf(s[4 * j + 1] * scale_log2, clamp_log2));
+      float e2 = hopper::exp2_approx(fminf(s[4 * j + 2] * scale_log2, clamp_log2));
+      float e3 = hopper::exp2_approx(fminf(s[4 * j + 3] * scale_log2, clamp_log2));
+      if (ragged) {
+        if (key >= n) e0 = e2 = 0.f;
+        if (key + 1 >= n) e1 = e3 = 0.f;
+      }
       l_lo += e0 + e1;
       l_hi += e2 + e3;
-      pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(e0, e1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(e2, e3);
+      p[(j / 2) * 4 + (j % 2) * 2] = hopper::pack_bf16(e0, e1);
+      p[(j / 2) * 4 + (j % 2) * 2 + 1] = hopper::pack_bf16(e2, e3);
     }
+  };
 
+  // One key tile at a time: the scores, the exponentials, then p @ v, in
+  // few enough registers that two blocks share an SM. (Overlapping p @ v of
+  // one tile with the next tile's exponentials, as the rel-pos kernel does
+  // over its 64 key tiles, needs a second p and too many registers for
+  // that, and over 4 key tiles it gains less than the second block.)
+  uint32_t p[16];
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < nb_tiles; ++t) {
+    issue_scores(t);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    softmax(t, p);
+    issue_pv(t, p);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(p);
 #pragma unroll
-    for (int m = 0; m < kKeyTiles / 2; ++m) {
-      if (k0 + 16 * m >= n) break;         // all 16 keys are padding
-#pragma unroll
-      for (int jd = 0; jd < kDimTiles; ++jd) {
-        const __nv_bfloat16* p = v_s + (16 * m + 2 * t) * LD + 8 * jd + g;
-        mma_16816(o[jd], pf[m], pack_bf16(p[0], p[LD]),
-                  pack_bf16(p[8 * LD], p[9 * LD]));
-      }
-    }
+    for (int dc = 0; dc < DC; ++dc) hopper::fence_regs(o[dc]);
+    if (lane == 0) hopper::mbar_arrive(&empty[t % kStages]);
   }
-  if (!active) return;
 
   // Each row's sum is spread over the 4 lanes of its group.
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
@@ -239,50 +275,51 @@ fused_mha_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  const int row_lo = q0 + wr + g, row_hi = row_lo + 8;
-  __nv_bfloat16* o_lo = out + ((int64_t)b * n + row_lo) * dim + (int64_t)h * d;
-  __nv_bfloat16* o_hi = o_lo + 8 * (int64_t)dim;
+
+  // The q tile is free once every warp of the group is past its last score
+  // product; it takes the output, which one thread stores.
+  hopper::named_barrier(1 + wg, 128);
 #pragma unroll
-  for (int jd = 0; jd < kDimTiles; ++jd) {
-    const int c = 8 * jd + 2 * t;
-    if (c >= d) break;
-    if (row_lo < n)
-      *reinterpret_cast<__nv_bfloat162*>(o_lo + c) =
-          __floats2bfloat162_rn(o[jd][0] * inv_lo, o[jd][1] * inv_lo);
-    if (row_hi < n)
-      *reinterpret_cast<__nv_bfloat162*>(o_hi + c) =
-          __floats2bfloat162_rn(o[jd][2] * inv_hi, o[jd][3] * inv_hi);
+  for (int dc = 0; dc < DC; ++dc) {
+    uint8_t* out_tile = my_q + dc * kTileBytes;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int j2 = 4 * j + t4;
+      *reinterpret_cast<uint32_t*>(out_tile + hopper::sw128_offset(row, j2)) =
+          hopper::pack_bf16(o[dc][4 * j] * inv_lo, o[dc][4 * j + 1] * inv_lo);
+      *reinterpret_cast<uint32_t*>(out_tile + hopper::sw128_offset(row + 8, j2)) =
+          hopper::pack_bf16(o[dc][4 * j + 2] * inv_hi,
+                            o[dc][4 * j + 3] * inv_hi);
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int dc = 0; dc < DC; ++dc)
+      hopper::tma_store_4d(&out_map, my_q + dc * kTileBytes, kTile * dc, h,
+                           q0 + kTile * wg, b);
+    hopper::tma_store_commit_and_wait();
   }
 }
 
-template <int DP>
-int launch_bf16(const void* qkv, void* out, int batch, int n, int nb_heads,
-                int d, float scale, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mha_fwd_bf16_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, nb_heads, batch);
-  fused_mha_fwd_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      n, nb_heads, d, scale);
+template <int DC>
+int launch_bf16(const void* qkv, void* out, const int64_t* maps, int batch,
+                int n, int nb_heads, int d, float scale, cudaStream_t stream) {
+  CUtensorMap qkv_map, out_map;
+  int err = hopper::encode_bf16_map(&qkv_map, qkv, maps);
+  if (err != 0) return err;
+  err = hopper::encode_bf16_map(&out_map, out, maps + hopper::kGeometrySize);
+  if (err != 0) return err;
+  constexpr int smem = MhaTiles<DC>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_mha_fwd_bf16_kernel<DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + kTile * kConsumers - 1) / (kTile * kConsumers),
+                  nb_heads, batch);
+  fused_mha_fwd_bf16_kernel<DC><<<grid, kTmaThreads, smem, stream>>>(
+      qkv_map, out_map, n, d, scale * kLog2e);
   return (int)cudaGetLastError();
-}
-
-int dispatch_bf16(const void* qkv, void* out, int batch, int n, int nb_heads,
-                  int d, float scale, cudaStream_t s) {
-  switch ((d + 15) / 16) {
-    case 1: return launch_bf16<16>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 2: return launch_bf16<32>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 3: return launch_bf16<48>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 4: return launch_bf16<64>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 5: return launch_bf16<80>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 6: return launch_bf16<96>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 7: return launch_bf16<112>(qkv, out, batch, n, nb_heads, d, scale, s);
-    case 8: return launch_bf16<128>(qkv, out, batch, n, nb_heads, d, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -435,10 +472,14 @@ int launch_f32(const void* qkv, void* out, int batch, int n, int nb_heads,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
-extern "C" int tfimm_fused_mha_fwd(const void* qkv, void* out, int batch,
-                                   int n, int nb_heads, int head_dim,
-                                   float scale, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. maps (bf16 only): the geometries of
+// the qkv and out tensor maps, hopper::kGeometrySize int64 values each, as
+// tfimm_tpu_torch/ops/kernels/tma.py computes them. Returns a cudaError_t
+// value (0 = ok).
+extern "C" int tfimm_fused_mha_fwd(const void* qkv, void* out,
+                                   const int64_t* maps, int batch, int n,
+                                   int nb_heads, int head_dim, float scale,
+                                   int dtype, void* stream) {
   if (batch <= 0 || n <= 0 || nb_heads <= 0 || head_dim <= 0 ||
       head_dim % 8 != 0 || head_dim > kMaxHeadDim || batch > 65535 ||
       nb_heads > 65535)
@@ -448,9 +489,15 @@ extern "C" int tfimm_fused_mha_fwd(const void* qkv, void* out, int batch,
     case 0:
       return launch_f32(qkv, out, batch, n, nb_heads, head_dim, scale, s);
     case 1:
-      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+          reinterpret_cast<uintptr_t>(out) % 16 != 0)
         return (int)cudaErrorMisalignedAddress;
-      return dispatch_bf16(qkv, out, batch, n, nb_heads, head_dim, scale, s);
+      if (maps == nullptr) return (int)cudaErrorInvalidValue;
+      if (head_dim <= kTile)
+        return launch_bf16<1>(qkv, out, maps, batch, n, nb_heads, head_dim,
+                              scale, s);
+      return launch_bf16<2>(qkv, out, maps, batch, n, nb_heads, head_dim,
+                            scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -60,8 +60,10 @@ def _digest() -> str:
 
 
 def _declare(lib):
+    geometry = ctypes.POINTER(ctypes.c_int64)  # tma.py's packed maps or NULL
     lib.tfimm_fused_mha_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,  # qkv, out
+        geometry,  # bf16: the qkv and out tensor maps
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
         ctypes.c_void_p,  # cudaStream_t
@@ -169,6 +171,7 @@ def _declare(lib):
         ctypes.c_int64, ctypes.c_int64,  # v batch and row strides
         ctypes.c_void_p, ctypes.c_void_p,  # rel_h_term (B, N, gh), rel_w_term
         ctypes.c_void_p, ctypes.c_void_p,  # out, f32 lse (B, N)
+        geometry,  # bf16: the q, k, v and out tensor maps
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, d
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gh, gw, dtype code
         ctypes.c_void_p,  # cudaStream_t

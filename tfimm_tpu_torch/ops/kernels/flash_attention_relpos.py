@@ -48,6 +48,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
+from tfimm_tpu_torch.ops.kernels.tma import packed_rows_maps
 
 __all__ = ["flash_attention_relpos", "flash_attention_relpos_with_lse",
            "flash_attention_relpos_reference", "flash_attention_relpos_bwd",
@@ -184,10 +185,13 @@ def _forward(qs, k, v, rel_h_term, rel_w_term, grid_size):
         return out, lse
     qs, k, v = _strided(qs), _strided(k), _strided(v)
     rh, rw = rel_h_term.contiguous(), rel_w_term.contiguous()
+    maps = (packed_rows_maps(qs.shape, qs.stride(), k.stride(), v.stride(),
+                             out.stride())
+            if qs.dtype == torch.bfloat16 else None)
     launch("flash_attention_relpos",
            kernel_library().tfimm_flash_attention_relpos_fwd, qs, k, v,
            qs.stride(0), qs.stride(1), k.stride(0), k.stride(1), v.stride(0),
-           v.stride(1), rh, rw, out, lse, b, n, d, gh, gw,
+           v.stride(1), rh, rw, out, lse, maps, b, n, d, gh, gw,
            DTYPE_CODES[qs.dtype])
     return out, lse
 

@@ -32,6 +32,7 @@ from tfimm_tpu_torch.ops.kernels.dispatch import (
     softmax_clamp_grad_mask,
     softmax_nomax,
 )
+from tfimm_tpu_torch.ops.kernels.tma import packed_fused_mha_maps
 
 __all__ = ["fused_mha", "fused_mha_reference", "fused_mha_or_none",
            "fused_mha_supports", "fused_mha_bwd", "fused_mha_bwd_reference"]
@@ -125,8 +126,11 @@ def _fused_mha_forward(qkv: torch.Tensor, nb_heads: int,
     out = torch.empty((b, n, dim), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or n == 0:
         return out
-    launch("fused_mha", kernel_library().tfimm_fused_mha_fwd, qkv, out, b, n,
-            nb_heads, dim // nb_heads, float(scale), _DTYPE_CODES[qkv.dtype])
+    d = dim // nb_heads
+    maps = (packed_fused_mha_maps(b, n, nb_heads, d)
+            if qkv.dtype == torch.bfloat16 else None)
+    launch("fused_mha", kernel_library().tfimm_fused_mha_fwd, qkv, out, maps,
+           b, n, nb_heads, d, float(scale), _DTYPE_CODES[qkv.dtype])
     return out
 
 

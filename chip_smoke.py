@@ -16,9 +16,9 @@ which ends the run with a non-zero exit code on failure:
    Kernel and plain times at the ViT-B shapes (CUDA events around 20
    back-to-back calls, median of 5 such runs after warm-up), and the time of the one PyTorch call that computes
    the same function, ``F.scaled_dot_product_attention`` (for the backward:
-   that call's backward alone), on the same q, k, v. The forward kernel and
-   SDPA also with their operands out of L2 (``cold_ms``), and the kernel's
-   share of the bound and ratio to SDPA both ways.
+   that call's backward alone), on the same q, k, v. Each kernel and its
+   SDPA call also with their operands out of L2 (``cold_ms``), and the
+   kernel's share of the bound and ratio to SDPA both ways.
 3. The serving path: ``create_model("vit_base_patch16_224")`` in bf16 with
    seeded random weights answers 5 requests of 128 uint8 NHWC images through
    ``create_preprocessing`` and ``model.predict``. Every request must launch
@@ -234,7 +234,7 @@ which ends the run with a non-zero exit code on failure:
    route (q, k, v as strided views of one qkv) must equal contiguous
    copies. Kernel, plain, bound and library times with the operands out of
    L2: the library is ``F.scaled_dot_product_attention`` held to its flash
-   backend, on (B, H, N, d).
+   backend, on (B, H, N, d); the kernel and the library also back to back.
 27. ``flash_attention_bwd`` in the same way at the training shape (32
    images x 12 heads) and the same edges: dq, dk, dv within 2e-2 and 1e-4;
    control: the clamped softmax's masked backward; two calls bit-identical.
@@ -725,7 +725,7 @@ def unmasked_bwd(qkv, g, nb_heads, scale):
         b, n, three_d)
 
 
-def phase_backward_kernel(report):
+def phase_backward_kernel(report, gpu_line):
     import torch
     import torch.nn.functional as F
 
@@ -774,14 +774,21 @@ def phase_backward_kernel(report):
                 q, k, v = [t.requires_grad_() for t in heads(qkv, h)]
                 out = F.scaled_dot_product_attention(q, k, v, scale=scale)
                 gh = g.reshape(b, n, h, d).transpose(1, 2).contiguous()
-                report["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
-                    out, (q, k, v), gh, retain_graph=True))
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(out, (q, k, v), gh,
+                                               retain_graph=True)
+
+                report["library_ms"] = cuda_time_ms(sdpa_bwd)
                 print(f"fused_mha_bwd bf16 {BWD_SHAPES[0]}: kernel "
                       f"{report['ms']!r} ms, plain {report['plain_ms']!r} ms, "
                       f"scaled_dot_product_attention backward "
                       f"{report['library_ms']!r} ms, bound "
                       f"{report['bound_ms']!r} ms ({report['bound_by']})",
                       flush=True)
+                print_shares("fused_mha_bwd", report,
+                             cold_ms(lambda: fused_mha_bwd(qkv, g, h, scale)),
+                             cold_ms(sdpa_bwd), gpu_line)
 
 
 def seeded_state_dict(model, seed: int, std: float = 0.02):
@@ -3651,6 +3658,9 @@ def phase_flash_kernel(report, gpu_line):
                 lambda: F.scaled_dot_product_attention(q, k, v))),
         }
         times["bound_ms"], times["bound_by"] = flash_bound(*shape)
+        warm_ms = cuda_time_ms(lambda: flash_attention(q, k, v))
+        library_warm_ms = cuda_time_ms(lambda: sdpa_flash(
+            lambda: F.scaled_dot_product_attention(q, k, v)))
         lib_err = (sdpa_flash(lambda: F.scaled_dot_product_attention(q, k, v))
                    .float() - flash_attention_reference(q, k, v)[0].float()
                    ).abs().max().item()
@@ -3663,7 +3673,9 @@ def phase_flash_kernel(report, gpu_line):
               f" of the bound {times['bound_ms']!r} ms ({times['bound_by']}); "
               f"plain {times['plain_ms']!r} ms; scaled_dot_product_attention "
               f"(flash backend) {times['library_ms']!r} ms (its max abs diff "
-              f"to plain {lib_err!r}); on {gpu_line}", flush=True)
+              f"to plain {lib_err!r}); back to back: kernel {warm_ms!r} ms, "
+              f"{times['bound_ms'] / warm_ms!r} of the bound, SDPA (flash "
+              f"backend) {library_warm_ms!r} ms; on {gpu_line}", flush=True)
         del q, k, v
 
 
@@ -4532,7 +4544,8 @@ def main(argv) -> int:
             report["launches_by_path"] = {}
         run_phase = {
             2: lambda: (phase_kernels(reports["fused_mha"], gpu_line),
-                        phase_backward_kernel(reports["fused_mha_bwd"])),
+                        phase_backward_kernel(reports["fused_mha_bwd"],
+                                              gpu_line)),
             3: lambda: phase_slice(reports, gpu_line),
             4: lambda: phase_train(reports, gpu_line),
             5: lambda: phase_convnext_kernel(reports["convnext_mlp"]),

@@ -42,11 +42,13 @@ max|dv|. ln_dense: the output and dx within 2e-2 * max|plain| in bf16
 dgamma, dbeta, dW and db, which sum over every row, within 2e-2 and 1e-4.
 float16
 models (no kernel takes f16): logits within 5e-2 of max|f32| of the same
-weights, with no launch. The bf16 fused_mha and rel-pos forward read their
-operands through TMA boxes of 64 rows x 64 columns: their tests also cover
-N and d around the boxes' edges, a next row of inf that a box running past
-N would carry in as NaN, qkv at a storage offset, packed strided q, k, v
-and bit-identical repeats, at the same bars.
+weights, with no launch. The bf16 fused_mha, its backward, the rel-pos
+forward and the flash forward read their operands through TMA boxes of 64
+rows x 64 columns: their tests also cover N and d around the boxes' edges,
+a next row (image or head) of inf that a box running past N or d would
+carry in as NaN, qkv (and g) at a storage offset, packed strided q, k, v
+and bit-identical repeats, at the same bars; the backward also the clamp
+input at every shape, with the unmasked backward missing the bar.
 """
 
 import itertools
@@ -277,10 +279,121 @@ def test_fused_mha_kernel_clamps_like_plain(card):
     assert (out - exact.reshape(b, n, h * d)).abs().max().item() > 5 * 2e-2
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("n,d", list(itertools.product(TMA_MHA_N, TMA_MHA_D)))
+def test_fused_mha_bwd_kernel_matches_plain_at_the_tma_edges(card, n, d, dtype,
+                                                             tol):
+    for h in TMA_MHA_H:
+        gen = torch.Generator(device=card).manual_seed(n * 5 + d * 7 + h)
+        qkv = torch.randn(2, n, 3 * h * d, generator=gen, device=card).to(dtype)
+        g = torch.randn(2, n, h * d, generator=gen, device=card).to(dtype)
+        got = fused_mha_bwd(qkv, g, h, d ** -0.5).float()
+        want = fused_mha_bwd_reference(qkv, g, h, d ** -0.5).float()
+        err = (got - want).abs().max().item()
+        assert bool(torch.isfinite(got).all()), h
+        assert err <= tol * want.abs().max().item(), (h, err)
+
+
+@pytest.mark.parametrize("n", [17, 64, 65, 197])
+def test_fused_mha_bwd_boxes_stop_at_n(card, n):
+    """Image 1 of qkv and g set to inf: a box of image 0 that ran past N
+    would carry it into image 0's products."""
+    h, d = 3, 64
+    gen = torch.Generator(device=card).manual_seed(n + 1)
+    qkv = torch.randn(2, n, 3 * h * d, generator=gen, device=card).bfloat16()
+    g = torch.randn(2, n, h * d, generator=gen, device=card).bfloat16()
+    got = fused_mha_bwd(_next_row_inf(qkv), _next_row_inf(g), h, d ** -0.5)
+    want = fused_mha_bwd_reference(qkv[:1], g[:1], h, d ** -0.5).float()
+    assert bool(torch.isfinite(got[:1]).all())
+    err = (got[:1].float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+
+
+def test_fused_mha_bwd_reads_qkv_and_g_at_a_storage_offset(card):
+    """qkv and g 16 bytes into their storages: the tensor maps start at
+    their first elements."""
+    b, n, h, d = 2, 197, 12, 64
+    gen = torch.Generator(device=card).manual_seed(8)
+    buf = torch.randn(b * n * 4 * h * d + 16, generator=gen,
+                      device=card).bfloat16()
+    qkv = buf[8:8 + b * n * 3 * h * d].view(b, n, 3 * h * d)
+    g = buf[16 + b * n * 3 * h * d:].view(b, n, h * d)
+    assert qkv.storage_offset() == 8 and qkv.data_ptr() % 16 == 0
+    assert g.data_ptr() % 16 == 0
+    got = fused_mha_bwd(qkv, g, h, d ** -0.5)
+    assert torch.equal(got, fused_mha_bwd(qkv.clone(), g.clone(), h,
+                                          d ** -0.5))
+    want = fused_mha_bwd_reference(qkv, g, h, d ** -0.5).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+
+
+def _unmasked_bwd(qkv, g, nb_heads, scale):
+    """The plain backward in f32 with the clamp mask left out (packed)."""
+    b, n, three_d = qkv.shape
+    d = three_d // 3 // nb_heads
+    q, k, v = qkv.float().reshape(b, n, 3, nb_heads, d).permute(2, 0, 3, 1, 4)
+    g = g.float().reshape(b, n, nb_heads, d).transpose(1, 2)
+    s = torch.matmul(q * scale, k.transpose(-1, -2))
+    e = torch.exp(torch.clamp(s, max=80.0))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    grads = (scale * torch.matmul(ds, k),
+             scale * torch.matmul(ds.transpose(-1, -2), q),
+             torch.matmul(p.transpose(-1, -2), g))
+    return torch.stack(grads, dim=2).permute(0, 3, 2, 1, 4).reshape(
+        b, n, three_d)
+
+
+def test_fused_mha_bwd_kernel_masks_the_clamp_like_plain(card):
+    """Query 0 of every head points along keys 3 and 5, so that two of its
+    scores pass 80: the kernel holds the masked plain backward, and the
+    unmasked backward misses that bar."""
+    b, n, h, d = 2, 197, 12, 64
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(b, n, 3, h, d, generator=gen, device=card)
+    x[:, 0, 0] = 20.0 * (x[:, 3, 1] + x[:, 5, 1])
+    qkv = x.reshape(b, n, 3 * h * d).bfloat16()
+    g = torch.randn(b, n, h * d, generator=gen, device=card).bfloat16()
+    scale = d ** -0.5
+    got = fused_mha_bwd(qkv, g, h, scale).float()
+    want = fused_mha_bwd_reference(qkv, g, h, scale).float()
+    bar = 2e-2 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+    assert (got - _unmasked_bwd(qkv, g, h, scale)).abs().max().item() > bar
+
+
+@pytest.mark.parametrize("b,n,h,d", SHAPES)
+def test_fused_mha_bwd_kernel_holds_the_clamp_input_at_every_shape(card, b, n,
+                                                                   h, d):
+    """The clamp input at every shape: at small d query 0's scores sit near
+    80, where dp - delta cancels and a delta summed from one bf16 part of
+    the exponentials missed the bar (the kernel sums two parts)."""
+    gen = torch.Generator(device=card).manual_seed(b + n + h + d)
+    x = torch.randn(b, n, 3, h, d, generator=gen, device=card)
+    x[:, 0, 0] = 20.0 * (x[:, 3, 1] + x[:, 5, 1])
+    qkv = x.reshape(b, n, 3 * h * d).bfloat16()
+    g = torch.randn(b, n, h * d, generator=gen, device=card).bfloat16()
+    got = fused_mha_bwd(qkv, g, h, d ** -0.5).float()
+    want = fused_mha_bwd_reference(qkv, g, h, d ** -0.5).float()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+
+
 def test_hopper_kernels_repeat_bit_for_bit(card):
     g = torch.Generator(device=card).manual_seed(6)
     qkv = torch.randn(4, 197, 3 * 12 * 64, generator=g, device=card).bfloat16()
     assert torch.equal(fused_mha(qkv, 12, 0.125), fused_mha(qkv, 12, 0.125))
+    dout = torch.randn(4, 197, 12 * 64, generator=g, device=card).bfloat16()
+    assert torch.equal(fused_mha_bwd(qkv, dout, 12, 0.125),
+                       fused_mha_bwd(qkv, dout, 12, 0.125))
+    q, k, v = (torch.randn(2, 12, 1025, 64, generator=g, device=card).bfloat16()
+               for _ in range(3))
+    first = flash_attention_with_lse(q, k, v)
+    again = flash_attention_with_lse(q, k, v)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
     q, k, v, rh, rw = _relpos_inputs(12, 32, 32, 64, torch.bfloat16, card, 6)
     kw = dict(grid_size=(32, 32), scale=0.125)
     first = flash_attention_relpos_with_lse(q, k, v, rh, rw, **kw)
@@ -1224,6 +1337,59 @@ def test_flash_attention_reads_the_packed_qkv(card):
     got = flash_attention_packed(qkv, h, 0.125)
     assert got.shape == (b, n, h * d) and got.is_contiguous()
     assert torch.equal(got, want.transpose(1, 2).reshape(b, n, h * d))
+
+
+# The TMA layout of the bf16 flash forward (csrc/flash_attention.cu): N
+# around the 64-key tiles and the 128-row blocks (1025: one row in the last
+# block, whose second warpgroup runs no loop), one and two 64-column chunks
+# (zero-filled past d), d = 256 past the TMA body, and H from 1 to 12.
+TMA_FLASH_N = [1, 63, 64, 65, 127, 128, 129, 1024, 1025]
+TMA_FLASH_D = [8, 64, 80, 128, 256]
+TMA_FLASH_H = [1, 3, 12]
+
+
+@pytest.mark.parametrize("n,d", list(itertools.product(TMA_FLASH_N,
+                                                       TMA_FLASH_D)))
+def test_flash_attention_kernel_matches_plain_at_the_tma_edges(card, n, d):
+    for h in TMA_FLASH_H:
+        q, k, v = _flash_inputs((2, h, n, d), torch.bfloat16, card,
+                                n * 3 + d + h)
+        out, lse = flash_attention_with_lse(q, k, v)
+        ref, ref_lse = flash_attention_reference(q, k, v)
+        _held_by(out, ref, 2e-2)
+        _held_by(lse, ref_lse, 1e-5)
+
+
+@pytest.mark.parametrize("n,d", [(1, 64), (63, 8), (129, 80), (1025, 64),
+                                 (65, 128), (200, 256)])
+def test_flash_attention_packed_route_at_the_tma_edges(card, n, d):
+    """The packed qkv's strided views give the output of contiguous copies
+    bit for bit, at every H."""
+    for h in TMA_FLASH_H:
+        gen = torch.Generator(device=card).manual_seed(n + d + h)
+        qkv = torch.randn(2, n, 3 * h * d, generator=gen,
+                          device=card).bfloat16()
+        parts = qkv.view(2, n, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+        want = flash_attention(*parts, scale=0.125)
+        got = flash_attention_packed(qkv, h, 0.125)
+        assert torch.equal(got, want.transpose(1, 2).reshape(2, n, h * d)), h
+
+
+@pytest.mark.parametrize("n", [63, 65, 1025])
+def test_flash_attention_boxes_stop_at_the_head_and_image(card, n):
+    """Head 1 and image 1 of the packed qkv set to inf: a box of head 0 that
+    ran past N or past d would carry them in."""
+    b, h, d = 2, 3, 64
+    gen = torch.Generator(device=card).manual_seed(n)
+    qkv = torch.randn(b, n, 3, h, d, generator=gen, device=card).bfloat16()
+    want = flash_attention(*qkv[:1].permute(2, 0, 3, 1, 4)[:, :, :1],
+                           scale=0.125)
+    qkv[:, :, :, 1] = float("inf")
+    qkv[1] = float("inf")
+    got = flash_attention_packed(qkv.reshape(b, n, 3 * h * d), h, 0.125)
+    head0 = got[:1, :, :d]
+    assert bool(torch.isfinite(head0).all())
+    assert torch.equal(head0, want[0, 0][None])
 
 
 def _flash_bwd_case(shape, dtype, device, seed, big=False):

@@ -1,15 +1,17 @@
 """The TMA tensor maps of the Hopper kernels, emulated on the CPU.
 
 ``tfimm_tpu_torch/ops/kernels/tma.py`` computes each map's dims, byte
-strides and box; the kernels (``csrc/fused_mha.cu``,
-``csrc/flash_attention_relpos.cu``) pick the boxes' coordinates. Here a box
-is read as TMA reads it, with ``torch.as_strided`` over the tensor's storage
-from the map's base and zeros wherever the box runs past the dims, at the
-coordinates the kernels use. The boxes must give exactly ``fused_mha``'s q,
-k and v heads (``_split_qkv``) and the rel-pos kernel's q, k and v tiles,
-with zeros past N and past d; the output maps, written box by box with the
-part past the dims left out, must give ``fused_mha``'s (B, N, H*d) layout.
-The hardware rules the maps must keep are checked beside them.
+strides and box; the kernels (``csrc/fused_mha.cu``, ``fused_mha_bwd.cu``,
+``flash_attention.cu``, ``flash_attention_relpos.cu``) pick the boxes'
+coordinates. Here a box is read as TMA reads it, with ``torch.as_strided``
+over the tensor's storage from the map's base and zeros wherever the box
+runs past the dims, at the coordinates the kernels use. The boxes must give
+exactly ``fused_mha``'s q, k and v heads (``_split_qkv``), its backward's g
+heads, the flash kernel's (B, H, N, d) tiles and the rel-pos kernel's q, k
+and v tiles, with zeros past N and past d; the output maps, written box by
+box with the part past the dims left out, must give ``fused_mha``'s
+(B, N, H*d) layout, its backward's packed dqkv and the flash kernel's
+output. The hardware rules the maps must keep are checked beside them.
 """
 
 import itertools
@@ -17,12 +19,19 @@ import itertools
 import pytest
 import torch
 
-from tfimm_tpu_torch.ops.kernels.fused_mha import _merge_heads, _split_qkv
+from tfimm_tpu_torch.ops.kernels.flash_attention import _rows
+from tfimm_tpu_torch.ops.kernels.fused_mha import (
+    _heads,
+    _merge_heads,
+    _split_qkv,
+)
 from tfimm_tpu_torch.ops.kernels.tma import (
     ELEM_BYTES,
     TILE,
     fused_mha_maps,
+    heads_map,
     packed_fused_mha_maps,
+    packed_heads_maps,
     packed_rows_maps,
     rows_map,
 )
@@ -197,6 +206,116 @@ def test_relpos_boxes_give_the_tiles(gh, gw, d):
         assert torch.equal(out, view)
 
 
+@pytest.mark.parametrize("n,d", [(1, 8), (17, 80), (197, 64), (257, 128),
+                                 (65, 48)])
+def test_fused_mha_maps_read_g_and_write_dqkv(n, d):
+    """The backward reads g through the forward's out geometry: its (64, 1,
+    64, 1) boxes at (64 c, h, 64 r, b) are head h's rows of g as
+    ``fused_mha_bwd_reference`` splits it (``_heads``), zeros past N and d.
+    It writes dqkv through the qkv geometry: boxes of dq, dk and dv written
+    at (64 c, h, part, 64 r, b) give exactly the packed layout
+    ``fused_mha_bwd_reference`` returns, and nothing else."""
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(7 * n + d)
+    g = (torch.randn(b, n, h * d, generator=gen) + 10.0).bfloat16()
+    dqkv_map, g_map = fused_mha_maps(b, n, h, d)
+    for m in (dqkv_map, g_map):
+        _check_rules(m)
+    rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+    got = torch.zeros(b, h, rows, cols, dtype=g.dtype)
+    for bi, hi, r, c in itertools.product(range(b), range(h), _tiles(n),
+                                          _chunks(d)):
+        box = tma_load(g.reshape(-1), g_map, (TILE * c, hi, TILE * r, bi))
+        assert box.shape == (1, TILE, 1, TILE)
+        got[bi, hi, TILE * r:TILE * (r + 1),
+            TILE * c:TILE * (c + 1)] = box[0, :, 0]
+    assert torch.equal(got, _padded(_heads(g, h, g.dtype), rows, cols))
+
+    grads = [torch.randn(b, h, n, d, generator=gen).bfloat16()
+             for _ in range(3)]
+    dqkv = torch.full((b * n * 3 * h * d + 64,), -1.0, dtype=g.dtype)
+    for part, grad in enumerate(grads):
+        tiles = torch.full((b, h, rows, cols), 7.0, dtype=g.dtype)
+        tiles[:, :, :n, :d] = grad
+        for bi, hi, r, c in itertools.product(range(b), range(h), _tiles(n),
+                                              _chunks(d)):
+            box = tiles[bi, hi, TILE * r:TILE * (r + 1),
+                        TILE * c:TILE * (c + 1)]
+            tma_store(dqkv, dqkv_map, (TILE * c, hi, part, TILE * r, bi),
+                      box.reshape(1, TILE, 1, 1, TILE))
+    want = torch.cat([_merge_heads(t) for t in grads], dim=-1)
+    assert torch.equal(dqkv[:b * n * 3 * h * d].reshape(b, n, 3 * h * d), want)
+    assert bool((dqkv[b * n * 3 * h * d:] == -1.0).all())
+
+
+FLASH_N = [1, 63, 64, 65, 127, 128, 129, 1025]
+FLASH_D = [8, 64, 80, 128]
+
+
+def _flash_operands(kind, b, h, n, d, gen):
+    """q, k, v (B, H, N, d) as the flash wrapper hands them to the kernel:
+    contiguous tensors, the strided views of a packed qkv that
+    ``flash_attention_packed`` takes, or (B, N, d) tensors with H = 1."""
+    if kind == "contiguous":
+        return [(torch.randn(b, h, n, d, generator=gen) + 10.0).bfloat16()
+                for _ in range(3)]
+    if kind == "packed":
+        qkv = (torch.randn(b, n, 3 * h * d, generator=gen) + 10.0).bfloat16()
+        return list(qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+    return [_rows((torch.randn(b * h, n, d, generator=gen) + 10.0).bfloat16())
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "packed", "one_head"])
+@pytest.mark.parametrize("n,d", list(itertools.product(FLASH_N, FLASH_D)))
+def test_flash_heads_maps_give_each_heads_tiles(kind, n, d):
+    """Each operand's (64, 64, 1, 1) box at (64 c, 64 r, h, b) of its
+    (d, N, H, B) map is rows 64 r... and columns 64 c... of head h of image
+    b, zeros past N and d: never another head's or image's rows, which are
+    all far from zero here. The output, allocated as the wrapper allocates
+    it (``empty_like`` of q: (B, N, H, d) for the packed route), written box
+    by box through its own map with the part past N and d left out, is
+    exactly the heads' tiles and nothing else of its storage."""
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(n * 17 + d)
+    operands = _flash_operands(kind, b, h, n, d, gen)
+    shape = tuple(operands[0].shape)
+    rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+    for t in operands:
+        m = heads_map(shape, t.stride())
+        _check_rules(m)
+        flat = t.untyped_storage()
+        flat = torch.tensor([], dtype=t.dtype).set_(flat).reshape(-1)
+        flat = flat[t.storage_offset():]
+        got = torch.zeros(*shape[:2], rows, cols, dtype=t.dtype)
+        for bi, hi, r, c in itertools.product(range(shape[0]), range(shape[1]),
+                                              _tiles(n), _chunks(d)):
+            box = tma_load(flat, m, (TILE * c, TILE * r, hi, bi))
+            assert box.shape == (1, 1, TILE, TILE)
+            got[bi, hi, TILE * r:TILE * (r + 1),
+                TILE * c:TILE * (c + 1)] = box[0, 0]
+        assert torch.equal(got, _padded(t, rows, cols))
+
+    q = operands[0]
+    out = torch.empty_like(q)
+    if kind == "packed":   # o comes back in the layout of q: (B, N, H, d)
+        assert out.transpose(1, 2).is_contiguous()
+    want = torch.randn(shape, generator=gen).bfloat16()
+    tiles = torch.full((*shape[:2], rows, cols), 7.0, dtype=want.dtype)
+    tiles[..., :n, :d] = want
+    storage = torch.full((out.numel() + 64,), -1.0, dtype=out.dtype)
+    view = torch.as_strided(storage, out.shape, out.stride())
+    out_map = heads_map(shape, out.stride())
+    _check_rules(out_map)
+    for bi, hi, r, c in itertools.product(range(shape[0]), range(shape[1]),
+                                          _tiles(n), _chunks(d)):
+        box = tiles[bi, hi, TILE * r:TILE * (r + 1), TILE * c:TILE * (c + 1)]
+        tma_store(storage, out_map, (TILE * c, TILE * r, hi, bi),
+                  box.reshape(1, 1, TILE, TILE))
+    assert torch.equal(view, want)
+    assert bool((storage[out.numel():] == -1.0).all())
+
+
 def test_packed_maps_are_the_maps_in_order():
     """The int64 values the C launchers read: rank, dims, strides and box in
     5, 4 and 5 slots, map after map; cached per shape."""
@@ -213,3 +332,14 @@ def test_packed_maps_are_the_maps_in_order():
     assert packed == (rows_map(x.shape, x.stride()).pack()
                       + rows_map(y.shape, y.stride()).pack())
     assert packed[:15] == [3, 16, 10, 4, 0, 0, 96, 960, 0, 0, 64, 64, 1, 0, 0]
+    qkv = torch.zeros(2, 1025, 3 * 12 * 64)
+    q, k = qkv.reshape(2, 1025, 3, 12, 64).permute(2, 0, 3, 1, 4)[:2]
+    heads = list(packed_heads_maps(tuple(q.shape), q.stride(), k.stride()))
+    assert heads == (heads_map(q.shape, q.stride()).pack()
+                     + heads_map(k.shape, k.stride()).pack())
+    # (d, N, H, B) with the token, head and image strides of the packed
+    # rows, in bytes.
+    assert heads[:15] == [4, 64, 1025, 12, 2, 0, 4608, 128, 4723200, 0,
+                          64, 64, 1, 1, 0]
+    assert packed_heads_maps(tuple(q.shape), q.stride()) is packed_heads_maps(
+        tuple(q.shape), q.stride())

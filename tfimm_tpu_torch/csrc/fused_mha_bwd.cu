@@ -15,464 +15,634 @@
 //
 // q, k, v and g are read in place out of their packed rows, and dq, dk and
 // dv are written in place into the packed rows of dqkv: no transposes and
-// no concatenation afterwards. Scores never reach device memory.
+// no concatenation afterwards. Scores never reach device memory. Two
+// launches per call, deterministic, no atomics: (A) dq, and the row sums l
+// and delta = rowsum(dp * p) for (B) in an f32 (B, H, N) scratch; (B) dk and
+// dv.
 //
-// Two launches per call, deterministic, no atomics:
-//
-// (A) dq: one block per (64 query rows, head, image). It streams the head's
-//     keys in 32-key tiles three times: pass 1 sums l = rowsum(exp(min(s,
-//     80))); pass 2 forms p = e / l and dp = g v^T and sums delta =
-//     rowsum(p * dp); pass 3 forms ds and accumulates dq = scale * ds k. It
-//     writes dq, and l and delta to an f32 (B, H, N) scratch.
-// (B) dk, dv: one block per (64 keys, head, image). It keeps its k and v
-//     rows in shared memory and streams the queries in 32-query tiles with
-//     their l and delta, recomputes s^T = k q^T, p^T (from l), dp^T = v g^T
-//     and ds^T (from delta), and accumulates dk = scale * ds^T q and
-//     dv = p^T g in f32 registers.
-//
-// Both kernels share one shape: a block owns 64 rows (queries in A, keys in
-// B), each of its 4 warps 16 of them, and computes 16 x 32 products of its
-// own rows against a streamed tile, then multiplies those products with the
-// streamed tile's rows. The accumulator layout of two adjacent 8-column
-// tiles of an mma.sync product is the A layout of one 16-deep step, so p and
-// ds go from one product to the next in registers.
-//
-// - bf16 (the training path): tensor cores through mma.sync m16n8k16 (bf16
-//   in, f32 accumulate). p and ds are rounded to bf16 before their products
-//   (the reference keeps them in f32); s, l, dp, delta and every sum stay
-//   f32. Shared memory rows are padded by 8 elements, so fragment loads are
-//   free of bank conflicts.
+// - bf16 (the training path), for Hopper (hopper.cuh): a block owns 64 rows
+//   of one (image, head), one consumer warpgroup and one producer warp (160
+//   threads), two blocks an SM. The producer TMA-loads the block's own
+//   tiles once and streams the other operand through a ring of 64-row
+//   stages, each signalled on a "full" mbarrier by TMA's transaction count
+//   and released on an "empty" one by the consumer's warps (4 stages up to
+//   d = 64, 2 above). q, k and v come through fused_mha's 5-D map of the
+//   packed qkv, (d, H, 3, N, B); g through its output map, (d, H, N, B),
+//   since g has the output's layout; dq, dk and dv go out by TMA stores of
+//   the 5-D map over dqkv, from the consumer's own tiles, which clip rows
+//   beyond N and columns beyond d. Boxes are zero-filled past N and d, so
+//   padded rows and keys enter every product as zeros; only the row sum l
+//   masks them.
+//   (A) owns 64 query rows and streams K and V twice. Pass 1 is the
+//   forward's loop: S = q k^T (wgmma, both operands K-major),
+//   e = exp(min(scale S, 80)), l = sum e, and o~ = sum e v (wgmma with A
+//   from registers and v as an MN-major B), with e in two bf16 parts,
+//   bf16(e) and bf16(e - bf16(e)), two products. Then delta = g . o~ / l:
+//   since dp = g v^T, rowsum(p * dp) = g . (p v), exactly, so the dp of a
+//   third pass over the keys goes. (With one bf16 part delta carries bf16's
+//   rounding, which dp - delta magnifies where it cancels: at d = 8 with
+//   scores near the clamp it misses the bar; two parts hold it like f32.) Pass 2 computes S and dP = g v^T (K-major) as one group,
+//   ds = where(s < 80, p * (dP - delta), 0) in registers with
+//   p = 2^(min(scale log2(e) S, 80 log2(e)) - log2 l), and dq += ds k (A
+//   from registers, k MN-major). log2 l and delta go to the scratch, its
+//   rows padded to 64 (the wrapper's).
+//   (B) owns 64 keys and streams the query tiles with their log2 l and
+//   delta (two 256-byte bulk copies a stage beside the q and g boxes). Per
+//   tile: S^T = k q^T and dP^T = v g^T (K-major, one group), p^T and ds^T
+//   through the clamp mask (log2 l makes p one subtraction and one
+//   exponential, no division), then dv += p^T g and dk += ds^T q (A from
+//   registers, g and q MN-major).
+//   e (in two parts), p and ds are rounded to bf16 as the A operands of
+//   their products (the reference keeps them in f32); s, l, dP, delta and
+//   every sum stay f32.
 // - f32: plain f32 FMAs (TF32 would not hold the f32 results), 256 threads
 //   as a 16 x 16 grid, each owning 4 own rows x 4 streamed columns of a
 //   product and 4 own rows x up to 8 head columns of the outputs; p and ds
-//   pass through shared memory.
+//   pass through shared memory. (A) streams the keys three times (l, then
+//   delta from p and dp, then dq).
 //
 // What bounds it on an H100: at ViT-B/16 training (B = 64, N = 197, H = 12,
-// d = 64) one N x N x d product is 2 * B * H * N^2 * d = 3.8 GFLOP. The
-// function needs five (19 GFLOP, 19 us at the bf16 tensor-core peak); with
-// the recomputation this design does ten (s three times and dp twice in A,
-// s, dp, dv and dk in B), about 38 GFLOP, and 56 GFLOP with the padding of
-// N = 197 to 224 streamed and 256 own rows (57 us at peak). It reads about
-// 77 MB (qkv and g; the streamed tiles again come from L2) and writes 58 MB
-// of dqkv: 135 MB, about 40 us at 3.35 TB/s. So the function is bound by
-// device memory, and this design's recomputation would make an ideal form
-// of it bound by compute; this simple form is bound by shared-memory
-// fragment loads feeding mma.sync (plain synchronous tile loads, no
-// cp.async/TMA, no wgmma). The f32 kernels are bound by shared-memory loads
-// feeding FMAs.
+// d = 64) one N x N x d product is 2 * B * H * N^2 * d = 3.8 GFLOP, and the
+// function needs five (19 GFLOP, 19 us at the bf16 tensor-core peak). It
+// reads qkv and g (77 MB) and writes dqkv (58 MB): 135 MB, 40.5 us at 3.35
+// TB/s, so the function is bound by device memory. This design does ten
+// products (six in (A), four in (B)), and N = 197 rounds up to 256 rows and
+// keys (41% of the exponentials are padding, as in fused_mha): 64 GFLOP,
+// 65 us at the tensor cores' peak, so even at that peak it sits above the
+// byte bound; the padding, the recomputation and the low part of e are
+// the work past it. What holds it back beyond that: each warpgroup's chain
+// (the scores, then the exponentials, then the product, each waiting for
+// the last) with two warpgroups an SM to hide it, at the 168 registers a
+// thread that allows (ptxas' report in chip_smoke.py's build log; the
+// variants that overlapped a tile's exponentials with the previous
+// product, or split the tiles into 32-key halves, or put two consumer
+// warpgroups in one block, were slower in development builds). The f32
+// kernels are bound by shared-memory loads feeding FMAs.
 //
-// Shared memory: bf16 27.9 KB at d = 64 and 52.5 KB at d = 128; f32 100 KB
-// at d = 64 and 166 KB at d = 128. Above the 48 KB static limit a launch
-// needs the dynamic limit raised, so the launcher sets
+// Shared memory: bf16 (A) 83 KB up to d = 64 and 98 KB above, (B) the
+// same; f32 100 KB at d = 64 and 166 KB at d = 128. Above the 48 KB static
+// limit a launch needs the dynamic limit raised, so the launcher sets
 // cudaFuncAttributeMaxDynamicSharedMemorySize before every launch and
-// returns cudaGetLastError() after each.
+// returns cudaGetLastError() after each (and the error of a tensor map that
+// does not encode).
 //
-// Coverage: the forward's. Any B, any N (ragged edges masked), any H, and
-// every head dim d that is a multiple of 8 up to 128 (bf16 pads d to a
-// multiple of 16 in shared memory with zeros). bf16 needs qkv, g and dqkv
-// 16-byte aligned.
+// Coverage: the forward's. Any B, any N, any H, and every head dim d that
+// is a multiple of 8 up to 128. bf16 needs qkv, g and dqkv 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kRows = 64;                 // a block's own rows
+constexpr int kRows = 64;                 // a block's own rows (f32)
 constexpr int kMaxHeadDim = 128;
 constexpr float kSoftmaxClamp = 80.0f;    // dispatch.py SOFTMAX_CLAMP
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16: TMA + wgmma
 
-constexpr int kCols = 32;                 // streamed rows per tile
-constexpr int kColTiles = kCols / 8;      // 8-column tiles of a 16 x 32 product
-constexpr int kColSteps = kCols / 16;     // 16-deep steps over a streamed tile
-constexpr int kMmaThreads = 128;          // 4 warps x 16 own rows
+constexpr int kTile = 64;                 // rows, streamed rows and columns
+constexpr int kTileBytes = kTile * kTile * 2;
+constexpr int kTmaThreads = 128 + 32;    // a consumer warpgroup, a producer warp
+constexpr int kBlocksPerSm = 2;           // 10 warps: 168 registers a thread
+constexpr int kStatBytes = kTile * 4;     // 64 f32 log2 l or delta values
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// DC: 64-column chunks of the head dim (1 up to d = 64, 2 up to 128). Own
+// tiles (A: q and g; B: k and v), then the ring's two streamed operands
+// (A: k and v; B: q and g), then (B) log2 l and delta of each stage.
+template <int DC>
+struct BwdTiles {
+  static constexpr int kStages = DC == 1 ? 4 : 2;
+  static constexpr int kOwn0 = 0;
+  static constexpr int kOwn1 = kOwn0 + DC * kTileBytes;
+  static constexpr int kRing0 = kOwn1 + DC * kTileBytes;
+  static constexpr int kRing1 = kRing0 + kStages * DC * kTileBytes;
+  static constexpr int kStats = kRing1 + kStages * DC * kTileBytes;
+  static constexpr int kBars = kStats + kStages * 2 * kStatBytes;
+  // own_full, full[stages], empty[stages]; 1024 bytes of slack for alignment.
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The shared memory of one block of either launch (its tiles and
+// barriers) and the ring's handshakes.
+template <int DC>
+struct BwdBlock {
+  using L = BwdTiles<DC>;
+  static constexpr int kStages = L::kStages;
+  uint8_t* own0;
+  uint8_t* own1;
+  uint8_t* ring0;
+  uint8_t* ring1;
+  float* stats;
+  uint64_t* own_full;
+  uint64_t* full;
+  uint64_t* empty;
 
-// Two bf16 values in one register, the lower column (or k index) in the
-// low half, as the mma fragments expect.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-template <int DP>
-__host__ __device__ constexpr int mma_ld() { return DP + 8; }  // padded smem row, bf16 elements
-
-// Two f32 vectors of kCols (l and delta of the streamed queries in B), then
-// two own tiles of kRows rows and two streamed tiles of kCols rows.
-template <int DP>
-size_t mma_smem_bytes() {
-  return 2 * kCols * sizeof(float) +
-         sizeof(__nv_bfloat16) * (size_t)(2 * kRows + 2 * kCols) * mma_ld<DP>();
-}
-
-// Rows [r0, r0 + ROWS) of one head's slice of a packed tensor into shared
-// memory, 16 bytes per load; rows at or beyond n and columns at or beyond d
-// become zeros.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          __nv_bfloat16* dst, int r0, int n,
-                                          int d, int64_t row_stride) {
-  constexpr int kChunks = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n && c < d)
-      v = *reinterpret_cast<const uint4*>(src + (int64_t)row * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * mma_ld<DP>() + c) = v;
+  __device__ explicit BwdBlock(uint8_t* smem_raw) {
+    uint8_t* smem = hopper::align_1024(smem_raw);
+    own0 = smem + L::kOwn0;
+    own1 = smem + L::kOwn1;
+    ring0 = smem + L::kRing0;
+    ring1 = smem + L::kRing1;
+    stats = reinterpret_cast<float*>(smem + L::kStats);
+    own_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+    full = own_full + 1;
+    empty = full + kStages;
+    if (threadIdx.x == 0) {
+      hopper::mbar_init(own_full, 1);
+      for (int s = 0; s < kStages; ++s) {
+        hopper::mbar_init(&full[s], 1);
+        hopper::mbar_init(&empty[s], 4);   // one arrival a consumer warp
+      }
+      hopper::fence_barrier_init();
+    }
+    __syncthreads();
   }
-}
 
-// c[j] = A[r, r + 16) . B[8j, 8j + 8)^T over the (padded) head dim: the
-// warp's 16 own rows against the 32 rows of a streamed tile. Element
-// c[j][i] sits at own row r + g + 8 * (i / 2), streamed row 8j + 2t + i % 2.
-template <int DP>
-__device__ __forceinline__ void warp_abt(const __nv_bfloat16* a_s, int r,
-                                         const __nv_bfloat16* b_s,
-                                         float (&c)[kColTiles][4]) {
-  constexpr int LD = mma_ld<DP>();
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  __device__ uint8_t* ring(uint8_t* base, int it, int dc) const {
+    return base + ((it % kStages) * DC + dc) * kTileBytes;
+  }
+  // Producer: wait until ring iteration it's stage is free, and announce
+  // `bytes` on its full barrier.
+  __device__ void produce(int it, uint32_t bytes) const {
+    const int st = it % kStages;
+    if (it >= kStages) hopper::mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+    hopper::mbar_expect_tx(&full[st], bytes);
+  }
+  // Consumer: wait until ring iteration it's stage has arrived.
+  __device__ void consume(int it) const {
+    hopper::mbar_wait(&full[it % kStages], (it / kStages) & 1);
+  }
+  __device__ void release(int it) const {
+    if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&empty[it % kStages]);
+  }
+};
+
+// acc (=)= A B^T over the head dim: A a warpgroup's own 64 x d tile, B a
+// 64 x d tile, both K-major, as part of the caller's wgmma group. The first
+// step overwrites acc.
+template <int DC>
+__device__ __forceinline__ void product_abt(float (&acc)[32], const uint8_t* a,
+                                            const uint8_t* b, int nb_steps) {
 #pragma unroll
-  for (int j = 0; j < kColTiles; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    const __nv_bfloat16* pa = a_s + (r + g) * LD + ks * 16 + 2 * t;
-    const uint32_t a[4] = {ld_u32(pa), ld_u32(pa + 8 * LD), ld_u32(pa + 8),
-                           ld_u32(pa + 8 * LD + 8)};
-#pragma unroll
-    for (int j = 0; j < kColTiles; ++j) {
-      const __nv_bfloat16* pb = b_s + (8 * j + g) * LD + ks * 16 + 2 * t;
-      mma_16816(c[j], a, ld_u32(pb), ld_u32(pb + 8));
+  for (int ks = 0; ks < 4 * DC; ++ks) {
+    if (ks < nb_steps) {
+      const int dc = ks / 4, kk = ks % 4;
+      hopper::wgmma_m64n64k16_ss<0>(
+          acc, hopper::sw128_desc(a + dc * kTileBytes) + 2 * kk,
+          hopper::sw128_desc(b + dc * kTileBytes) + 2 * kk, ks > 0);
     }
   }
 }
 
-// acc += X @ B: X (16 own rows x kCols) given as A fragments, one per
-// 16-deep step, times the streamed tile B (kCols rows x DP). Steps whose
-// 16 streamed rows all lie at or beyond the end (live <= 16 m) are skipped.
-template <int DP>
-__device__ __forceinline__ void warp_ab(const uint32_t (&x)[kColSteps][4],
-                                        const __nv_bfloat16* b_s, int live,
-                                        float (&acc)[DP / 8][4]) {
-  constexpr int LD = mma_ld<DP>();
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+// acc[dc] += X B over 64 streamed rows: X (64 x 64, bf16) from registers
+// in the A layout, B a 64 x d tile read MN-major (16 rows a k16 step).
+template <int DC>
+__device__ __forceinline__ void product_xb(float (&acc)[DC][32],
+                                           uint32_t (&x)[16],
+                                           const uint8_t* b) {
 #pragma unroll
-  for (int m = 0; m < kColSteps; ++m) {
-    if (16 * m >= live) break;
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int jd = 0; jd < DP / 8; ++jd) {
-      const __nv_bfloat16* p = b_s + (16 * m + 2 * t) * LD + 8 * jd + g;
-      mma_16816(acc[jd], x[m], pack_bf16(p[0], p[LD]),
-                pack_bf16(p[8 * LD], p[9 * LD]));
-    }
-  }
+    for (int dc = 0; dc < DC; ++dc)
+      hopper::wgmma_m64n64k16_rs<1>(
+          acc[dc], &x[4 * m], hopper::sw128_desc(b + dc * kTileBytes) + 128 * m,
+          1);
 }
 
-// The value of c[j][i] (see warp_abt) into the A fragments of warp_ab.
-__device__ __forceinline__ void pack_frag(uint32_t (&x)[kColSteps][4], int j,
-                                          const float (&v)[4]) {
-  x[j / 2][(j % 2) * 2 + 0] = pack_bf16(v[0], v[1]);
-  x[j / 2][(j % 2) * 2 + 1] = pack_bf16(v[2], v[3]);
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// Sum over the 4 lanes that hold one row of a warp_abt product.
+// Sum over the 4 lanes that hold one row of an accumulator.
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Rows r and r + 8 of a 16-row accumulator, times mul, into the packed
-// rows of out (row stride ld_out) where they lie below n.
-template <int DP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int64_t ld_out,
-                                           int row, int n, int d, float mul,
-                                           const float (&acc)[DP / 8][4]) {
-  const int t = threadIdx.x % 4;
+// The packed register of accumulator elements (4 j + 2 hi, + 1) in the A
+// layout: column blocks 2 m and 2 m + 1 are the registers of k16 step m.
+__device__ __forceinline__ int a_reg(int j, int hi) {
+  return (j / 2) * 4 + (j % 2) * 2 + hi;
+}
+
+// e0 and e1 as the sums of two bf16 values each: hi = bf16(e) and
+// lo = bf16(e - hi), packed as A registers.
+__device__ __forceinline__ void split_bf16(float e0, float e1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = hopper::pack_bf16(e0, e1);
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = hopper::pack_bf16(e0 - h.x, e1 - h.y);
+}
+
+// acc * mul of a warpgroup into its own swizzled tile(s), then one thread
+// stores them through the 5-D map at (64 dc, h, part, r0, b).
+template <int DC>
+__device__ __forceinline__ void store_tiles(const float (&acc)[DC][32],
+                                            float mul, uint8_t* tile,
+                                            const CUtensorMap* map, int h,
+                                            int part, int r0, int b) {
+  const int lane = threadIdx.x % 32;
+  const int row = (threadIdx.x / 32 % 4) * 16 + lane / 4, t4 = lane % 4;
 #pragma unroll
-  for (int jd = 0; jd < DP / 8; ++jd) {
-    const int c = 8 * jd + 2 * t;
-    if (c >= d) break;
-    if (row < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + row * ld_out + c) =
-          __floats2bfloat162_rn(acc[jd][0] * mul, acc[jd][1] * mul);
-    if (row + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ld_out + c) =
-          __floats2bfloat162_rn(acc[jd][2] * mul, acc[jd][3] * mul);
+  for (int dc = 0; dc < DC; ++dc) {
+    uint8_t* out = tile + dc * kTileBytes;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int j2 = 4 * j + t4;
+      *reinterpret_cast<uint32_t*>(out + hopper::sw128_offset(row, j2)) =
+          hopper::pack_bf16(acc[dc][4 * j] * mul, acc[dc][4 * j + 1] * mul);
+      *reinterpret_cast<uint32_t*>(out + hopper::sw128_offset(row + 8, j2)) =
+          hopper::pack_bf16(acc[dc][4 * j + 2] * mul, acc[dc][4 * j + 3] * mul);
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1, 128);
+  if (threadIdx.x == 0) {
+    for (int dc = 0; dc < DC; ++dc)
+      hopper::tma_store_5d(map, tile + dc * kTileBytes, kTile * dc, h, part,
+                           r0, b);
+    hopper::tma_store_commit_and_wait();
   }
 }
 
-// (A): dq, l and delta. DP: the head dim rounded up to a multiple of 16.
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-fused_mha_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
-                             const __nv_bfloat16* __restrict__ grad,
-                             __nv_bfloat16* __restrict__ dqkv,
+// A registers of one streamed tile: two 64 x 64 bf16 operands (A: e's high
+// and low parts in pass 1, ds in `a` in pass 2; B: p^T and ds^T).
+struct Operands {
+  uint32_t a[16], b[16];
+};
+
+__device__ __forceinline__ void fence_operands(Operands& r) {
+  hopper::fence_regs(r.a);
+  hopper::fence_regs(r.b);
+}
+
+// The consumer loop of either launch over ring iterations [begin, end),
+// one at a time: an iteration's scores (`issue_scores`, one wgmma group)
+// become its A registers (`form`), which its product (`issue_product`, one
+// group) takes into the accumulators; then its ring stage is released and
+// the next iteration's scores issued. `fence_all` fences every register a
+// group has written or read.
+template <int DC, class Fence, class Form, class Product, class Scores>
+__device__ __forceinline__ void stream(const BwdBlock<DC>& blk, int begin,
+                                       int end, Fence&& fence_all, Form&& form,
+                                       Product&& issue_product,
+                                       Scores&& issue_scores) {
+  issue_scores(begin);
+  for (int it = begin; it < end; ++it) {
+    hopper::wgmma_wait<0>();
+    fence_all();
+    form(it);
+    issue_product(it);
+    hopper::wgmma_wait<0>();
+    fence_all();
+    blk.release(it);
+    if (it + 1 < end) issue_scores(it + 1);
+  }
+}
+
+// (A): dq, and log2 l and delta into (B, H, n_pad) f32 rows.
+template <int DC>
+__global__ void __launch_bounds__(kTmaThreads, kBlocksPerSm)
+fused_mha_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                             const __grid_constant__ CUtensorMap g_map,
+                             const __grid_constant__ CUtensorMap dqkv_map,
                              float* __restrict__ row_sum,
-                             float* __restrict__ row_delta, int n,
-                             int nb_heads, int d, float scale) {
-  constexpr int LD = mma_ld<DP>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * kCols * sizeof(float));
-  __nv_bfloat16* g_s = q_s + kRows * LD;
-  __nv_bfloat16* k_s = g_s + kRows * LD;
-  __nv_bfloat16* v_s = k_s + kCols * LD;
+                             float* __restrict__ row_delta, int n, int n_pad,
+                             int d, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const BwdBlock<DC> blk(smem_raw);
+  const int nb_tiles = (n + kTile - 1) / kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int r0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int dim = nb_heads * d;
-  const int64_t qkv_stride = 3 * (int64_t)dim;
-  const int64_t head = (int64_t)b * n * qkv_stride + (int64_t)h * d;
-  const __nv_bfloat16* q_g = qkv + head;
-  const __nv_bfloat16* k_g = q_g + dim;
-  const __nv_bfloat16* v_g = q_g + 2 * dim;
-  const __nv_bfloat16* g_g = grad + (int64_t)b * n * dim + (int64_t)h * d;
-
-  const int lane = threadIdx.x % 32;
-  const int t = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;  // this warp's first own row
-  const bool active = r0 + wr < n;
-
-  load_tile<DP, kRows>(q_g, q_s, r0, n, d, qkv_stride);
-  load_tile<DP, kRows>(g_g, g_s, r0, n, d, dim);
-
-  float s[kColTiles][4], dp[kColTiles][4];
-
-  // Pass 1: l = rowsum(exp(min(s, 80))) over the keys below n.
-  float l[2] = {0.f, 0.f};                 // rows g and g + 8
-  for (int c0 = 0; c0 < n; c0 += kCols) {
-    __syncthreads();  // previous tile fully read (and own tiles written)
-    load_tile<DP, kCols>(k_g, k_s, c0, n, d, qkv_stride);
-    __syncthreads();
-    if (!active) continue;
-    warp_abt<DP>(q_s, wr, k_s, s);
-#pragma unroll
-    for (int j = 0; j < kColTiles; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (c0 + 8 * j + 2 * t + i % 2 < n)
-          l[i / 2] += expf(fminf(s[j][i] * scale, kSoftmaxClamp));
+  if (warp == 4) {
+    // Producer: q and g, then K and V of every key tile, twice.
+    if (lane == 0) {
+      hopper::mbar_expect_tx(blk.own_full, 2 * DC * kTileBytes);
+      for (int dc = 0; dc < DC; ++dc) {
+        hopper::tma_load_5d(blk.own0 + dc * kTileBytes, &qkv_map, blk.own_full,
+                            kTile * dc, h, 0, q0, b);
+        hopper::tma_load_4d(blk.own1 + dc * kTileBytes, &g_map, blk.own_full,
+                            kTile * dc, h, q0, b);
+      }
+      for (int it = 0; it < 2 * nb_tiles; ++it) {
+        uint64_t* bar = &blk.full[it % BwdBlock<DC>::kStages];
+        blk.produce(it, 2 * DC * kTileBytes);
+        for (int dc = 0; dc < DC; ++dc) {
+          hopper::tma_load_5d(blk.ring(blk.ring0, it, dc), &qkv_map, bar,
+                              kTile * dc, h, 1, kTile * (it % nb_tiles), b);
+          hopper::tma_load_5d(blk.ring(blk.ring1, it, dc), &qkv_map, bar,
+                              kTile * dc, h, 2, kTile * (it % nb_tiles), b);
+        }
+      }
+    }
+    return;
   }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
 
-  // Pass 2: delta = rowsum(p * dp).
-  float delta[2] = {0.f, 0.f};
-  for (int c0 = 0; c0 < n; c0 += kCols) {
-    __syncthreads();
-    load_tile<DP, kCols>(k_g, k_s, c0, n, d, qkv_stride);
-    load_tile<DP, kCols>(v_g, v_s, c0, n, d, qkv_stride);
-    __syncthreads();
-    if (!active) continue;
-    warp_abt<DP>(q_s, wr, k_s, s);
-    warp_abt<DP>(g_s, wr, v_s, dp);
+  const int row = warp * 16 + lane / 4;   // and row + 8
+  const int t4 = lane % 4;
+  const int nb_steps = (d + 15) / 16;
+  const float clamp_log2 = kSoftmaxClamp * kLog2e;
+  uint8_t* my_q = blk.own0;
+  const uint8_t* my_g = blk.own1;
+
+  // Scores of 64 keys (s; in pass 2 also dP = g v^T), the dq (in pass 1
+  // o~) accumulators, and the A registers.
+  float s[32], dp[32], acc[DC][32];
+  Operands r;
+  zero(s);
+  zero(dp);
 #pragma unroll
-    for (int j = 0; j < kColTiles; ++j)
+  for (int dc = 0; dc < DC; ++dc) zero(acc[dc]);
+  auto fence_all = [&] {
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    fence_operands(r);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (c0 + 8 * j + 2 * t + i % 2 < n)
-          delta[i / 2] += expf(fminf(s[j][i] * scale, kSoftmaxClamp)) *
-                          inv_l[i / 2] * dp[j][i];
+    for (int dc = 0; dc < DC; ++dc) hopper::fence_regs(acc[dc]);
+  };
+  // Ring iteration it's scores, one wgmma group; pass 2 from nb_tiles.
+  auto issue_scores = [&](int it) {
+    blk.consume(it);
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    product_abt<DC>(s, my_q, blk.ring(blk.ring0, it, 0), nb_steps);
+    if (it >= nb_tiles)
+      product_abt<DC>(dp, my_g, blk.ring(blk.ring1, it, 0), nb_steps);
+    hopper::wgmma_commit();
+  };
+  // acc += (a + b) v in pass 1, acc += a k in pass 2.
+  auto issue_product = [&](int it) {
+    fence_operands(r);
+#pragma unroll
+    for (int dc = 0; dc < DC; ++dc) hopper::fence_regs(acc[dc]);
+    hopper::wgmma_fence();
+    if (it >= nb_tiles) {
+      product_xb<DC>(acc, r.a, blk.ring(blk.ring0, it, 0));
+    } else {
+      product_xb<DC>(acc, r.a, blk.ring(blk.ring1, it, 0));
+      product_xb<DC>(acc, r.b, blk.ring(blk.ring1, it, 0));
+    }
+    hopper::wgmma_commit();
+  };
+
+  // Pass 1: l = sum e over the keys below n, o~ = sum e v with e in two
+  // bf16 parts (one part alone would leave delta off by bf16's rounding,
+  // which dp - delta can magnify: scores near the clamp at small d).
+  float l_lo = 0.f, l_hi = 0.f;   // this lane's share of rows row, row + 8
+  hopper::mbar_wait(blk.own_full, 0);
+  stream(blk, 0, nb_tiles, fence_all, [&](int t) {
+    const bool ragged = kTile * (t + 1) > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = kTile * t + 8 * j + 2 * t4;
+      float e0 = hopper::exp2_approx(fminf(s[4 * j] * scale_log2, clamp_log2));
+      float e1 = hopper::exp2_approx(fminf(s[4 * j + 1] * scale_log2, clamp_log2));
+      float e2 = hopper::exp2_approx(fminf(s[4 * j + 2] * scale_log2, clamp_log2));
+      float e3 = hopper::exp2_approx(fminf(s[4 * j + 3] * scale_log2, clamp_log2));
+      if (ragged) {
+        if (key >= n) e0 = e2 = 0.f;
+        if (key + 1 >= n) e1 = e3 = 0.f;
+      }
+      l_lo += e0 + e1;
+      l_hi += e2 + e3;
+      split_bf16(e0, e1, r.a[a_reg(j, 0)], r.b[a_reg(j, 0)]);
+      split_bf16(e2, e3, r.a[a_reg(j, 1)], r.b[a_reg(j, 1)]);
+    }
+  }, issue_product, issue_scores);
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  const float log_lo = __log2f(l_lo), log_hi = __log2f(l_hi);
+
+  // delta = g . o~ / l, with g read from the swizzled own tile at this
+  // thread's accumulator positions.
+  float dl_lo = 0.f, dl_hi = 0.f;
+#pragma unroll
+  for (int dc = 0; dc < DC; ++dc) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int j2 = 4 * j + t4;
+      const float2 g_lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          my_g + dc * kTileBytes + hopper::sw128_offset(row, j2)));
+      const float2 g_hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          my_g + dc * kTileBytes + hopper::sw128_offset(row + 8, j2)));
+      dl_lo += g_lo.x * acc[dc][4 * j] + g_lo.y * acc[dc][4 * j + 1];
+      dl_hi += g_hi.x * acc[dc][4 * j + 2] + g_hi.y * acc[dc][4 * j + 3];
+    }
   }
-  delta[0] = quad_sum(delta[0]);
-  delta[1] = quad_sum(delta[1]);
+  const float delta_lo = quad_sum(dl_lo) / l_lo;
+  const float delta_hi = quad_sum(dl_hi) / l_hi;
 
-  // Pass 3: dq += ds @ k.
-  float acc[DP / 8][4];
+  // Pass 2: dq += ds k, ds = where(s < 80, e / l * (dP - delta), 0), with
+  // e / l as 2^(min(scale log2(e) s, 80 log2(e)) - log2 l). Keys at or
+  // beyond n meet zero rows of k.
 #pragma unroll
-  for (int jd = 0; jd < DP / 8; ++jd)
+  for (int dc = 0; dc < DC; ++dc) zero(acc[dc]);
+  stream(blk, nb_tiles, 2 * nb_tiles, fence_all, [&](int) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[jd][i] = 0.f;
-  for (int c0 = 0; c0 < n; c0 += kCols) {
-    __syncthreads();
-    load_tile<DP, kCols>(k_g, k_s, c0, n, d, qkv_stride);
-    load_tile<DP, kCols>(v_g, v_s, c0, n, d, qkv_stride);
-    __syncthreads();
-    if (!active) continue;
-    warp_abt<DP>(q_s, wr, k_s, s);
-    warp_abt<DP>(g_s, wr, v_s, dp);
-    uint32_t dsf[kColSteps][4];
-#pragma unroll
-    for (int j = 0; j < kColTiles; ++j) {
+    for (int j = 0; j < 8; ++j) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float x = s[j][i] * scale;
-        const bool ok = c0 + 8 * j + 2 * t + i % 2 < n;
-        const float p = ok ? expf(fminf(x, kSoftmaxClamp)) * inv_l[i / 2] : 0.f;
-        ds[i] = x < kSoftmaxClamp ? p * (dp[j][i] - delta[i / 2]) : 0.f;
+        const float xl = s[4 * j + i] * scale_log2;
+        const float p = hopper::exp2_approx(fminf(xl, clamp_log2) -
+                                            (i < 2 ? log_lo : log_hi));
+        const float delta = i < 2 ? delta_lo : delta_hi;
+        ds[i] = xl < clamp_log2 ? p * (dp[4 * j + i] - delta) : 0.f;
       }
-      pack_frag(dsf, j, ds);
+      r.a[a_reg(j, 0)] = hopper::pack_bf16(ds[0], ds[1]);
+      r.a[a_reg(j, 1)] = hopper::pack_bf16(ds[2], ds[3]);
     }
-    warp_ab<DP>(dsf, k_s, n - c0, acc);
-  }
-  if (!active) return;
+  }, issue_product, issue_scores);
 
-  const int row = r0 + wr + lane / 4;
-  store_rows<DP>(dqkv + head, qkv_stride, row, n, d, scale, acc);
-  if (t == 0) {
-    float* l_g = row_sum + ((int64_t)b * nb_heads + h) * n;
-    float* dl_g = row_delta + ((int64_t)b * nb_heads + h) * n;
-    if (row < n) { l_g[row] = l[0]; dl_g[row] = delta[0]; }
-    if (row + 8 < n) { l_g[row + 8] = l[1]; dl_g[row + 8] = delta[1]; }
+  const int row_lo = q0 + row;
+  if (t4 == 0) {
+    const int64_t base = ((int64_t)b * gridDim.y + h) * n_pad;
+    row_sum[base + row_lo] = log_lo;
+    row_sum[base + row_lo + 8] = log_hi;
+    row_delta[base + row_lo] = delta_lo;
+    row_delta[base + row_lo + 8] = delta_hi;
   }
+  // The q tile is free once every warp of the group is past its last
+  // product; it takes dq.
+  hopper::named_barrier(1, 128);
+  store_tiles<DC>(acc, scale, my_q, &dqkv_map, h, 0, q0, b);
 }
 
-// (B): dk and dv, from the l and delta that (A) wrote.
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-fused_mha_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
-                              const __nv_bfloat16* __restrict__ grad,
-                              __nv_bfloat16* __restrict__ dqkv,
+// (B): dk and dv, from the log2 l and delta that (A) wrote.
+template <int DC>
+__global__ void __launch_bounds__(kTmaThreads, kBlocksPerSm)
+fused_mha_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                              const __grid_constant__ CUtensorMap g_map,
+                              const __grid_constant__ CUtensorMap dqkv_map,
                               const float* __restrict__ row_sum,
                               const float* __restrict__ row_delta, int n,
-                              int nb_heads, int d, float scale) {
-  constexpr int LD = mma_ld<DP>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* l_s = reinterpret_cast<float*>(smem_raw);
-  float* dl_s = l_s + kCols;
-  __nv_bfloat16* k_s =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * kCols * sizeof(float));
-  __nv_bfloat16* v_s = k_s + kRows * LD;
-  __nv_bfloat16* q_s = v_s + kRows * LD;
-  __nv_bfloat16* g_s = q_s + kCols * LD;
+                              int n_pad, int d, float scale,
+                              float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const int k0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const BwdBlock<DC> blk(smem_raw);
+  const int nb_tiles = (n + kTile - 1) / kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int r0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int dim = nb_heads * d;
-  const int64_t qkv_stride = 3 * (int64_t)dim;
-  const int64_t head = (int64_t)b * n * qkv_stride + (int64_t)h * d;
-  const __nv_bfloat16* q_g = qkv + head;
-  const __nv_bfloat16* k_g = q_g + dim;
-  const __nv_bfloat16* v_g = q_g + 2 * dim;
-  const __nv_bfloat16* g_g = grad + (int64_t)b * n * dim + (int64_t)h * d;
-  const float* l_g = row_sum + ((int64_t)b * nb_heads + h) * n;
-  const float* dl_g = row_delta + ((int64_t)b * nb_heads + h) * n;
-
-  const int lane = threadIdx.x % 32;
-  const int t = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;  // this warp's first own key
-  const bool active = r0 + wr < n;
-
-  load_tile<DP, kRows>(k_g, k_s, r0, n, d, qkv_stride);
-  load_tile<DP, kRows>(v_g, v_s, r0, n, d, qkv_stride);
-
-  float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-  for (int jd = 0; jd < DP / 8; ++jd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[jd][i] = dv[jd][i] = 0.f;
-
-  float s[kColTiles][4], dp[kColTiles][4];
-  for (int c0 = 0; c0 < n; c0 += kCols) {
-    __syncthreads();  // previous tile fully read (and own tiles written)
-    load_tile<DP, kCols>(q_g, q_s, c0, n, d, qkv_stride);
-    load_tile<DP, kCols>(g_g, g_s, c0, n, d, dim);
-    for (int i = threadIdx.x; i < kCols; i += kMmaThreads) {
-      const bool ok = c0 + i < n;
-      l_s[i] = ok ? l_g[c0 + i] : 1.f;
-      dl_s[i] = ok ? dl_g[c0 + i] : 0.f;
+  if (warp == 4) {
+    // Producer: k and v, then q, g, log2 l and delta of every query tile.
+    if (lane == 0) {
+      hopper::mbar_expect_tx(blk.own_full, 2 * DC * kTileBytes);
+      for (int dc = 0; dc < DC; ++dc) {
+        hopper::tma_load_5d(blk.own0 + dc * kTileBytes, &qkv_map, blk.own_full,
+                            kTile * dc, h, 1, k0, b);
+        hopper::tma_load_5d(blk.own1 + dc * kTileBytes, &qkv_map, blk.own_full,
+                            kTile * dc, h, 2, k0, b);
+      }
+      const int64_t base = ((int64_t)b * gridDim.y + h) * n_pad;
+      for (int t = 0; t < nb_tiles; ++t) {
+        uint64_t* bar = &blk.full[t % BwdBlock<DC>::kStages];
+        blk.produce(t, 2 * DC * kTileBytes + 2 * kStatBytes);
+        for (int dc = 0; dc < DC; ++dc) {
+          hopper::tma_load_5d(blk.ring(blk.ring0, t, dc), &qkv_map, bar,
+                              kTile * dc, h, 0, kTile * t, b);
+          hopper::tma_load_4d(blk.ring(blk.ring1, t, dc), &g_map, bar,
+                              kTile * dc, h, kTile * t, b);
+        }
+        float* stats = blk.stats + (t % BwdBlock<DC>::kStages) * 2 * kTile;
+        hopper::bulk_load(stats, row_sum + base + kTile * t, kStatBytes, bar);
+        hopper::bulk_load(stats + kTile, row_delta + base + kTile * t,
+                          kStatBytes, bar);
+      }
     }
-    __syncthreads();
-    if (!active) continue;
-    warp_abt<DP>(k_s, wr, q_s, s);    // s^T: own keys x streamed queries
-    warp_abt<DP>(v_s, wr, g_s, dp);   // dp^T
-    uint32_t pf[kColSteps][4], dsf[kColSteps][4];
+    return;
+  }
+
+  const int t4 = threadIdx.x % 4;
+  const int nb_steps = (d + 15) / 16;
+  const float clamp_log2 = kSoftmaxClamp * kLog2e;
+  uint8_t* my_k = blk.own0;
+  uint8_t* my_v = blk.own1;
+
+  // S^T and dP^T of 64 queries, the dk and dv accumulators, and p^T and
+  // ds^T as bf16 A registers (a and b).
+  float s[32], dp[32], dk[DC][32], dv[DC][32];
+  Operands r;
+  zero(s);
+  zero(dp);
 #pragma unroll
-    for (int j = 0; j < kColTiles; ++j) {
+  for (int dc = 0; dc < DC; ++dc) {
+    zero(dk[dc]);
+    zero(dv[dc]);
+  }
+  auto fence_all = [&] {
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    fence_operands(r);
+#pragma unroll
+    for (int dc = 0; dc < DC; ++dc) {
+      hopper::fence_regs(dk[dc]);
+      hopper::fence_regs(dv[dc]);
+    }
+  };
+  // S^T = k q^T and dP^T = v g^T of query tile t, one wgmma group.
+  auto issue_scores = [&](int t) {
+    blk.consume(t);
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    product_abt<DC>(s, my_k, blk.ring(blk.ring0, t, 0), nb_steps);
+    product_abt<DC>(dp, my_v, blk.ring(blk.ring1, t, 0), nb_steps);
+    hopper::wgmma_commit();
+  };
+  // dv += p^T g and dk += ds^T q.
+  auto issue_product = [&](int t) {
+    fence_operands(r);
+#pragma unroll
+    for (int dc = 0; dc < DC; ++dc) {
+      hopper::fence_regs(dk[dc]);
+      hopper::fence_regs(dv[dc]);
+    }
+    hopper::wgmma_fence();
+    product_xb<DC>(dv, r.a, blk.ring(blk.ring1, t, 0));
+    product_xb<DC>(dk, r.b, blk.ring(blk.ring0, t, 0));
+    hopper::wgmma_commit();
+  };
+
+  // Query rows at or beyond n: q and g are zero rows, and their l (finite,
+  // from (A)'s padded rows) and delta (0) give them no weight.
+  hopper::mbar_wait(blk.own_full, 0);
+  stream(blk, 0, nb_tiles, fence_all, [&](int t) {
+    const float* log_l = blk.stats + (t % BwdBlock<DC>::kStages) * 2 * kTile;
+    const float* delta = log_l + kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t4;   // the tile's queries col, col + 1
+      const float2 ll = *reinterpret_cast<const float2*>(log_l + col);
+      const float2 dl = *reinterpret_cast<const float2*>(delta + col);
       float p[4], ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int q = 8 * j + 2 * t + i % 2;
-        const float x = s[j][i] * scale;
-        p[i] = c0 + q < n ? expf(fminf(x, kSoftmaxClamp)) / l_s[q] : 0.f;
-        ds[i] = x < kSoftmaxClamp ? p[i] * (dp[j][i] - dl_s[q]) : 0.f;
+        const float xl = s[4 * j + i] * scale_log2;
+        p[i] = hopper::exp2_approx(fminf(xl, clamp_log2) -
+                                   (i % 2 ? ll.y : ll.x));
+        ds[i] = xl < clamp_log2 ? p[i] * (dp[4 * j + i] - (i % 2 ? dl.y : dl.x))
+                                : 0.f;
       }
-      pack_frag(pf, j, p);
-      pack_frag(dsf, j, ds);
+      r.a[a_reg(j, 0)] = hopper::pack_bf16(p[0], p[1]);
+      r.a[a_reg(j, 1)] = hopper::pack_bf16(p[2], p[3]);
+      r.b[a_reg(j, 0)] = hopper::pack_bf16(ds[0], ds[1]);
+      r.b[a_reg(j, 1)] = hopper::pack_bf16(ds[2], ds[3]);
     }
-    warp_ab<DP>(pf, g_s, n - c0, dv);
-    warp_ab<DP>(dsf, q_s, n - c0, dk);
-  }
-  if (!active) return;
+  }, issue_product, issue_scores);
 
-  const int row = r0 + wr + lane / 4;
-  store_rows<DP>(dqkv + head + dim, qkv_stride, row, n, d, scale, dk);
-  store_rows<DP>(dqkv + head + 2 * dim, qkv_stride, row, n, d, 1.f, dv);
+  // The own tiles are free once every warp of the group is past its last
+  // product; they take dk and dv.
+  hopper::named_barrier(1, 128);
+  store_tiles<DC>(dk, scale, my_k, &dqkv_map, h, 1, k0, b);
+  store_tiles<DC>(dv, 1.f, my_v, &dqkv_map, h, 2, k0, b);
 }
 
-template <int DP>
+template <int DC>
 int launch_bf16(const void* qkv, const void* grad, void* dqkv, float* row_sum,
-                float* row_delta, int batch, int n, int nb_heads, int d,
-                float scale, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes<DP>();
-  const dim3 grid((n + kRows - 1) / kRows, nb_heads, batch);
+                float* row_delta, const int64_t* maps, int batch, int n,
+                int nb_heads, int d, float scale, cudaStream_t stream) {
+  // qkv and dqkv share the first geometry, g (the output's layout) takes
+  // the second.
+  CUtensorMap tmaps[3];
+  const void* bases[3] = {qkv, grad, dqkv};
+  const int geometry[3] = {0, 1, 0};
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::encode_bf16_map(
+        &tmaps[i], bases[i], maps + geometry[i] * hopper::kGeometrySize);
+    if (err != 0) return err;
+  }
+  constexpr int smem = BwdTiles<DC>::kBytes;
+  const int n_pad = (n + kTile - 1) / kTile * kTile;
+  const dim3 grid(n_pad / kTile, nb_heads, batch);
+  const float scale_log2 = scale * kLog2e;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mha_bwd_dq_bf16_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_mha_bwd_dq_bf16_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mha_bwd_dq_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad),
-      static_cast<bf16*>(dqkv), row_sum, row_delta, n, nb_heads, d, scale);
+  fused_mha_bwd_dq_bf16_kernel<DC><<<grid, kTmaThreads, smem, stream>>>(
+      tmaps[0], tmaps[1], tmaps[2], row_sum, row_delta, n, n_pad, d, scale,
+      scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fused_mha_bwd_dkv_bf16_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(fused_mha_bwd_dkv_bf16_kernel<DC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mha_bwd_dkv_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(grad),
-      static_cast<bf16*>(dqkv), row_sum, row_delta, n, nb_heads, d, scale);
+  fused_mha_bwd_dkv_bf16_kernel<DC><<<grid, kTmaThreads, smem, stream>>>(
+      tmaps[0], tmaps[1], tmaps[2], row_sum, row_delta, n, n_pad, d, scale,
+      scale_log2);
   return (int)cudaGetLastError();
-}
-
-int dispatch_bf16(const void* qkv, const void* grad, void* dqkv,
-                  float* row_sum, float* row_delta, int batch, int n,
-                  int nb_heads, int d, float scale, cudaStream_t s) {
-#define TFIMM_BWD_CASE(k)                                                     \
-  case k:                                                                     \
-    return launch_bf16<16 * k>(qkv, grad, dqkv, row_sum, row_delta, batch, n, \
-                               nb_heads, d, scale, s);
-  switch ((d + 15) / 16) {
-    TFIMM_BWD_CASE(1)
-    TFIMM_BWD_CASE(2)
-    TFIMM_BWD_CASE(3)
-    TFIMM_BWD_CASE(4)
-    TFIMM_BWD_CASE(5)
-    TFIMM_BWD_CASE(6)
-    TFIMM_BWD_CASE(7)
-    TFIMM_BWD_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TFIMM_BWD_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -776,15 +946,21 @@ int launch_f32(const void* qkv, const void* grad, void* dqkv, float* row_sum,
   return (int)cudaGetLastError();
 }
 
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. row_sum and row_delta: f32 (B, H, N)
-// scratch. Returns a cudaError_t value (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16. row_sum and row_delta: f32 scratch,
+// (B, H, N) in f32 and (B, H, N rounded up to 64) in bf16, where row_sum
+// takes log2 of the row sums. maps (bf16
+// only): the geometries of the qkv (and dqkv) and g tensor maps,
+// hopper::kGeometrySize int64 values each, as
+// tfimm_tpu_torch/ops/kernels/tma.py · fused_mha_maps computes them. Returns a cudaError_t
+// value (0 = ok).
 extern "C" int tfimm_fused_mha_bwd(const void* qkv, const void* grad,
                                    void* dqkv, void* row_sum, void* row_delta,
-                                   int batch, int n, int nb_heads,
-                                   int head_dim, float scale, int dtype,
-                                   void* stream) {
+                                   const int64_t* maps, int batch, int n,
+                                   int nb_heads, int head_dim, float scale,
+                                   int dtype, void* stream) {
   if (batch <= 0 || n <= 0 || nb_heads <= 0 || head_dim <= 0 ||
       head_dim % 8 != 0 || head_dim > kMaxHeadDim || batch > 65535 ||
       nb_heads > 65535)
@@ -796,13 +972,18 @@ extern "C" int tfimm_fused_mha_bwd(const void* qkv, const void* grad,
     case 0:
       return launch_f32(qkv, grad, dqkv, l, dl, batch, n, nb_heads, head_dim,
                         scale, s);
-    case 1:
-      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
-          reinterpret_cast<uintptr_t>(grad) % 16 != 0 ||
-          reinterpret_cast<uintptr_t>(dqkv) % 16 != 0)
-        return (int)cudaErrorMisalignedAddress;
-      return dispatch_bf16(qkv, grad, dqkv, l, dl, batch, n, nb_heads,
-                           head_dim, scale, s);
+    case 1: {
+      const void* ptrs[5] = {qkv, grad, dqkv, row_sum, row_delta};
+      for (const void* p : ptrs)
+        if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+          return (int)cudaErrorMisalignedAddress;
+      if (maps == nullptr) return (int)cudaErrorInvalidValue;
+      if (head_dim <= kTile)
+        return launch_bf16<1>(qkv, grad, dqkv, l, dl, maps, batch, n,
+                              nb_heads, head_dim, scale, s);
+      return launch_bf16<2>(qkv, grad, dqkv, l, dl, maps, batch, n, nb_heads,
+                            head_dim, scale, s);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

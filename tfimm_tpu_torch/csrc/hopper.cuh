@@ -10,9 +10,9 @@
 //   library does not link libcuda. A kernel takes the map by value as a
 //   `const __grid_constant__ CUtensorMap`.
 // - mbarriers: init, arrive, arrive.expect_tx and a try_wait.parity loop.
-// - TMA: tile loads of 3 and 5 dimensions into shared memory, completed on
-//   an mbarrier; tile stores of 3 and 4 dimensions from shared memory, as a
-//   bulk group.
+// - TMA: tile loads of 3, 4 and 5 dimensions into shared memory, and plain
+//   bulk copies of contiguous bytes, completed on an mbarrier; tile stores
+//   of 3, 4 and 5 dimensions from shared memory, as a bulk group.
 // - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile
 //   (64 rows of 128 bytes, 1024-byte aligned) and m64n64k16 bf16 -> f32
 //   with A in shared memory or in registers; fence, commit and wait.
@@ -162,6 +162,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3, int c4) {
@@ -170,6 +181,17 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory (both addresses 16-byte
+// aligned, `bytes` a multiple of 16), completed on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -197,6 +219,16 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
       "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 

@@ -71,7 +71,8 @@ def _declare(lib):
     lib.tfimm_fused_mha_fwd.restype = ctypes.c_int
     lib.tfimm_fused_mha_bwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, g, dqkv
-        ctypes.c_void_p, ctypes.c_void_p,  # f32 (B, H, N) row sum, row delta
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch row sum, row delta
+        geometry,  # bf16: the qkv (and dqkv) and g tensor maps
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
         ctypes.c_void_p,  # cudaStream_t
@@ -236,6 +237,7 @@ def _declare(lib):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q (scaled), k, v
         ctypes.c_void_p, ctypes.c_void_p,  # out, f32 lse (B * H, N)
         strides,  # of q, k, v, out
+        geometry,  # bf16 up to d = 128: the q, k, v and out tensor maps
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B*H, H, N, d
         ctypes.c_int,  # dtype code
         ctypes.c_void_p,  # cudaStream_t

@@ -48,6 +48,7 @@ from torch.autograd.function import once_differentiable
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch, log_dispatch
 from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import scale_query
+from tfimm_tpu_torch.ops.kernels.tma import TILE, packed_heads_maps
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_packed", "flash_attention_reference",
@@ -57,6 +58,9 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# The bf16 forward reads its operands through TMA maps up to this head dim
+# (two 64-column chunks) and through plain loads above.
+TMA_MAX_HEAD_DIM = 2 * TILE
 MIN_SUM = 1e-30
 # The JAX dispatcher's switch (flash_attention.py:59): below it the score
 # matrix fits on chip and the other attention paths serve.
@@ -118,10 +122,11 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """``t`` (B, H, N, d) itself when the kernels can read it through its
-    strides (unit stride in d; in bf16 16-byte rows and start), else a
-    contiguous copy."""
+    strides (unit stride in d; in bf16 positive strides of 16-byte multiples,
+    as TMA maps take them, and a 16-byte aligned start), else a contiguous
+    copy."""
     if t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or (
-            all(s % 8 == 0 for s in t.stride()[:-1])
+            all(s % 8 == 0 and s > 0 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)):
         return t
     return t.contiguous()
@@ -165,9 +170,13 @@ def _forward(qs, k, v):
     lse = torch.empty(q4.shape[:-1], dtype=torch.float32, device=qs.device)
     b, h = q4.shape[:2]
     if b * h > 0 and n > 0:
+        maps = None
+        if qs.dtype == torch.bfloat16 and d <= TMA_MAX_HEAD_DIM:
+            maps = packed_heads_maps(tuple(q4.shape), *(
+                t.stride() for t in (q4, k4, v4, out)))
         launch("flash_attention", kernel_library().tfimm_flash_attention_fwd,
-               q4, k4, v4, out, lse, _strides(q4, k4, v4, out), b * h, h, n,
-               d, DTYPE_CODES[qs.dtype])
+               q4, k4, v4, out, lse, _strides(q4, k4, v4, out), maps, b * h,
+               h, n, d, DTYPE_CODES[qs.dtype])
     return out.reshape(*lead, n, d), lse.reshape(*lead, n)
 
 

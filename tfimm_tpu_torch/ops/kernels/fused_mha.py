@@ -32,7 +32,7 @@ from tfimm_tpu_torch.ops.kernels.dispatch import (
     softmax_clamp_grad_mask,
     softmax_nomax,
 )
-from tfimm_tpu_torch.ops.kernels.tma import packed_fused_mha_maps
+from tfimm_tpu_torch.ops.kernels.tma import TILE, packed_fused_mha_maps
 
 __all__ = ["fused_mha", "fused_mha_reference", "fused_mha_or_none",
            "fused_mha_supports", "fused_mha_bwd", "fused_mha_bwd_reference"]
@@ -155,12 +155,19 @@ def fused_mha_bwd(qkv: torch.Tensor, g: torch.Tensor, nb_heads: int,
     dqkv = torch.empty_like(qkv)
     if b == 0 or n == 0:
         return dqkv.zero_()
-    row_sum = torch.empty((b, nb_heads, n), dtype=torch.float32,
+    d = three_d // 3 // nb_heads
+    maps, rows = None, n
+    if qkv.dtype == torch.bfloat16:
+        # The bf16 kernels keep log2 l and delta of every row of their
+        # 64-row tiles, padded ones included.
+        maps = packed_fused_mha_maps(b, n, nb_heads, d)
+        rows = -(-n // TILE) * TILE
+    row_sum = torch.empty((b, nb_heads, rows), dtype=torch.float32,
                           device=qkv.device)
     row_delta = torch.empty_like(row_sum)
     launch("fused_mha_bwd", kernel_library().tfimm_fused_mha_bwd, qkv, g,
-            dqkv, row_sum, row_delta, b, n, nb_heads, three_d // 3 // nb_heads,
-            float(scale), _DTYPE_CODES[qkv.dtype])
+           dqkv, row_sum, row_delta, maps, b, n, nb_heads, d, float(scale),
+           _DTYPE_CODES[qkv.dtype])
     return dqkv
 
 

@@ -22,8 +22,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 __all__ = ["TILE", "ELEM_BYTES", "TensorMapGeometry", "geometry_array",
-           "fused_mha_maps", "rows_map", "packed_fused_mha_maps",
-           "packed_rows_maps"]
+           "fused_mha_maps", "rows_map", "heads_map", "packed_fused_mha_maps",
+           "packed_rows_maps", "packed_heads_maps"]
 
 TILE = 64
 ELEM_BYTES = 2     # bf16, the only dtype the maps serve
@@ -54,7 +54,9 @@ def fused_mha_maps(b: int, n: int, nb_heads: int, d: int):
     (3, H, d) order, as (d, H, 3, N, B), so that a (64, 1, 1, 64, 1) box at
     (64 c, h, part, r, b) is columns 64 c... of rows r... of head h's q
     (part 0), k (1) or v (2) of image b; out (B, N, H*d) as (d, H, N, B)
-    with a (64, 1, 64, 1) box."""
+    with a (64, 1, 64, 1) box. ``fused_mha_bwd`` reads and writes its qkv
+    and dqkv through the first geometry and g = dL/dout, which has the
+    output's layout, through the second."""
     e = ELEM_BYTES
     qkv = TensorMapGeometry(
         dims=(d, nb_heads, 3, n, b),
@@ -80,6 +82,20 @@ def rows_map(shape: Tuple[int, int, int],
                              box=(TILE, TILE, 1))
 
 
+def heads_map(shape: Tuple[int, int, int, int],
+              stride: Tuple[int, ...]) -> TensorMapGeometry:
+    """A (B, H, N, d) tensor of ``shape`` and element ``stride``, unit along
+    d, read through its own token, head and image strides, as (d, N, H, B):
+    a (64, 64, 1, 1) box at (64 c, r, h, b) is columns 64 c... of rows r...
+    of head h of image b. A (..., N, d) operand is H = 1."""
+    b, h, n, d = shape
+    return TensorMapGeometry(dims=(d, n, h, b),
+                             strides=(ELEM_BYTES * stride[2],
+                                      ELEM_BYTES * stride[1],
+                                      ELEM_BYTES * stride[0]),
+                             box=(TILE, TILE, 1, 1))
+
+
 # The packed maps of a call depend on its shapes and strides only, and
 # building them costs more host time than the smaller kernels take on the
 # card: they are kept per shape.
@@ -97,3 +113,11 @@ def packed_rows_maps(shape: Tuple[int, int, int],
     """``rows_map`` of bf16 operands of one ``shape`` with these strides,
     packed in order."""
     return geometry_array(*(rows_map(shape, s) for s in strides))
+
+
+@functools.lru_cache(maxsize=256)
+def packed_heads_maps(shape: Tuple[int, int, int, int],
+                      *strides: Tuple[int, ...]) -> ctypes.Array:
+    """``heads_map`` of bf16 operands of one ``shape`` with these strides,
+    packed in order."""
+    return geometry_array(*(heads_map(shape, s) for s in strides))

@@ -152,10 +152,11 @@ which ends the run with a non-zero exit code on failure:
    whose scores pass 80), in bf16 and f32 with TF32 off: dq, dk, dv, drh
    and drw within 2e-2 and 1e-4 of the largest plain value. Control: the
    plain backward without the bias must miss the bar by
-   ``CONTROL_FACTOR``; two calls must be bit-identical. Kernel (delta and
-   its two launches), plain, bound times at the two SAM-B shapes, and the
-   backward of ``F.scaled_dot_product_attention`` with the bias as a bf16
-   float mask that requires grad, plus the two sums that give drh and drw.
+   ``CONTROL_FACTOR``; two calls must be bit-identical. Kernel (its two
+   launches; bf16 forms delta in the first), plain, bound times at the two
+   SAM-B shapes, and the backward of ``F.scaled_dot_product_attention``
+   with the bias as a bf16 float mask that requires grad, plus the two sums
+   that give drh and drw.
 18. SAM fine-tuning: ``create_model("sam_vit_b")`` on the card with the
    seeded weights of phase 16 in f32, run in bf16 (inputs in bf16, AdamW on
    the f32 parameters). (a) The encoder step at bs1, as the JAX package
@@ -314,6 +315,7 @@ path, and lists only the kernels those phases measured in full.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -537,11 +539,16 @@ KERNEL_GROUPS = [("convnext_block (convnext_block.cu: depthwise + LayerNorm, "
                  ("poolformer_block (poolformer_block.cu: GroupNorm "
                   "statistics, pool, GEMMs)", ("gn_stats", "pool_x1",
                                                "pf_gemm")),
+                 # The Hopper backward (attention_bwd.cuh) is one template
+                 # for both: <DC, 0> without the bias, <DC, 1 or 2> with it.
                  ("flash attention backward (flash_attention_bwd.cu)",
-                  ("flash_bwd",)),
+                  ("flash_bwd", "attn_bwd_rows_kernel<1, 0>",
+                   "attn_bwd_keys_kernel<1, 0>", "attn_bwd_rows_kernel<2, 0>",
+                   "attn_bwd_keys_kernel<2, 0>")),
                  ("flash attention (flash_attention.cu)", ("flash_fwd",)),
                  ("rel-pos flash attention backward "
-                  "(flash_attention_relpos_bwd.cu)", ("relpos_bwd",)),
+                  "(flash_attention_relpos_bwd.cu)", ("relpos_bwd",
+                                                      "attn_bwd::")),
                  ("rel-pos flash attention (flash_attention_relpos.cu)",
                   ("relpos_fwd",)),
                  ("talking-head attention backward (cait_attention_bwd.cu)",
@@ -581,6 +588,32 @@ def restored_env(var: str):
 
 class SmokeFailure(Exception):
     pass
+
+
+def print_registers(build_log: str) -> None:
+    """Registers and spills of the backward's Hopper launches
+    (``csrc/attention_bwd.cuh``: (A) rows and (B) keys, per 64-column
+    chunks DC and bias) from ptxas' report in the build log; nothing when
+    the library was built by an earlier process."""
+    import re
+
+    lines = build_log.splitlines()
+    seen = set()
+    biases = {"0": "none", "1": "gw = 64", "2": "general"}
+    for i, line in enumerate(lines[:-2]):
+        found = re.search(r"Function properties for "
+                          r"\S*attn_bwd_(rows|keys)_kernelILi(\d)ELi(\d)E",
+                          line)
+        if not found or found.groups() in seen:
+            continue
+        seen.add(found.groups())
+        launch, dc, bias = found.groups()
+        spills = lines[i + 1].strip()
+        used = re.search(r"Used (\d+) registers", lines[i + 2])
+        print(f"ptxas: attention backward launch {'A' if launch == 'rows' else 'B'}"
+              f" ({launch}), DC = {dc}, bias {biases[bias]}: "
+              f"{used.group(1) if used else '?'} registers a thread; {spills}",
+              flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2653,11 +2686,12 @@ def relpos_bwd_inputs(b, gh, gw, d, dtype, seed, big=False):
 
 
 def sdpa_relpos_backward_ms(args, grid):
-    """(ms, backend) of the backward of ``F.scaled_dot_product_attention``
-    on (1, B, N, d) operands with the bias as a bf16 float mask that
-    requires grad, plus the two sums that reduce the mask's gradient to drh
-    and drw. The first SDPA backend (memory-efficient, then math) that
-    returns a mask gradient is timed; None where none does."""
+    """(ms back to back, ms out of L2, backend) of the backward of
+    ``F.scaled_dot_product_attention`` on (1, B, N, d) operands with the
+    bias as a bf16 float mask that requires grad, plus the two sums that
+    reduce the mask's gradient to drh and drw. The first SDPA backend
+    (memory-efficient, then math) that returns a mask gradient is timed;
+    None where none does."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2682,12 +2716,13 @@ def sdpa_relpos_backward_ms(args, grid):
                     return grads[:3], dm.sum(-1), dm.sum(-2)
 
                 call()
-                return cuda_time_ms(call, iters=10), backend.name
+                return (cuda_time_ms(call, iters=10), cold_ms(call),
+                        backend.name)
         except RuntimeError as e:
             failures.append(f"{backend.name}: {str(e).splitlines()[0][:120]}")
     print(f"flash_attention_relpos_bwd: no SDPA backend gave a mask gradient: "
           f"{failures}", flush=True)
-    return None, None
+    return None, None, None
 
 
 def phase_relpos_bwd_kernel(report, gpu_line):
@@ -2750,11 +2785,13 @@ def phase_relpos_bwd_kernel(report, gpu_line):
         kw = dict(grid_size=(gh, gw))
         times = {
             "ms": cuda_time_ms(lambda: flash_attention_relpos_bwd(*args, **kw)),
+            "cold_ms": cold_ms(lambda: flash_attention_relpos_bwd(*args, **kw)),
             "plain_ms": cuda_time_ms(
                 lambda: flash_attention_relpos_bwd_reference(*args, **kw),
                 iters=5),
         }
-        times["library_ms"], backend = sdpa_relpos_backward_ms(args, (gh, gw))
+        (times["library_ms"], times["library_cold_ms"],
+         backend) = sdpa_relpos_backward_ms(args, (gh, gw))
         times["bound_ms"], times["bound_by"] = relpos_bwd_bound(b, gh, gw, d)
         kind = "global" if j == 0 else "windowed"
         if j == 0:
@@ -2762,12 +2799,15 @@ def phase_relpos_bwd_kernel(report, gpu_line):
         else:
             report["windowed"] = times
         print(f"flash_attention_relpos_bwd bf16 {kind} (B, gh, gw, d) = "
-              f"{(b, gh, gw, d)}: kernel (delta and two launches) "
+              f"{(b, gh, gw, d)}: kernel (two launches) back to back "
               f"{times['ms']!r} ms, {times['bound_ms'] / times['ms']!r} of "
-              f"the bound {times['bound_ms']!r} ms ({times['bound_by']}); "
-              f"plain {times['plain_ms']!r} ms; scaled_dot_product_attention "
+              f"the bound {times['bound_ms']!r} ms ({times['bound_by']}); out "
+              f"of L2 {times['cold_ms']!r} ms, "
+              f"{times['bound_ms'] / times['cold_ms']!r} of the bound; plain "
+              f"{times['plain_ms']!r} ms; scaled_dot_product_attention "
               f"backward with a float mask that requires grad ({backend}) "
-              f"and the two sums {times['library_ms']!r} ms; on {gpu_line}",
+              f"and the two sums: back to back {times['library_ms']!r} ms, "
+              f"out of L2 {times['library_cold_ms']!r} ms; on {gpu_line}",
               flush=True)
         del args
 
@@ -3753,6 +3793,9 @@ def phase_flash_bwd_kernel(report, gpu_line):
             "library_ms": cold_ms(lambda: torch.autograd.grad(
                 out, (q, k, v), args[5], retain_graph=True)),
         }
+        times["warm_ms"] = cuda_time_ms(lambda: flash_attention_bwd(*args))
+        times["library_warm_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), args[5], retain_graph=True))
         times["bound_ms"], times["bound_by"] = flash_bound(*shape,
                                                            backward=True)
         b, h, n, d = shape
@@ -3762,13 +3805,16 @@ def phase_flash_bwd_kernel(report, gpu_line):
         else:
             report["sam_global"] = times
         print(f"flash_attention_bwd bf16 (B, H, N, d) = {shape}, operands out "
-              f"of L2: kernel (delta and two launches) {times['ms']!r} ms, "
+              f"of L2: kernel (two launches) {times['ms']!r} ms, "
               f"{times['bound_ms'] / times['ms']!r} of the bound "
               f"{times['bound_ms']!r} ms ({times['bound_by']}; the two "
               f"launches' seven products {recompute_ms!r} ms); plain "
               f"{times['plain_ms']!r} ms; scaled_dot_product_attention's "
-              f"flash backward {times['library_ms']!r} ms; on {gpu_line}",
-              flush=True)
+              f"flash backward {times['library_ms']!r} ms; back to back: "
+              f"kernel {times['warm_ms']!r} ms, "
+              f"{times['bound_ms'] / times['warm_ms']!r} of the bound, "
+              f"SDPA's flash backward {times['library_warm_ms']!r} ms; on "
+              f"{gpu_line}", flush=True)
         del args, q, k, v, out
 
 
@@ -4417,8 +4463,12 @@ def main(argv) -> int:
         print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
               f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
         t0 = time.perf_counter()
-        build.kernel_library(verbose=True)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            build.kernel_library(verbose=True)
+        print(log.getvalue(), flush=True)
         print(f"kernel build {time.perf_counter() - t0!r} s", flush=True)
+        print_registers(log.getvalue())
 
         reports = {
             "fused_mha": {"name": "fused_mha", "route": "cuda",
@@ -4481,8 +4531,9 @@ def main(argv) -> int:
             "source": "tfimm_tpu_torch/csrc/flash_attention_relpos_bwd.cu",
             "replaces": "tfimm_tpu/ops/pallas/flash_attention_relpos.py:617",
             "work": (f"bf16 (B, gh, gw, d) = {RELPOS_SHAPES[0]}: one {SAM} "
-                     f"global block's backward (delta and two launches, "
-                     f"counted as one); 'windowed': {RELPOS_SHAPES[1]}")}
+                     f"global block's backward (two launches, counted as "
+                     f"one; the bf16 kernel forms delta in the first); "
+                     f"'windowed': {RELPOS_SHAPES[1]}")}
         reports["pvt_sra"] = {
             "name": "pvt_sra", "route": "cuda",
             "source": "tfimm_tpu_torch/csrc/pvt_sra.cu",
@@ -4520,9 +4571,9 @@ def main(argv) -> int:
             "replaces": "tfimm_tpu/ops/pallas/flash_attention_kernel.py:189",
             "work": (f"bf16 (B, H, N, d) = {FLASH_TRAIN_SHAPE}: one block's "
                      f"backward of a {VIT512} bs{VIT512_TRAIN_BATCH} training "
-                     f"step at 512x512 (delta and two launches, counted as "
-                     f"one); 'sam_global': {FLASH_SAM_SHAPE}; operands out "
-                     f"of L2")}
+                     f"step at 512x512 (two launches, counted as one; the "
+                     f"bf16 kernel up to d = 128 forms delta in the first); "
+                     f"'sam_global': {FLASH_SAM_SHAPE}; operands out of L2")}
         reports["ln_dense"] = {
             "name": "ln_dense", "route": "cuda",
             "source": "tfimm_tpu_torch/csrc/ln_dense.cu",
@@ -4611,7 +4662,9 @@ def main(argv) -> int:
             continue   # a kernel the chosen phases did not measure
         entry = {k: report[k] for k in keys}
         for extra in ("cublas_floor_ms", "windowed", "default_path_ms",
-                      "sam_global", "eager_ms", "shapes", "vit_blocks"):
+                      "sam_global", "eager_ms", "shapes", "vit_blocks",
+                      "cold_ms", "library_cold_ms", "warm_ms",
+                      "library_warm_ms"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

@@ -68,6 +68,8 @@ from tfimm_tpu_torch.ops.kernels.cait_attention import (
     talking_head_attention_reference,
 )
 from tfimm_tpu_torch.ops.kernels import dispatch
+from tfimm_tpu_torch.ops.kernels import flash_attention as flash_module
+from tfimm_tpu_torch.ops.kernels import flash_attention_relpos as relpos_module
 from tfimm_tpu_torch.ops.kernels.convnext_block import (
     MAX_CHANNELS,
     convnext_block,
@@ -969,6 +971,77 @@ def test_flash_attention_relpos_bwd_reads_strided_inputs_and_repeats(card):
         assert torch.equal(a, b_) and torch.equal(a, c)
 
 
+# The Hopper rel-pos backward at gw = 64 with a ragged gh (48 x 64, its own
+# drw and drh path) and the head dims of one and two 64-column chunks.
+@pytest.mark.parametrize("d", [8, 80, 128])
+def test_flash_attention_relpos_bwd_kernel_at_gw_64_and_other_head_dims(card,
+                                                                        d):
+    args = _relpos_bwd_case(2, 48, 64, d, torch.bfloat16, card, 48 + d)
+    kw = dict(grid_size=(48, 64))
+    got = flash_attention_relpos_bwd(*args, **kw)
+    want = flash_attention_relpos_bwd_reference(*args, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
+        _held_by(g, w, 2e-2)
+
+
+@pytest.mark.parametrize("gh,gw", [(64, 64), (14, 14), (7, 7)])
+def test_flash_attention_relpos_bwd_packed_offset_and_next_row(card, gh, gw):
+    """qs, k, v as views of one packed tensor 16 bytes into its storage give
+    the gradients of contiguous copies bit for bit, two calls agree, and
+    with every row b but the first set to inf (q, k, v, the rel terms, do)
+    row 0 keeps the gradients of its own row, finite."""
+    b, d = 3, 64
+    n = gh * gw
+    qs, k, v, rh, rw, out, lse, do = _relpos_bwd_case(
+        b, gh, gw, d, torch.bfloat16, card, gh + gw)
+    buf = torch.zeros(b * n * 3 * d + 8, device=card, dtype=torch.bfloat16)
+    packed = buf[8:].view(b, n, 3 * d)
+    packed.copy_(torch.cat([qs, k, v], dim=-1))
+    views = [packed[..., j * d:(j + 1) * d] for j in range(3)]
+    assert views[0].storage_offset() == 8 and not views[1].is_contiguous()
+    kw = dict(grid_size=(gh, gw))
+    rest = (rh, rw, out, lse, do)
+    got = flash_attention_relpos_bwd(*views, *rest, **kw)
+    again = flash_attention_relpos_bwd(*views, *rest, **kw)
+    copies = flash_attention_relpos_bwd(qs, k, v, *rest, **kw)
+    for a, b_, c in zip(got, again, copies):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+    inf = [_next_row_inf(t) for t in (qs, k, v, rh, rw)]
+    out_i, lse_i = flash_attention_relpos_with_lse(
+        *inf, grid_size=(gh, gw), scale=1.0)
+    do_i = _next_row_inf(do)
+    got = flash_attention_relpos_bwd(*inf[:3], inf[3], inf[4], out_i, lse_i,
+                                     do_i, **kw)
+    alone = flash_attention_relpos_bwd(*(t[:1] for t in inf), out_i[:1],
+                                       lse_i[:1], do_i[:1], **kw)
+    for g, a in zip(got, alone):
+        assert bool(torch.isfinite(g[0]).all())
+        assert torch.equal(g[:1], a)
+
+
+def _nan_scratch(rows, n, device, empty=relpos_module.stats_scratch):
+    """The statistics scratch, full of NaN where ``torch.empty`` may hold
+    anything."""
+    return empty(rows, n, device).fill_(float("nan"))
+
+
+@pytest.mark.parametrize("gh,gw", [(7, 7), (14, 14), (3, 43)])
+def test_flash_attention_relpos_bwd_writes_the_padded_statistics_rows(
+        card, gh, gw, monkeypatch):
+    """Launch A writes every row of the f32 scratch that launch B reads,
+    the rows past N included: a scratch that arrives full of NaN gives the
+    gradients of an empty one bit for bit, finite (a padded row left as it
+    came would put NaN into dk and dv through p^T do)."""
+    args = _relpos_bwd_case(2, gh, gw, 64, torch.bfloat16, card, gh * gw)
+    kw = dict(grid_size=(gh, gw))
+    want = flash_attention_relpos_bwd(*args, **kw)
+    monkeypatch.setattr(relpos_module, "stats_scratch", _nan_scratch)
+    got = flash_attention_relpos_bwd(*args, **kw)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+
+
 def test_flash_attention_relpos_gives_gradients_through_the_kernels(card):
     """autograd through the Function: one forward and one backward launch,
     the gradients of autograd through the plain forward (f32)."""
@@ -1439,6 +1512,89 @@ def test_flash_attention_bwd_reads_strided_inputs_and_repeats(card):
     strided = flash_attention_bwd(*views, out, lse, do)
     for a, b_, c in zip(first, again, strided):
         assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+# The Hopper backward (csrc/attention_bwd.cuh) up to d = 128: N around the
+# 64-row tiles and the padded statistics scratch, one and two 64-column
+# chunks, d = 256 on the mma.sync body, H from 1 to 12.
+@pytest.mark.parametrize("n,d", list(itertools.product(TMA_FLASH_N,
+                                                       TMA_FLASH_D)))
+def test_flash_attention_bwd_kernel_matches_plain_at_the_tma_edges(card, n, d):
+    for h in TMA_FLASH_H:
+        args = _flash_bwd_case((2, h, n, d), torch.bfloat16, card,
+                               5 * n + d + h)
+        got = flash_attention_bwd(*args)
+        want = flash_attention_bwd_reference(*args)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert bool(torch.isfinite(g).all()), (h, name)
+            if n == 1 and name != "dv":   # 0 up to both versions' noise
+                err = g.float().abs().max().item()
+                assert err <= 1e-4 * want[2].float().abs().max().item(), h
+            else:
+                _held_by(g, w, 2e-2)
+
+
+def _packed_bwd_operands(b, h, n, d, device, seed):
+    """qs, k, v as (B, H, N, d) views of one packed (B, N, 3, H, d) tensor
+    that starts 16 bytes into its storage, the kernel forward's out and lse
+    of them, and a normal cotangent."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    buf = torch.randn(b * n * 3 * h * d + 8, generator=gen,
+                      device=device).bfloat16()
+    packed = buf[8:].view(b, n, 3, h, d)
+    assert packed.storage_offset() == 8 and packed.data_ptr() % 16 == 0
+    qs, k, v = packed.permute(2, 0, 3, 1, 4).unbind(0)
+    out, lse = flash_attention_with_lse(qs, k, v, scale=1.0)
+    do = torch.randn(out.shape, generator=gen, device=device).bfloat16()
+    return packed, (qs, k, v, out, lse, do)
+
+
+@pytest.mark.parametrize("n,d", [(63, 64), (129, 80), (1025, 64), (65, 128)])
+def test_flash_attention_bwd_reads_a_packed_qkv_at_an_offset(card, n, d):
+    """Strided views of a packed projection at a storage offset give the
+    gradients of contiguous copies bit for bit, and two calls agree."""
+    _, args = _packed_bwd_operands(2, 3, n, d, card, n + d)
+    got = flash_attention_bwd(*args)
+    again = flash_attention_bwd(*args)
+    copies = flash_attention_bwd(*(t.contiguous() for t in args))
+    for a, b_, c in zip(got, again, copies):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n", [63, 65, 1025])
+def test_flash_attention_bwd_boxes_stop_at_the_head_and_image(card, n):
+    """Head 1 and image 1 of the packed qkv (and so of out and lse) set to
+    inf: head 0 of image 0 gets the gradients of its own head alone, finite
+    and bit for bit; a box that ran past N or d, or a statistics row of
+    another head, would carry the inf in."""
+    b, h, d = 2, 3, 64
+    packed, _ = _packed_bwd_operands(b, h, n, d, card, n)
+    packed[:, :, :, 1] = float("inf")
+    packed[1] = float("inf")
+    qs, k, v = packed.permute(2, 0, 3, 1, 4).unbind(0)
+    out, lse = flash_attention_with_lse(qs, k, v, scale=1.0)
+    do = torch.randn(out.shape, device=card).bfloat16()
+    got = flash_attention_bwd(qs, k, v, out, lse, do)
+    alone = flash_attention_bwd(*(t[:1, :1].contiguous()
+                                  for t in (qs, k, v, out, lse, do)))
+    for g, a in zip(got, alone):
+        assert bool(torch.isfinite(g[0, 0]).all())
+        assert torch.equal(g[:1, :1], a)
+
+
+@pytest.mark.parametrize("n,d", [(1, 64), (63, 64), (65, 80), (1025, 64),
+                                 (130, 128)])
+def test_flash_attention_bwd_writes_the_padded_statistics_rows(card, n, d,
+                                                               monkeypatch):
+    """As the rel-pos backward's: a statistics scratch that arrives full of
+    NaN gives the gradients of an empty one bit for bit, finite."""
+    args = _flash_bwd_case((2, 3, n, d), torch.bfloat16, card, n + d)
+    want = flash_attention_bwd(*args)
+    monkeypatch.setattr(flash_module, "stats_scratch", _nan_scratch)
+    got = flash_attention_bwd(*args)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
 
 
 def test_flash_attention_gives_gradients_through_the_kernels(card):

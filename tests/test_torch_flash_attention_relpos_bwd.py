@@ -194,3 +194,67 @@ def test_rel_term_gradients_reach_q_and_a_control_misses():
         assert _rel(g, w) < TOL["float32"], name
     miss = _rel(grads(detach=True)[0], want[0])
     assert miss > 5 * TOL["float32"], miss
+
+
+# -- The bf16 CUDA kernel's order of work (csrc/attention_bwd.cuh) -----------
+
+from tests.test_torch_flash_attention_bwd import kernel_order_bwd  # noqa: E402
+
+GRIDS = [(14, 14), (64, 64), (48, 64), (7, 7)]
+
+
+def _kernel_order_case(gh, gw, d, dtype, seed):
+    """The numpy inputs and, in ``dtype``, the emulation's: qs, k, v, out,
+    lse, do and the rel terms, from the plain forward."""
+    b = 1 if gh * gw > 1024 else 2
+    arrays, do = _inputs(seed, b, gh, gw, d)
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    scale = d ** -0.5
+    qs = scale_query(t[0], scale)
+    out, lse = flash_attention_relpos_reference(*t, grid_size=(gh, gw),
+                                                scale=scale)
+    rows = [qs, t[1], t[2], out, lse,
+            torch.from_numpy(do).to(getattr(torch, dtype))]
+    return arrays, do, scale, rows, (t[3], t[4], (gh, gw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gh,gw", GRIDS)
+def test_kernel_order_of_work_matches_the_pallas_backward(gh, gw, dtype):
+    """The emulation of the bf16 CUDA kernel (tiles of 64; the padded
+    scratch; exp2 with log2-scaled lse; p and ds rounded to bf16 before
+    their products where bf16; drw tile by tile and drh as each tile's row
+    sums at gw = 64, the general key-grid sums otherwise; keys past N out of
+    the sums) against ``jax.vjp`` of the interpret kernel: all five
+    gradients within 1e-4 (f32) or 2e-2 (bf16) of max|JAX|."""
+    d = 16
+    arrays, do, scale, rows, rel = _kernel_order_case(gh, gw, d, dtype,
+                                                      gh * gw + 1)
+    got = kernel_order_bwd(*rows, rounded=dtype == "bfloat16", rel=rel)
+    got[0] = got[0] * scale   # dq from dqs through the scale
+    block = gh * gw if gh * gw <= 512 else 512   # window-sized, or streaming
+    want = _pallas_vjp(arrays, do, (gh, gw), scale, block, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, g, w in zip(NAMES, got, want):
+        assert _rel(g.to(getattr(torch, dtype)), w) < tol, name
+
+
+@pytest.mark.parametrize("control", ["no_key_mask", "nan_scratch"])
+def test_kernel_order_controls_miss(control):
+    """Controls on the ragged 14 x 14 grid (196 keys in four 64-key tiles):
+    the keys past N left in drh and drw, or the padded scratch rows left as
+    NaN, miss the plain backward by far; the emulation holds it at 1e-4."""
+    _, _, _, rows, rel = _kernel_order_case(14, 14, 16, "float32", 5)
+    want = flash_attention_relpos_bwd_reference(*rows[:3], rel[0], rel[1],
+                                                *rows[3:], grid_size=rel[2])
+    good = kernel_order_bwd(*rows, rounded=False, rel=rel)
+    for name, g, w in zip(NAMES, good, want):
+        assert _rel(g, w) < 1e-4, name
+    if control == "no_key_mask":
+        bad = kernel_order_bwd(*rows, rounded=False, rel=rel, key_mask=False)
+        miss = min(_rel(bad[i], want[i]) for i in (3, 4))
+        assert miss > 5e-2, miss
+    else:
+        bad = kernel_order_bwd(*rows, rounded=False, rel=rel,
+                               nan_scratch=True)
+        assert not bool(torch.isfinite(bad[2]).all())

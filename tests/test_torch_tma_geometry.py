@@ -32,7 +32,9 @@ from tfimm_tpu_torch.ops.kernels.tma import (
     heads_map,
     packed_fused_mha_maps,
     packed_heads_maps,
+    packed_operand_maps,
     packed_rows_maps,
+    padded_rows,
     rows_map,
 )
 
@@ -343,3 +345,143 @@ def test_packed_maps_are_the_maps_in_order():
                           64, 64, 1, 1, 0]
     assert packed_heads_maps(tuple(q.shape), q.stride()) is packed_heads_maps(
         tuple(q.shape), q.stride())
+
+
+def test_heads_maps_are_operand_maps_of_one_shape():
+    """``packed_heads_maps`` is ``packed_operand_maps`` with one shape: the
+    same cached array; operands of two shapes (the rel-pos backward's rw
+    beside (B, 1, N, d) rows) pack each map with its own dims."""
+    shape = (2, 1, 4096, 64)
+    strides = [(262144, 262144, 64, 1), (786432, 786432, 192, 1)]
+    assert packed_heads_maps(shape, *strides) is packed_operand_maps(
+        *((shape, s) for s in strides))
+    rows = ((2, 1, 4096, 32), (131072, 131072, 32, 1))
+    rw = ((2, 1, 4096, 64), (262144, 262144, 64, 1))
+    mixed = list(packed_operand_maps(rows, rw))
+    assert mixed == heads_map(*rows).pack() + heads_map(*rw).pack()
+    assert mixed[1:3] == [32, 4096] and mixed[16:18] == [64, 4096]
+
+
+# -- The backward kernels (csrc/attention_bwd.cuh) ---------------------------
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "packed", "one_head"])
+@pytest.mark.parametrize("n,d", [(1, 8), (63, 64), (129, 80), (1025, 64),
+                                 (65, 128)])
+def test_flash_bwd_maps_read_do_and_o_and_write_the_gradients(kind, n, d):
+    """The flash backward reads do and o through their own (d, N, H, B)
+    maps, as the wrapper hands them over (do contiguous, o in the layout of
+    q), and writes dq, dk and dv, allocated as ``empty_like`` of q, box by
+    box through theirs: the boxes are each head's tiles with zeros past N
+    and d, and the stores give exactly the gradients and nothing else."""
+    gen = torch.Generator().manual_seed(5 * n + d)
+    q = _flash_operands(kind, 2, 3, n, d, gen)[0]
+    shape = tuple(q.shape)
+    o = (torch.randn(shape, generator=gen) + 10.0).bfloat16()
+    o = torch.empty_like(q).copy_(o)
+    do = (torch.randn(shape, generator=gen) + 10.0).bfloat16()
+    rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+    for t in (do, o):
+        m = heads_map(shape, t.stride())
+        _check_rules(m)
+        flat = torch.tensor([], dtype=t.dtype).set_(t.untyped_storage())
+        flat = flat.reshape(-1)[t.storage_offset():]
+        got = torch.zeros(*shape[:2], rows, cols, dtype=t.dtype)
+        for bi, hi, r, c in itertools.product(range(shape[0]), range(shape[1]),
+                                              _tiles(n), _chunks(d)):
+            box = tma_load(flat, m, (TILE * c, TILE * r, hi, bi))
+            got[bi, hi, TILE * r:TILE * (r + 1),
+                TILE * c:TILE * (c + 1)] = box[0, 0]
+        assert torch.equal(got, _padded(t, rows, cols))
+    for _ in range(3):
+        grad = torch.empty_like(q)
+        want = torch.randn(shape, generator=gen).bfloat16()
+        tiles = torch.full((*shape[:2], rows, cols), 7.0, dtype=want.dtype)
+        tiles[..., :n, :d] = want
+        storage = torch.full((grad.numel() + 64,), -1.0, dtype=grad.dtype)
+        m = heads_map(shape, grad.stride())
+        _check_rules(m)
+        for bi, hi, r, c in itertools.product(range(shape[0]), range(shape[1]),
+                                              _tiles(n), _chunks(d)):
+            tma_store(storage, m, (TILE * c, TILE * r, hi, bi),
+                      tiles[bi, hi, TILE * r:TILE * (r + 1),
+                            TILE * c:TILE * (c + 1)].reshape(1, 1, TILE, TILE))
+        assert torch.equal(torch.as_strided(storage, grad.shape,
+                                            grad.stride()), want)
+        assert bool((storage[grad.numel():] == -1.0).all())
+
+
+@pytest.mark.parametrize("d", [8, 64, 80])
+@pytest.mark.parametrize("gh,gw", RELPOS_GRIDS)
+def test_relpos_bwd_maps_as_one_head(gh, gw, d):
+    """The rel-pos backward hands its (B, N, d) operands to the shared
+    kernels as (B, 1, N, d) (``_as_heads``): qs, k, v as strided views of a
+    packed tensor, do, out and the gradients contiguous. Each (64, 64, 1, 1)
+    box at (64 c, 64 r, 0, b) is rows 64 r... of row b, zeros past N and d;
+    the gradients stored box by box are exactly the rows."""
+    from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import _as_heads
+
+    b, n = 3, gh * gw
+    gen = torch.Generator().manual_seed(gh + 7 * gw + d)
+    packed = (torch.randn(b, n, 3 * d, generator=gen) + 10.0).bfloat16()
+    views = [packed[..., j * d:(j + 1) * d] for j in range(3)]
+    dense = [(torch.randn(b, n, d, generator=gen) + 10.0).bfloat16()
+             for _ in range(2)]
+    rows, cols = TILE * len(_tiles(n)), TILE * len(_chunks(d))
+    for t in views + dense:
+        shape, stride = _as_heads(t)
+        m = heads_map(shape, stride)
+        _check_rules(m)
+        flat = torch.tensor([], dtype=t.dtype).set_(t.untyped_storage())
+        flat = flat.reshape(-1)[t.storage_offset():]
+        got = torch.zeros(b, rows, cols, dtype=t.dtype)
+        for bi, r, c in itertools.product(range(b), _tiles(n), _chunks(d)):
+            box = tma_load(flat, m, (TILE * c, TILE * r, 0, bi))
+            assert box.shape == (1, 1, TILE, TILE)
+            got[bi, TILE * r:TILE * (r + 1),
+                TILE * c:TILE * (c + 1)] = box[0, 0]
+        assert torch.equal(got, _padded(t, rows, cols))
+    grad = torch.zeros(b, n, d, dtype=torch.bfloat16)
+    want = torch.randn(b, n, d, generator=gen).bfloat16()
+    m = heads_map(*_as_heads(grad))
+    tiles = _padded(want, rows, cols) + 0
+    tiles[:, n:] = 7.0
+    for bi, r, c in itertools.product(range(b), _tiles(n), _chunks(d)):
+        tma_store(grad.reshape(-1), m, (TILE * c, TILE * r, 0, bi),
+                  tiles[bi, TILE * r:TILE * (r + 1),
+                        TILE * c:TILE * (c + 1)].reshape(1, 1, TILE, TILE))
+    assert torch.equal(grad, want)
+
+
+@pytest.mark.parametrize("gh", [1, 48, 64, 128])
+def test_relpos_bwd_rw_boxes_at_gw_64(gh):
+    """At gw = 64 launch B reads rw (B, N, 64) as a TMA box a stage: the
+    (64, 64, 1, 1) box at (0, 64 t, 0, b) is rw's rows 64 t... of row b, the
+    64 queries of tile t by the 64 keys of a key-grid row."""
+    from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import _as_heads
+
+    b, n = 2, gh * TILE
+    rw = torch.randn(b, n, TILE, generator=torch.Generator().manual_seed(gh))
+    rw = rw.bfloat16()
+    m = heads_map(*_as_heads(rw))
+    _check_rules(m)
+    for bi, t in itertools.product(range(b), range(n // TILE)):
+        box = tma_load(rw.reshape(-1), m, (0, TILE * t, 0, bi))
+        assert torch.equal(box[0, 0], rw[bi, TILE * t:TILE * (t + 1)])
+
+
+@pytest.mark.parametrize("n", [1, 49, 63, 64, 65, 196, 1025, 3072, 4096])
+def test_backward_scratch_rows(n):
+    """The wrappers' f32 statistics scratch (2, R, N rounded up to 64):
+    whole 64-row boxes, so that launch B's two 256-byte bulk copies a query
+    tile read rows launch A wrote (that it writes the padded rows is held
+    on the card, ``test_torch_cuda.py``)."""
+    from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
+        stats_scratch,
+    )
+
+    n_pad = padded_rows(n)
+    assert n_pad % TILE == 0 and n <= n_pad < n + TILE
+    scratch = stats_scratch(3, n, "cpu")
+    assert scratch.shape == (2, 3, n_pad) and scratch.dtype == torch.float32
+    assert scratch.is_contiguous()

@@ -5,69 +5,66 @@
 // B = images * heads, with qs, k, v, do (N, d), everything in f32:
 //
 //     s = qs k^T,  p = exp(s - lse)        (the forward's f32 lse: exact)
-//     dv = p^T do,   ds = p * (do v^T - delta)
+//     dv = p^T do,   ds = p * (do v^T - delta),   delta_i = do_i . o_i
 //     dqs = ds k,    dk = ds^T qs
 //
-// delta_i = do_i . o_i arrives from the wrapper (f32 (B, N)), as the JAX
-// package computes it outside its pallas_calls; qs arrives scaled (autograd
-// chains the scale). No clamp: the softmax is exact, so ds needs no mask.
-// Keys at or beyond N add nothing to any gradient; query rows at or beyond
-// N contribute nothing and write nothing.
-//
+// qs arrives scaled (autograd chains the scale). No clamp: the softmax is
+// exact, so ds needs no mask. Keys at or beyond N add nothing to any
+// gradient; query rows at or beyond N contribute nothing and write nothing.
 // Operands are (B, H, N, d) views read or written through their image,
 // head and token strides, row b of the kernel being (b / heads, b % heads),
-// as in flash_attention.cu.
+// as in flash_attention.cu. Two launches per call, deterministic, no
+// atomics: (A) dqs over blocks of 64 query rows, (B) dk and dv over blocks
+// of 64 keys.
 //
-// Two launches per call, deterministic, no atomics (the layout of
-// flash_attention_relpos_bwd.cu without the bias; neither reads the other's
-// output, so their order is free):
-//
-// (A) dqs: one block per (64 query rows, row b). It streams the keys in
-//     tiles, recomputes s and p from the lse, forms ds and accumulates
-//     dqs = ds k.
-// (B) dk, dv: one block per (64 keys, row b). It keeps its k and v rows,
-//     streams the queries in tiles with their lse and delta, recomputes s^T
-//     and p^T, and accumulates dv = p^T do and dk = ds^T qs.
-//
-// - bf16 (the training path): tensor cores through mma.sync m16n8k16 (bf16
-//   in, f32 accumulate), 4 warps each owning 16 rows, 32-row streamed
-//   tiles; the accumulator layout of two 8-column product tiles is the A
-//   layout of one 16-deep step, so p and ds go from one product to the
-//   next in registers. p and ds are rounded to bf16 before dv = p^T do,
-//   dqs = ds k and dk = ds^T qs (the reference keeps them in f32); s, p,
-//   dp, delta and every accumulator stay f32. Above d = 128 each block
-//   writes half of the head columns (gridDim.z = 2), recomputing s and dp
-//   from the whole d: two 16 x d f32 accumulators would otherwise need 256
-//   registers a thread in (B).
+// - bf16 up to d = 128 (the training path), for Hopper: attention_bwd.cuh
+//   without the bias (its note has the design). (A) also forms delta from
+//   o and do, and writes it with lse * log2(e) into an f32 scratch padded
+//   to 64 rows that (B) reads, so delta is not a separate reduction.
+// - bf16 above d = 128 (no timed path reaches it): tensor cores through
+//   mma.sync m16n8k16, 4 warps each owning 16 rows, 32-row streamed tiles
+//   loaded synchronously; each block writes half of the head columns
+//   (gridDim.z = 2), recomputing s and dp from the whole d. delta comes
+//   from the wrapper.
 // - f32: exact f32 FMAs, 256 threads as a 16 x 16 grid, 64-row streamed
 //   tiles (32 above d = 128, which keeps shared memory within 227 KB); p
-//   and ds pass through shared memory.
+//   and ds pass through shared memory; delta from the wrapper.
 //
 // What bounds it on an H100: the function needs five N x N x d products,
 // 10 * B * N^2 * d operations: 258.2 GFLOP for ViT-B/16 training on 512x512
 // images (B = 32 images x 12 heads, N = 1025, d = 64), 0.261 ms at the bf16
 // tensor-core peak, while it moves about 405 MB (qs, k, v, o, do and the
 // lse read, dqs, dk, dv written; 0.121 ms at 3.35 TB/s): bound by
-// operations. This design recomputes s and dp in
-// both launches (seven products, 1.4x the five), and is bound by
-// shared-memory fragment loads feeding mma.sync: synchronous tile loads (no
-// cp.async or TMA), no wgmma.
+// operations. The Hopper design does seven products (s and dp in both
+// launches), and N = 1025 rounds up to 1088 rows and keys: 0.41 ms at the
+// peak. What holds it back: each warpgroup's serial chain (scores, then
+// the exponentials, then the product, each waiting for the last) with two
+// warpgroups an SM to hide it, at the 168 registers a thread that allows
+// (ptxas' report in chip_smoke.py's build log), and the 4096 exponentials
+// a tile in each launch at a sixteenth of the FMA rate. On an H100 80GB
+// HBM3 at 700 W the bf16 kernel takes 1.17-1.19 ms there, operands out of
+// L2 (22% of the bound, 0.72-0.73x SDPA's flash backward; the mma.sync
+// design before it 3.65-3.67), and 0.50 ms at SAM-B's (1, 12, 4096, 64),
+// 1.01-1.02x SDPA (chip_smoke.py phase 27; PERF.md, row 12).
 //
-// Shared memory, bf16: 27.9 KB per launch at d = 64, 52.5 KB at d = 128,
-// 101.6 KB at d = 256; f32: (A) 148.7 KB and (B) 165.9 KB at d = 128, 205.8
-// and 214.5 KB at d = 256. Above the 48 KB static limit a launch needs the
-// dynamic limit raised, so the launcher sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize before every launch and
-// returns cudaGetLastError() after each.
+// Shared memory, bf16 (Hopper): (A) 89 KB up to d = 64, 113 KB above; (B)
+// 83 KB and 98 KB; mma.sync above d = 128: 101.6 KB at d = 256; f32: (A)
+// 148.7 KB and (B) 165.9 KB at d = 128, 205.8 and 214.5 KB at d = 256.
+// Above the 48 KB static limit a launch needs the dynamic limit raised, so
+// the launcher sets cudaFuncAttributeMaxDynamicSharedMemorySize before
+// every launch and returns cudaGetLastError() after each (and the error of
+// a tensor map that does not encode).
 //
 // Coverage: the forward's. Any B (launched in slices of 65535 rows), any
-// N, every head dim d that is a multiple of 8 up to 256 (bf16 pads d to a
-// multiple of 16 in shared memory with zeros). lse and delta are contiguous
-// f32 (B, N).
+// N, every head dim d that is a multiple of 8 up to 256. bf16 operands
+// need 16-byte aligned rows and starts (strides a multiple of 8 elements);
+// lse and delta are contiguous f32 (B, N).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_bwd.cuh"
 
 namespace {
 
@@ -93,7 +90,7 @@ __device__ __forceinline__ int64_t row_base(const Rows& r, int64_t b,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16 above d = 128: tensor cores (mma.sync)
 
 constexpr int kCols = 32;                 // streamed rows per tile
 constexpr int kColTiles = kCols / 8;      // 8-column tiles of a 16 x 32 product
@@ -431,16 +428,9 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   return 0;
 }
 
-int dispatch_bf16(const Args& a, cudaStream_t s) {
+// Above d = 128 (the Hopper kernels take d up to 128).
+int dispatch_mma(const Args& a, cudaStream_t s) {
   switch ((a.d + 15) / 16) {
-    case 1: return launch_bf16<16, 16>(a, s);
-    case 2: return launch_bf16<32, 32>(a, s);
-    case 3: return launch_bf16<48, 48>(a, s);
-    case 4: return launch_bf16<64, 64>(a, s);
-    case 5: return launch_bf16<80, 80>(a, s);
-    case 6: return launch_bf16<96, 96>(a, s);
-    case 7: return launch_bf16<112, 112>(a, s);
-    case 8: return launch_bf16<128, 128>(a, s);
     case 9: return launch_bf16<144, 72>(a, s);
     case 10: return launch_bf16<160, 80>(a, s);
     case 11: return launch_bf16<176, 88>(a, s);
@@ -723,16 +713,21 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// qs, k, v, do (inputs) and dq, dk, dv (outputs) are (B, H, N, d) operands
-// given by their pointers and the 21 strides of `strides` (elements; image,
-// head and token strides of qs, k, v, do, dq, dk, dv in turn; d has stride
-// 1); lse and delta are contiguous f32 (B * H, N). batch = B * H. dtype:
-// 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
+// qs, k, v, do, out (inputs) and dq, dk, dv (outputs) are (B, H, N, d)
+// operands given by their pointers and the 21 strides of `strides`
+// (elements; image, head and token strides of qs, k, v, do, dq, dk, dv in
+// turn; d has stride 1); lse is contiguous f32 (B * H, N). batch = B * H.
+// dtype: 0 = float32, 1 = bfloat16. bf16 up to d = 128 (the Hopper
+// kernels): `maps` holds the geometries of the tensor maps of qs, k, v, do,
+// out, dq, dk and dv (tma.py · heads_map), `stats` an f32 scratch
+// (2, B * H, N rounded up to 64) and `delta` is not read. Otherwise `maps`,
+// `stats` and `out` are not read, and delta is contiguous f32 (B * H, N).
+// Returns a cudaError_t value (0 = ok).
 extern "C" int tfimm_flash_attention_bwd(
     const void* qs, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    const int64_t* strides, int batch, int heads, int n, int head_dim,
-    int dtype, void* stream) {
+    const void* out, const void* lse, const void* delta, void* dq, void* dk,
+    void* dv, const int64_t* strides, const int64_t* maps, void* stats,
+    int batch, int heads, int n, int head_dim, int dtype, void* stream) {
   if (batch <= 0 || heads <= 0 || batch % heads != 0 || n <= 0 ||
       head_dim <= 0 || head_dim % 8 != 0 || head_dim > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
@@ -748,19 +743,31 @@ extern "C" int tfimm_flash_attention_bwd(
       return head_dim <= 128 ? launch_f32<64, 8>(a, s)
                              : launch_f32<32, 16>(a, s);
     case 1: {
-      for (int i = 0; i < 12; ++i)   // qs, k, v, do: 16-byte loads
-        if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
-      for (int i = 12; i < 21; ++i)  // dq, dk, dv: 4-byte stores
-        if (strides[i] % 2 != 0) return (int)cudaErrorMisalignedAddress;
-      const void* ptrs[4] = {qs, k, v, dout};
-      for (const void* p : ptrs)
-        if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      const bool tma = head_dim <= attn_bwd::kMaxHeadDim;
+      // qs, k, v, do (and out, dq, dk, dv for the tensor maps): 16-byte rows;
+      // above d = 128 dq, dk, dv take 4-byte stores.
+      for (int i = 0; i < 21; ++i)
+        if (strides[i] % (i < 12 || tma ? 8 : 2) != 0)
           return (int)cudaErrorMisalignedAddress;
-      void* outs[3] = {dq, dk, dv};
-      for (void* p : outs)
-        if (reinterpret_cast<uintptr_t>(p) % 4 != 0)
+      const void* ptrs[8] = {qs, k, v, dout, out, dq, dk, dv};
+      for (int i = 0; i < 8; ++i)
+        if (reinterpret_cast<uintptr_t>(ptrs[i]) % (i < 4 || tma ? 16 : 4) != 0)
           return (int)cudaErrorMisalignedAddress;
-      return dispatch_bf16(a, s);
+      if (!tma) return dispatch_mma(a, s);
+      if (maps == nullptr || stats == nullptr || out == nullptr)
+        return (int)cudaErrorInvalidValue;
+      attn_bwd::Args args{};
+      args.lse = static_cast<const float*>(lse);
+      args.stats = static_cast<float*>(stats);
+      args.rows = batch;
+      args.n = n;
+      args.n_pad = (n + attn_bwd::kTile - 1) / attn_bwd::kTile * attn_bwd::kTile;
+      args.heads = heads;
+      args.d = head_dim;
+      const void* bases[8] = {qs, k, v, dout, out, dq, dk, dv};
+      if (head_dim <= attn_bwd::kTile)
+        return attn_bwd::launch<1, attn_bwd::kNoBias>(bases, maps, args, s);
+      return attn_bwd::launch<2, attn_bwd::kNoBias>(bases, maps, args, s);
     }
     default:
       return (int)cudaErrorInvalidValue;

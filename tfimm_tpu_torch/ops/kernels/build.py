@@ -184,10 +184,12 @@ def _declare(lib):
         ctypes.c_int64, ctypes.c_int64,  # k batch and row strides
         ctypes.c_int64, ctypes.c_int64,  # v batch and row strides
         ctypes.c_void_p, ctypes.c_void_p,  # rel_h_term (B, N, gh), rel_w_term
-        ctypes.c_void_p,  # do (B, N, d)
-        ctypes.c_void_p, ctypes.c_void_p,  # f32 lse, delta (B, N)
+        ctypes.c_void_p, ctypes.c_void_p,  # do, out (B, N, d)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 lse (B, N), f32 delta (f32 only)
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dq, dk, dv
         ctypes.c_void_p, ctypes.c_void_p,  # drh, drw
+        geometry,  # bf16: the tensor maps of qs, k, v, do, out, dq, dk, dv (, rw)
+        ctypes.c_void_p,  # bf16: f32 scratch (2, B, N rounded up to 64)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, d
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gh, gw, dtype code
         ctypes.c_void_p,  # cudaStream_t
@@ -245,10 +247,14 @@ def _declare(lib):
     lib.tfimm_flash_attention_fwd.restype = ctypes.c_int
     lib.tfimm_flash_attention_bwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q (scaled), k, v
-        ctypes.c_void_p,  # do
-        ctypes.c_void_p, ctypes.c_void_p,  # f32 lse, delta (B * H, N)
+        ctypes.c_void_p, ctypes.c_void_p,  # do, out
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 lse, delta (B * H, N; delta not
+        # read by the bf16 kernels up to d = 128)
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dq, dk, dv
         strides,  # of q, k, v, do, dq, dk, dv
+        geometry,  # bf16 up to d = 128: the tensor maps of q, k, v, do, out,
+        # dq, dk, dv
+        ctypes.c_void_p,  # and an f32 scratch (2, B * H, N rounded up to 64)
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B*H, H, N, d
         ctypes.c_int,  # dtype code
         ctypes.c_void_p,  # cudaStream_t

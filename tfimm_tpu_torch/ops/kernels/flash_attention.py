@@ -21,9 +21,10 @@ and the forward's lse, all in f32:
 
 with dqs, dk and dv in the dtype of q, k and v. As in the JAX package the
 scale stays outside the autograd Function (``_FlashAttention``), so that
-autograd chains ``scale_query``; delta is a PyTorch reduction outside the
-backward kernel, as the JAX package computes it outside its
-``pallas_call``s.
+autograd chains ``scale_query``. The JAX package computes delta outside its
+``pallas_call``s; the port's bf16 backward up to d = 128 forms it in its
+first launch (``csrc/attention_bwd.cuh``), the other kernels take it from
+a PyTorch reduction.
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``tfimm_tpu_torch/csrc/flash_attention.cu`` (forward) and
@@ -47,7 +48,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch, log_dispatch
-from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import scale_query
+from tfimm_tpu_torch.ops.kernels.flash_attention_relpos import (
+    scale_query,
+    stats_scratch,
+)
 from tfimm_tpu_torch.ops.kernels.tma import TILE, packed_heads_maps
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
@@ -184,7 +188,9 @@ def flash_attention_bwd(qs, k, v, out, lse, do):
     """(dqs, dk, dv), as ``flash_attention_bwd_reference``. Runs the plain
     version when every input lies on the CPU and the backward kernel
     otherwise: two launches (dqs over query blocks; dk, dv over key
-    blocks), counted as one."""
+    blocks), counted as one. The bf16 kernels up to d = 128 form delta
+    themselves (from o and do, into an f32 scratch padded to whole 64-row
+    boxes); the others take it from a PyTorch reduction here."""
     if _on_cpu(qs, k, v, out, lse, do):
         return flash_attention_bwd_reference(qs, k, v, out, lse, do)
     name = "flash_attention_bwd"
@@ -197,14 +203,20 @@ def flash_attention_bwd(qs, k, v, out, lse, do):
     from tfimm_tpu_torch.ops.kernels.build import kernel_library
 
     lead, (n, d) = qs.shape[:-2], qs.shape[-2:]
-    q4, k4, v4, do4 = (_readable(_rows(t)) for t in (qs, k, v, do))
+    q4, k4, v4, do4, o4 = (_readable(_rows(t)) for t in (qs, k, v, do, out))
     grads = [torch.empty_like(q4) for _ in range(3)]
     b, h = q4.shape[:2]
     if b * h > 0 and n > 0:
-        delta = (do4.float() * _rows(out).float()).sum(dim=-1).contiguous()
+        maps = stats = delta = None
+        if qs.dtype == torch.bfloat16 and d <= TMA_MAX_HEAD_DIM:
+            maps = packed_heads_maps(tuple(q4.shape), *(
+                t.stride() for t in (q4, k4, v4, do4, o4, *grads)))
+            stats = stats_scratch(b * h, n, qs.device)
+        else:
+            delta = (do4.float() * o4.float()).sum(dim=-1).contiguous()
         launch(name, kernel_library().tfimm_flash_attention_bwd, q4, k4, v4,
-               do4, lse.contiguous(), delta, *grads,
-               _strides(q4, k4, v4, do4, *grads), b * h, h, n, d,
+               do4, o4, lse.contiguous(), delta, *grads,
+               _strides(q4, k4, v4, do4, *grads), maps, stats, b * h, h, n, d,
                DTYPE_CODES[qs.dtype])
     return tuple(g.reshape(*lead, n, d) for g in grads)
 

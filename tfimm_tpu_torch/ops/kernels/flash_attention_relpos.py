@@ -35,9 +35,10 @@ for the designs and what bounds them) and raise on what they do not take;
 on CPU tensors they run ``flash_attention_relpos_reference`` and
 ``flash_attention_relpos_bwd_reference``. Both kernels take bf16 and f32,
 d a multiple of 8 up to 128, any gh and gw up to 128, and read q, k and v
-through their batch and row strides. delta is a PyTorch reduction outside
-the backward kernel, as the JAX package computes it outside its
-``pallas_call``.
+through their batch and row strides. The JAX package computes delta
+outside its ``pallas_call``; the port's bf16 backward forms it in its
+first launch (``csrc/attention_bwd.cuh``), the f32 one takes it from a
+PyTorch reduction.
 """
 
 from __future__ import annotations
@@ -48,7 +49,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
-from tfimm_tpu_torch.ops.kernels.tma import packed_rows_maps
+from tfimm_tpu_torch.ops.kernels.tma import (
+    TILE,
+    packed_operand_maps,
+    packed_rows_maps,
+    padded_rows,
+)
 
 __all__ = ["flash_attention_relpos", "flash_attention_relpos_with_lse",
            "flash_attention_relpos_reference", "flash_attention_relpos_bwd",
@@ -135,6 +141,26 @@ def _strided(t: torch.Tensor) -> torch.Tensor:
             and (t.stride(1) * item) % 16 == 0 and t.data_ptr() % 16 == 0):
         return t
     return t.contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it starts on a 16-byte boundary, else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _as_heads(t: torch.Tensor):
+    """(shape, stride) of a (B, N, C) tensor as the (B, 1, N, C) operand of
+    a 4-D tensor map (``tma.py · heads_map``)."""
+    b, n, c = t.shape
+    return (b, 1, n, c), (t.stride(0), t.stride(0), t.stride(1), t.stride(2))
+
+
+def stats_scratch(rows: int, n: int, device) -> torch.Tensor:
+    """The bf16 backward kernels' f32 scratch (2, rows, N rounded up to
+    64): lse * log2(e), then delta. Their first launch writes all of it,
+    the padded rows included (``csrc/attention_bwd.cuh``)."""
+    return torch.empty((2, rows, padded_rows(n)), dtype=torch.float32,
+                       device=device)
 
 
 def _check_kernel_inputs(name, q, k, v, rel_h_term, rel_w_term, grid_size):
@@ -227,14 +253,20 @@ def flash_attention_relpos_bwd(qs, k, v, rel_h_term, rel_w_term, out, lse,
     drw = torch.empty((b, n, gw), dtype=qs.dtype, device=qs.device)
     if b == 0:
         return (*grads, drh, drw)
-    do = do.contiguous()
-    delta = (do.float() * out.float()).sum(dim=-1)
     qs, k, v = _strided(qs), _strided(k), _strided(v)
-    rh, rw = rel_h_term.contiguous(), rel_w_term.contiguous()
+    do, out, rh, rw = (_aligned(t.contiguous())
+                       for t in (do, out, rel_h_term, rel_w_term))
+    maps = stats = delta = None
+    if qs.dtype == torch.bfloat16:
+        operands = [qs, k, v, do, out, *grads] + ([rw] if gw == TILE else [])
+        maps = packed_operand_maps(*(_as_heads(t) for t in operands))
+        stats = stats_scratch(b, n, qs.device)
+    else:
+        delta = (do * out).sum(dim=-1)
     launch(name, kernel_library().tfimm_flash_attention_relpos_bwd, qs, k, v,
            qs.stride(0), qs.stride(1), k.stride(0), k.stride(1), v.stride(0),
-           v.stride(1), rh, rw, do, lse.contiguous(), delta, *grads, drh, drw,
-           b, n, d, gh, gw, DTYPE_CODES[qs.dtype])
+           v.stride(1), rh, rw, do, out, lse.contiguous(), delta, *grads, drh,
+           drw, maps, stats, b, n, d, gh, gw, DTYPE_CODES[qs.dtype])
     return (*grads, drh, drw)
 
 

@@ -22,8 +22,9 @@ from dataclasses import dataclass
 from typing import Tuple
 
 __all__ = ["TILE", "ELEM_BYTES", "TensorMapGeometry", "geometry_array",
-           "fused_mha_maps", "rows_map", "heads_map", "packed_fused_mha_maps",
-           "packed_rows_maps", "packed_heads_maps"]
+           "fused_mha_maps", "rows_map", "heads_map", "padded_rows",
+           "packed_fused_mha_maps", "packed_rows_maps", "packed_heads_maps",
+           "packed_operand_maps"]
 
 TILE = 64
 ELEM_BYTES = 2     # bf16, the only dtype the maps serve
@@ -96,6 +97,12 @@ def heads_map(shape: Tuple[int, int, int, int],
                              box=(TILE, TILE, 1, 1))
 
 
+def padded_rows(n: int) -> int:
+    """N rounded up to whole 64-row boxes: the rows of the backward kernels'
+    f32 statistics scratch (``csrc/attention_bwd.cuh``)."""
+    return -(-n // TILE) * TILE
+
+
 # The packed maps of a call depend on its shapes and strides only, and
 # building them costs more host time than the smaller kernels take on the
 # card: they are kept per shape.
@@ -116,8 +123,16 @@ def packed_rows_maps(shape: Tuple[int, int, int],
 
 
 @functools.lru_cache(maxsize=256)
+def packed_operand_maps(*operands: Tuple[Tuple[int, ...], Tuple[int, ...]]
+                        ) -> ctypes.Array:
+    """``heads_map`` of bf16 operands given as (shape, stride) pairs, each
+    with its own shape, packed in order."""
+    return geometry_array(*(heads_map(shape, stride)
+                            for shape, stride in operands))
+
+
 def packed_heads_maps(shape: Tuple[int, int, int, int],
                       *strides: Tuple[int, ...]) -> ctypes.Array:
-    """``heads_map`` of bf16 operands of one ``shape`` with these strides,
-    packed in order."""
-    return geometry_array(*(heads_map(shape, s) for s in strides))
+    """``packed_operand_maps`` of operands of one ``shape`` with these
+    strides."""
+    return packed_operand_maps(*((shape, s) for s in strides))

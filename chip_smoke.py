@@ -38,7 +38,10 @@ which ends the run with a non-zero exit code on failure:
    C = 12, M = 98), in bf16 and in f32 with TF32 off, within 2e-2 and 1e-5
    of the largest plain value. At the stage shapes, kernel, plain and
    cuBLAS-floor times (the two ``F.linear`` products alone), each with its
-   rate and its share of the bound.
+   rate and its share of the bound, with the operands out of L2
+   (``cold_ms``) and back to back in L2; the kernel's three launches (row
+   statistics, fc1, fc2) out of L2 from a profile. ptxas' registers and
+   spills of the GEMM launches are printed after the build.
 6. The ConvNeXt serving path: ``create_model("convnext_base")`` in bf16
    with seeded random weights (layer-scale gammas near 1) answers 5
    requests of 128 uint8 224x224 NHWC images through
@@ -46,7 +49,8 @@ which ends the run with a non-zero exit code on failure:
    launch ``convnext_mlp`` once per block (36) and no attention kernel;
    logits must be finite and non-zero, and agree on 16 images with the same
    weights in f32 through the eager composition (autograd recording). Then
-   a ``torch.profiler`` split of one request's device time.
+   a ``torch.profiler`` split of one request's device time, with each of
+   ``convnext_mlp``'s three launches per request.
 7. ``window_mha`` and ``swin_block`` against their plain versions on the
    card at Swin-T's stage shapes at batch 128 (shifted and unshifted) and
    at the edges of their coverage (N = 144, d = 8, 16 and 64, an odd
@@ -210,13 +214,16 @@ which ends the run with a non-zero exit code on failure:
    kernel, plain, bound, the per-op library block (cuDNN depthwise,
    ``F.layer_norm``, ``F.linear``, tanh ``F.gelu``, ``F.linear``, scale and
    residual) and the default path (cuDNN depthwise + ``convnext_mlp``), per
-   stage and per request.
+   stage and per request; the kernel's three launches (depthwise +
+   LayerNorm, fc1, fc2) from a profile, and cuDNN's depthwise conv alone
+   beside the first.
 24. ConvNeXt serving through the fused block: ``convnext_base`` in bf16
    with seeded random weights (std 0.05, gammas near 1) answers 5 requests
    of 128 uint8 224x224 images with ``TFIMM_TPU_FUSED_CONVNEXT=1`` (36
    ``convnext_block`` launches a request, no ``convnext_mlp``) and with it
    off (36 ``convnext_mlp``), gated as phase 20, with the rate of each run
-   and a profile of one request with the switch on.
+   and a profile of one request with the switch on (and each of
+   ``convnext_block``'s three launches per request).
 25. The ConvNeXt training path: ``tfimm_tpu_torch.train.run`` trains
    ConvNeXt-B at batch 64 in bf16 mixed precision with the ConvNeXt paper's
    ImageNet-1K recipe as far as ``train/`` takes it (AdamW at weight decay
@@ -296,7 +303,8 @@ which ends the run with a non-zero exit code on failure:
    and non-zero, and on 4 images within 5e-2 of the same transfer in f32
    through the plain attention. An ``EmbeddingModel`` over ConvNeXt-B
    (bf16, seeded weights) gives finite (128, 128) embeddings in eval mode
-   (36 ``convnext_mlp`` launches); in training mode its BatchNorm moves the
+   (36 ``convnext_mlp`` launches), and its rate over 5 requests of 128
+   uint8 images; in training mode its BatchNorm moves the
    running statistics by the momentum rule, within 2e-2 of the update
    computed from the batch.
 
@@ -353,6 +361,23 @@ CONVNEXT_EDGES = [(6272, 96, 384), (200, 12, 48), (98, 512, 2048),
                   (98, 1024, 4096)]
 CONVNEXT_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 CONVNEXT_CHECK_IMAGES = 16
+# The launches inside one counted call of convnext_mlp and convnext_block,
+# by the profiler's kernel names (the TMA + wgmma GEMMs of mlp_gemm.cuh, or
+# the mma.sync body's off that route).
+CONVNEXT_LAUNCH_PARTS = {
+    "convnext_mlp": [
+        ("row statistics", ("row_stats",)),
+        ("fc1 (LN prologue, tanh GELU)", ("mlp_gemm_fc1",
+                                          "mlp_gemm_bf16_kernel<true>")),
+        ("fc2 (residual)", ("mlp_gemm_fc2", "mlp_gemm_bf16_kernel<false>"))],
+    "convnext_block": [
+        ("depthwise + LayerNorm", ("dw_ln",)),
+        ("fc1 (tanh GELU)", ("convnext_block_fc1",
+                             "convnext_block_gemm_bf16_kernel<true>")),
+        ("fc2 (residual)", ("convnext_block_fc2",
+                            "convnext_block_gemm_bf16_kernel<false>"))]}
+# cuDNN's convolution kernels, by the profiler's names.
+CUDNN_CONV_KEYS = ("depthwise", "fprop", "conv2d", "convolution")
 SWIN = "swin_tiny_patch4_window7_224"
 # (BW, N, C, H, map side) of Swin-T's stages 1-3 at batch 128, each run by
 # one unshifted and one shifted block of a pair, and the blocks of each
@@ -564,8 +589,7 @@ KERNEL_GROUPS = [("convnext_block (convnext_block.cu: depthwise + LayerNorm, "
                  ("convnext_mlp", ("mlp_gemm", "row_stats")),
                  ("fused_mha_bwd", ("fused_mha_bwd",)),
                  ("fused_mha fwd", ("fused_mha_fwd",)),
-                 ("depthwise conv (cuDNN)", ("depthwise", "fprop", "conv2d",
-                                             "convolution")),
+                 ("depthwise conv (cuDNN)", CUDNN_CONV_KEYS),
                  ("GEMMs (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "splitk")),
                  ("optimizer (foreach)", ("multi_tensor_apply",)),
                  ("memcpy/memset", ("memcpy", "memset"))]
@@ -591,10 +615,12 @@ class SmokeFailure(Exception):
 
 
 def print_registers(build_log: str) -> None:
-    """Registers and spills of the backward's Hopper launches
-    (``csrc/attention_bwd.cuh``: (A) rows and (B) keys, per 64-column
-    chunks DC and bias) from ptxas' report in the build log; nothing when
-    the library was built by an earlier process."""
+    """Registers and spills, from ptxas' report in the build log, of the
+    backward's Hopper launches (``csrc/attention_bwd.cuh``: (A) rows and
+    (B) keys, per 64-column chunks DC and bias) and of the GEMM body of
+    ``csrc/mlp_gemm.cuh`` on TMA and wgmma (per caller and tile width) and
+    the tiled depthwise + LayerNorm launch of ``convnext_block.cu``;
+    nothing when the library was built by an earlier process."""
     import re
 
     lines = build_log.splitlines()
@@ -604,16 +630,26 @@ def print_registers(build_log: str) -> None:
         found = re.search(r"Function properties for "
                           r"\S*attn_bwd_(rows|keys)_kernelILi(\d)ELi(\d)E",
                           line)
-        if not found or found.groups() in seen:
+        tiled = re.search(r"Function properties for \S*?((?:mlp_gemm_fc[12]|"
+                          r"convnext_block_fc[12]|ln_dense_fwd)_wgmma_kernel|"
+                          r"convnext_block_dw_ln_tile_kernel)ILi(\d+)E", line)
+        if not (found or tiled) or (found or tiled).groups() in seen:
             continue
-        seen.add(found.groups())
-        launch, dc, bias = found.groups()
+        seen.add((found or tiled).groups())
         spills = lines[i + 1].strip()
         used = re.search(r"Used (\d+) registers", lines[i + 2])
+        regs = used.group(1) if used else "?"
+        if tiled:
+            name, param = tiled.groups()
+            what = ("tile columns" if "dw_ln" in name
+                    else "output tile columns")
+            print(f"ptxas: {name}<{param}> ({what} {param}): {regs} "
+                  f"registers a thread at launch; {spills}", flush=True)
+            continue
+        launch, dc, bias = found.groups()
         print(f"ptxas: attention backward launch {'A' if launch == 'rows' else 'B'}"
               f" ({launch}), DC = {dc}, bias {biases[bias]}: "
-              f"{used.group(1) if used else '?'} registers a thread; {spills}",
-              flush=True)
+              f"{regs} registers a thread; {spills}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1006,6 +1042,67 @@ def device_ms(fn, steps: int = 10) -> float:
     return sum(groups.values())
 
 
+def launch_parts(names, kernel) -> dict:
+    """Device ms of each launch of ``kernel`` (CONVNEXT_LAUNCH_PARTS) from
+    a profile's kernel names (``device_split``)."""
+    return {part: sum(ms for name, ms in names.items()
+                      if any(k in name for k in keys))
+            for part, keys in CONVNEXT_LAUNCH_PARTS[kernel]}
+
+
+def print_launch_parts(what, names, kernel) -> None:
+    for part, ms in launch_parts(names, kernel).items():
+        print(f"{what} request profile launch {kernel} {part}: {ms!r} ms per "
+              f"request", flush=True)
+
+
+def cold_device_events(fn, calls: int = 3) -> list:
+    """The device events (name, ms) of ``calls`` calls of ``fn`` from one
+    profile, each call after a write of L2_FLUSH_BYTES, so its operands are
+    out of L2; the flush's own fill left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    return [(evt.name, evt.time_range.elapsed_us() / 1e3)
+            for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and "Fill" not in evt.name]
+
+
+def cold_launch_parts(fn, kernel, calls: int = 3) -> dict:
+    """Device ms of each launch of one call of ``fn`` (a call of
+    ``kernel``), its operands out of L2 (``cold_device_events``); each
+    launch's mean over the events the profile kept of it (a profile may
+    drop a call's events)."""
+    events = cold_device_events(fn, calls)
+    parts = {}
+    for part, keys in CONVNEXT_LAUNCH_PARTS[kernel]:
+        ms = [t for name, t in events if any(k in name for k in keys)]
+        parts[part] = sum(ms) / len(ms) if ms else 0.0
+    return parts
+
+
+def cold_call_kernels(fn, calls: int = 3) -> dict:
+    """Device ms of every kernel one call of ``fn`` launches, by name, its
+    operands out of L2 (``cold_device_events``): a name's mean over its
+    events, times its launches a call."""
+    by_name = {}
+    for name, t in cold_device_events(fn, calls):
+        by_name.setdefault(name, []).append(t)
+    return {name: statistics.mean(ts) * max(1, round(len(ts) / calls))
+            for name, ts in by_name.items()}
+
+
 def run_watched(config):
     """``train.run(config)`` with every step it takes watched: its loss, its
     wall time (the step ends by reading the loss, which synchronises) and
@@ -1180,42 +1277,69 @@ def phase_convnext_kernel(report):
             del args, got, ref
     report["max_abs_err"] = worst
 
-    # Per stage shape, then per request (each stage's times its blocks).
-    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms")
+    # Per stage shape, then per request (each stage's times its blocks):
+    # with the operands out of L2 (a 512 MB write before each call), and
+    # back to back in L2 as PRs 3-15 timed them.
+    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms", "warm_ms",
+            "plain_warm_ms", "cublas_floor_warm_ms")
     totals = dict.fromkeys(keys, 0.0)
+    parts_total = {}
     bound_by = {}
     for (m, c, hidden), depth in zip(CONVNEXT_STAGES, CONVNEXT_DEPTHS):
         args = convnext_inputs(m, c, hidden, torch.bfloat16, seed=400)
         x, w1, w2 = args[0], args[4], args[6]
         h = torch.randn(m, hidden, device="cuda").to(torch.bfloat16)
-        t = {"ms": cuda_time_ms(lambda: convnext_mlp(*args, 1e-6)),
-             "plain_ms": cuda_time_ms(
+        t = {"ms": cold_ms(lambda: convnext_mlp(*args, 1e-6)),
+             "plain_ms": cold_ms(lambda: convnext_mlp_reference(*args, 1e-6),
+                                 calls=3, warmup=1),
+             "fc1_ms": cold_ms(lambda: F.linear(x, w1)),
+             "fc2_ms": cold_ms(lambda: F.linear(h, w2)),
+             "warm_ms": cuda_time_ms(lambda: convnext_mlp(*args, 1e-6)),
+             "plain_warm_ms": cuda_time_ms(
                  lambda: convnext_mlp_reference(*args, 1e-6), iters=5),
-             "fc1_ms": cuda_time_ms(lambda: F.linear(x, w1)),
-             "fc2_ms": cuda_time_ms(lambda: F.linear(h, w2))}
+             "fc1_warm_ms": cuda_time_ms(lambda: F.linear(x, w1)),
+             "fc2_warm_ms": cuda_time_ms(lambda: F.linear(h, w2))}
         t["cublas_floor_ms"] = t["fc1_ms"] + t["fc2_ms"]
+        t["cublas_floor_warm_ms"] = t["fc1_warm_ms"] + t["fc2_warm_ms"]
         t["bound_ms"], by = convnext_mlp_bound(m, c, hidden)
         bound_by[by] = bound_by.get(by, 0.0) + depth * t["bound_ms"]
         tflop = 4 * m * c * hidden / 1e12
         for key, what in (("ms", "kernel"), ("plain_ms", "plain"),
-                          ("cublas_floor_ms", "cuBLAS floor")):
+                          ("cublas_floor_ms", "cuBLAS floor"),
+                          ("warm_ms", "kernel in L2"),
+                          ("plain_warm_ms", "plain in L2"),
+                          ("cublas_floor_warm_ms", "cuBLAS floor in L2")):
             print(f"convnext_mlp bf16 M={m} C={c} H={hidden}: {what} "
                   f"{t[key]!r} ms, {tflop / (t[key] / 1e3)!r} TFLOP/s, "
                   f"{t['bound_ms'] / t[key]!r} of the bound", flush=True)
         print(f"convnext_mlp bf16 M={m} C={c} H={hidden}: F.linear fc1 "
-              f"{t['fc1_ms']!r} ms, fc2 {t['fc2_ms']!r} ms; bound "
+              f"{t['fc1_ms']!r} ms, fc2 {t['fc2_ms']!r} ms out of L2 "
+              f"({t['fc1_warm_ms']!r}, {t['fc2_warm_ms']!r} in L2); bound "
               f"{t['bound_ms']!r} ms ({by}); {depth} blocks a request",
               flush=True)
+        parts = cold_launch_parts(lambda: convnext_mlp(*args, 1e-6),
+                                  "convnext_mlp")
+        for part, ms in parts.items():
+            print(f"convnext_mlp bf16 M={m} C={c} H={hidden}: launch {part} "
+                  f"{ms!r} ms out of L2 (profiler)", flush=True)
+            parts_total[part] = parts_total.get(part, 0.0) + depth * ms
         for key in keys:
             totals[key] += depth * t[key]
         del args, x, w1, w2, h
     report.update(totals)
     report["bound_by"] = max(bound_by, key=bound_by.get)
     report["library_ms"] = None
-    print(f"convnext_mlp per ConvNeXt-B bs{BATCH} request ({sum(CONVNEXT_DEPTHS)} calls): kernel "
+    print(f"convnext_mlp per ConvNeXt-B bs{BATCH} request "
+          f"({sum(CONVNEXT_DEPTHS)} calls, operands out of L2): kernel "
           f"{totals['ms']!r} ms, plain {totals['plain_ms']!r} ms, cuBLAS floor "
-          f"{totals['cublas_floor_ms']!r} ms, bound {totals['bound_ms']!r} ms "
-          f"({report['bound_by']})", flush=True)
+          f"{totals['cublas_floor_ms']!r} ms "
+          f"({totals['ms'] / totals['cublas_floor_ms']!r} x), bound "
+          f"{totals['bound_ms']!r} ms ({report['bound_by']}); in L2: kernel "
+          f"{totals['warm_ms']!r} ms, plain {totals['plain_warm_ms']!r} ms, "
+          f"cuBLAS floor {totals['cublas_floor_warm_ms']!r} ms", flush=True)
+    print("convnext_mlp per request, launches out of L2 (profiler): "
+          + "; ".join(f"{part} {ms!r} ms" for part, ms in parts_total.items()),
+          flush=True)
 
 
 def phase_convnext_slice(reports, gpu_line):
@@ -1310,6 +1434,7 @@ def convnext_slice(reports, gpu_line):
     for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{CONVNEXT} request profile kernel: {ms!r} ms {name[:150]}",
               flush=True)
+    print_launch_parts(CONVNEXT, names, "convnext_mlp")
 
 
 def swin_inputs(bw, n, c, h, side, shifted, dtype, seed):
@@ -3231,6 +3356,8 @@ def family_serving(reports, gpu_line, path, kernel, switch_var, runs, seed):
                                         key=lambda kv: -kv[1])[:8]:
                     print(f"{name} ({how}) request profile kernel: {ms!r} ms "
                           f"{kname[:150]}", flush=True)
+                if kernel in CONVNEXT_LAUNCH_PARTS and switch == "1":
+                    print_launch_parts(f"{name} ({how})", names, kernel)
             del model
     for report_name, report in reports.items():
         report["launches_by_path"][path] = path_counts[report_name]
@@ -3429,6 +3556,7 @@ def phase_convnext_block_kernel(report, gpu_line):
     library block and the default path (cuDNN depthwise + convnext_mlp),
     each with its operands out of L2."""
     import torch
+    import torch.nn.functional as F
 
     from tfimm_tpu_torch.ops.kernels.convnext_block import (
         convnext_block,
@@ -3466,7 +3594,9 @@ def phase_convnext_block_kernel(report, gpu_line):
             del args, got, ref
     report["max_abs_err"] = worst
 
-    keys = ("ms", "plain_ms", "library_ms", "default_path_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "library_ms", "default_path_ms", "bound_ms",
+            "dw_ln_ms", "cudnn_depthwise_ms", "cudnn_depthwise_call_ms",
+            "cudnn_depthwise_events_ms")
     totals = dict.fromkeys(keys, 0.0)
     bound_by = {}
     for (b, h, w, c, hid), depth in zip(CONVNEXT_BLOCK_STAGES, CONVNEXT_DEPTHS):
@@ -3479,6 +3609,33 @@ def phase_convnext_block_kernel(report, gpu_line):
              "library_ms": cold_ms(lambda: per_op_convnext_block(*lib_args)),
              "default_path_ms": cold_ms(
                  lambda: default_convnext_block(*args))}
+        x_nchw, dw = args[0].permute(0, 3, 1, 2), lib_args[1]
+
+        def conv():
+            return F.conv2d(x_nchw, dw, lib_args[2], padding=3, groups=c)
+
+        # cuDNN's depthwise conv measured as the launch it is held against
+        # is: its kernel's device time, by the profiler. Besides, the whole
+        # call's kernels (F.conv2d adds the bias in a launch of its own)
+        # and CUDA events around each call.
+        conv_kernels = cold_call_kernels(conv)
+        t["cudnn_depthwise_ms"] = sum(
+            ms for name, ms in conv_kernels.items()
+            if any(k in name for k in CUDNN_CONV_KEYS))
+        check(t["cudnn_depthwise_ms"] > 0, "convnext_block: no cuDNN "
+              "convolution kernel in the profile of F.conv2d")
+        t["cudnn_depthwise_call_ms"] = sum(conv_kernels.values())
+        t["cudnn_depthwise_events_ms"] = cold_ms(conv)
+        for name, ms in conv_kernels.items():
+            print(f"convnext_block bf16 {b}x{h}x{w}x{c}: cuDNN's depthwise "
+                  f"conv launches {name[:120]} {ms!r} ms out of L2 "
+                  f"(profiler)", flush=True)
+        parts = cold_launch_parts(lambda: convnext_block(*args),
+                                  "convnext_block")
+        t["dw_ln_ms"] = parts["depthwise + LayerNorm"]
+        for part, ms in parts.items():
+            print(f"convnext_block bf16 {b}x{h}x{w}x{c}: launch {part} "
+                  f"{ms!r} ms out of L2 (profiler)", flush=True)
         t["bound_ms"], by = convnext_block_bound(b, h, w, c, hid)
         bound_by[by] = bound_by.get(by, 0.0) + depth * t["bound_ms"]
         for key, what in (("ms", "kernel"), ("plain_ms", "plain"),
@@ -3487,6 +3644,13 @@ def phase_convnext_block_kernel(report, gpu_line):
                            "depthwise + convnext_mlp)")):
             print(f"convnext_block bf16 {b}x{h}x{w}x{c}: {what} {t[key]!r} "
                   f"ms, {t['bound_ms'] / t[key]!r} of the bound", flush=True)
+        print(f"convnext_block bf16 {b}x{h}x{w}x{c}: its depthwise + "
+              f"LayerNorm launch {t['dw_ln_ms']!r} ms, cuDNN's depthwise "
+              f"conv kernel {t['cudnn_depthwise_ms']!r} ms (both profiler "
+              f"device time); the F.conv2d call with its bias add "
+              f"{t['cudnn_depthwise_call_ms']!r} ms (profiler), "
+              f"{t['cudnn_depthwise_events_ms']!r} ms (CUDA events)",
+              flush=True)
         print(f"convnext_block bf16 {b}x{h}x{w}x{c}: bound {t['bound_ms']!r} "
               f"ms ({by}); {depth} blocks a request", flush=True)
         for key in keys:
@@ -3499,7 +3663,13 @@ def phase_convnext_block_kernel(report, gpu_line):
           f"{totals['ms']!r} ms, plain {totals['plain_ms']!r} ms, per-op "
           f"library block {totals['library_ms']!r} ms, default path "
           f"{totals['default_path_ms']!r} ms, bound {totals['bound_ms']!r} ms "
-          f"({report['bound_by']}); on {gpu_line}", flush=True)
+          f"({report['bound_by']}); its depthwise + LayerNorm launch "
+          f"{totals['dw_ln_ms']!r} ms against cuDNN's depthwise conv "
+          f"kernel {totals['cudnn_depthwise_ms']!r} ms (both profiler device "
+          f"time; the F.conv2d call with its bias add "
+          f"{totals['cudnn_depthwise_call_ms']!r} ms, by CUDA events "
+          f"{totals['cudnn_depthwise_events_ms']!r} ms); on {gpu_line}",
+          flush=True)
 
 
 def convnext_train_config() -> dict:
@@ -4405,6 +4575,21 @@ def phase_models_api(reports, gpu_line):
           and bool(torch.isfinite(out).all()),
           f"EmbeddingModel gave {tuple(out.shape)}, finite "
           f"{bool(torch.isfinite(out).all())}")
+    raw = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    seconds = []
+    with torch.inference_mode():
+        for _ in range(REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb(pp_cnx(raw))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    img_s = [BATCH / t for t in seconds[1:]]
+    print(f"EmbeddingModel({CONVNEXT}, {EMBED_DIM}) bs{BATCH} bf16: "
+          f"{statistics.median(img_s)!r} img/s (median of requests "
+          f"2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}) on {gpu_line}",
+          flush=True)
     fc_out = []
     hook = emb.fc.register_forward_hook(lambda m, i, o: fc_out.append(o))
     emb.train()
@@ -4661,7 +4846,10 @@ def main(argv) -> int:
         if phases != all_phases and not all(k in report for k in keys):
             continue   # a kernel the chosen phases did not measure
         entry = {k: report[k] for k in keys}
-        for extra in ("cublas_floor_ms", "windowed", "default_path_ms",
+        for extra in ("cublas_floor_ms", "cublas_floor_warm_ms",
+                      "plain_warm_ms", "dw_ln_ms", "cudnn_depthwise_ms",
+                      "cudnn_depthwise_call_ms", "cudnn_depthwise_events_ms",
+                      "windowed", "default_path_ms",
                       "sam_global", "eager_ms", "shapes", "vit_blocks",
                       "cold_ms", "library_cold_ms", "warm_ms",
                       "library_warm_ms"):

@@ -405,13 +405,15 @@ def test_hopper_kernels_repeat_bit_for_bit(card):
 
 # convnext_mlp: (M, C, H) at the four ConvNeXt-B stages (M cut to a few
 # thousand rows), ConvNeXt-T's C = 96, the golden fixture's C = 12 (not a
-# multiple of 8), and an odd M = 2 * 7 * 7. Bars: bf16 max|diff| <= 2e-2 *
-# max|plain| (the plain version rounds z and h to bf16 at the same places;
-# the sums run in another order, so a rounding may land on the other side);
-# f32 with TF32 off <= 1e-5 * max|plain|.
+# multiple of 8: the mma.sync body), an odd M = 2 * 7 * 7, and the TMA
+# tiles' tails: M off 128 rows, C off 64 columns, H off the 128- and
+# 256-column tiles. Bars: bf16 max|diff| <= 2e-2 * max|plain| (the plain
+# version rounds z and h to bf16 at the same places; the sums run in
+# another order, so a rounding may land on the other side); f32 with TF32
+# off <= 1e-5 * max|plain|.
 CONVNEXT_SHAPES = [(3136, 128, 512), (2048, 256, 1024), (1568, 512, 2048),
                    (392, 1024, 4096), (3136, 96, 384), (200, 12, 48),
-                   (98, 1024, 4096)]
+                   (98, 1024, 4096), (3137, 96, 392), (1000, 512, 2056)]
 
 
 def _convnext_inputs(m, c, hidden, dtype, device, seed):
@@ -439,6 +441,51 @@ def test_convnext_mlp_kernel_matches_plain(card, m, c, hidden, dtype, tol):
     want = convnext_mlp_reference(*args, 1e-6).float()
     err = (got.float() - want).abs().max().item()
     assert err <= tol * want.abs().max().item(), err
+
+
+def _offset(t):
+    """A copy of t whose base lies one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_convnext_mlp_takes_each_route(card):
+    """bf16 at C = 128: the TMA + wgmma body; x one element off a 16-byte
+    boundary and C = 12: the mma.sync body. Each within the bf16 bar."""
+    from tfimm_tpu_torch.ops.kernels.tma import gemm_route
+
+    for m, c, hidden, shift, route in [(300, 128, 512, False, True),
+                                       (300, 128, 512, True, False),
+                                       (300, 12, 48, False, False)]:
+        args = list(_convnext_inputs(m, c, hidden, torch.bfloat16, card, c))
+        if shift:
+            args[0] = _offset(args[0])
+        assert gemm_route(args[0], args[1], args[4], args[6],
+                          ln_depth=c) is route
+        got = convnext_mlp(*args, 1e-6)
+        want = convnext_mlp_reference(*args, 1e-6).float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item(), (m, c, shift, err)
+
+
+@pytest.mark.parametrize("c", [128, 512, 12])
+def test_convnext_mlp_layer_norm_of_rows_far_from_zero(card, c):
+    """Rows of mean 30 and std 1: the LayerNorm must subtract the mean
+    before the product (a LayerNorm folded into the epilogue would cancel
+    two terms of size 30 rstd against each other and miss the bar)."""
+    args = list(_convnext_inputs(2 * 197, c, 4 * c, torch.bfloat16, card, 5))
+    args[0] = (30.0 + args[0].float()).to(torch.bfloat16)
+    got = convnext_mlp(*args, 1e-6)
+    want = convnext_mlp_reference(*args, 1e-6).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+
+
+def test_convnext_mlp_repeats(card):
+    args = _convnext_inputs(3137, 256, 1024, torch.bfloat16, card, 8)
+    assert torch.equal(convnext_mlp(*args, 1e-6), convnext_mlp(*args, 1e-6))
 
 
 def test_convnext_mlp_kernel_refuses_what_it_does_not_take(card):
@@ -1257,11 +1304,16 @@ def test_models_launch_their_kernel_when_switched_on(card, monkeypatch, name,
 # (B, H, W, C, hidden): ConvNeXt-B's four stage shapes (B cut), ConvNeXt-T's
 # C = 96, a ragged 9 x 13 map (the taps' edges at every offset),
 # convnext_xlarge's widest stage (C = 2048, hidden 8192, 24 KB of f32 a
-# pixel in shared memory) and an odd C = 12 (element loads).
+# pixel in shared memory), an odd C = 12 (element loads, the mma.sync body
+# and the row-run depthwise launch), and the TMA tiles' tails (M = 234 off
+# 128 rows, C = 96 off 64 columns, hidden 392 off the column tiles, a
+# 9 x 13 map off the depthwise tiles of 8 x 8), and hidden 100 (the mma.sync
+# GEMMs beside the tiled depthwise launch).
 CONVNEXT_BLOCK_SHAPES = [(2, 56, 56, 128, 512), (2, 28, 28, 256, 1024),
                          (2, 14, 14, 512, 2048), (2, 7, 7, 1024, 4096),
                          (2, 56, 56, 96, 384), (3, 9, 13, 24, 96),
-                         (1, 7, 7, 2048, 8192), (2, 5, 3, 12, 48)]
+                         (1, 7, 7, 2048, 8192), (2, 5, 3, 12, 48),
+                         (2, 9, 13, 96, 392), (2, 14, 14, 64, 100)]
 
 
 def _convnext_block_inputs(b, h, w, c, hidden, dtype, device, seed):
@@ -1300,6 +1352,44 @@ def test_convnext_block_kernel_matches_plain(card, b, h, w, c, hidden, dtype,
 def test_convnext_block_repeats(card):
     args = _convnext_block_inputs(4, 28, 28, 256, 1024, torch.bfloat16, card, 3)
     assert torch.equal(convnext_block(*args), convnext_block(*args))
+
+
+def test_convnext_block_takes_each_route(card):
+    """x one element off a 16-byte boundary: the mma.sync body and the
+    row-run depthwise launch, within the bf16 bar as the TMA route is."""
+    from tfimm_tpu_torch.ops.kernels.tma import gemm_route
+
+    args = list(_convnext_block_inputs(2, 14, 14, 128, 512, torch.bfloat16,
+                                       card, 6))
+    for shift in (False, True):
+        x = _offset(args[0]) if shift else args[0]
+        assert gemm_route(x.view(-1, 128)) is not shift
+        got = convnext_block(x, *args[1:])
+        _held_by(got, convnext_block_reference(x, *args[1:]), 2e-2)
+
+
+def test_convnext_block_depthwise_form_follows_its_operands(card):
+    """The tiled depthwise launch runs wherever its 16-byte copies hold,
+    whichever body the GEMMs take (a hidden width of 100 keeps mma.sync);
+    x one element off a 16-byte boundary takes the row-run form."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfimm_tpu_torch.ops.kernels.tma import gemm_route
+
+    args = list(_convnext_block_inputs(2, 14, 14, 64, 100, torch.bfloat16,
+                                       card, 7))
+    assert not gemm_route(args[7])   # w2 (64, 100): 200-byte rows
+    for shift in (False, True):
+        x = _offset(args[0]) if shift else args[0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = convnext_block(x, *args[1:])
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert any("dw_ln" in n for n in names)
+        assert any("dw_ln_tile" in n for n in names) is not shift
+        _held_by(got, convnext_block_reference(x, *args[1:]), 2e-2)
 
 
 def test_convnext_block_refuses_what_it_does_not_take(card):
@@ -1710,6 +1800,28 @@ def test_ln_dense_bwd_kernel_matches_plain(card, m, c, o, bias, dtype, tol,
         if b is not None:
             assert a.dtype == b.dtype and a.shape == b.shape
             _held_by(a, b, tol if i == 0 else sum_tol)
+
+
+def test_ln_dense_forward_takes_each_route(card):
+    """ViT-B/16's LN1 -> qkv on the TMA + wgmma body, at 256- and 128-column
+    tiles; O = 36, C = 100 and x off a 16-byte boundary on the mma.sync
+    body; rows of mean 30 on both. Each within the bf16 bar."""
+    from tfimm_tpu_torch.ops.kernels.tma import gemm_route
+
+    for m, c, o, shift, route in [(394, 768, 2304, False, True),
+                                  (394, 768, 128, False, True),
+                                  (130, 768, 36, False, False),
+                                  (130, 100, 128, False, False),
+                                  (394, 768, 2304, True, False)]:
+        x, gamma, beta, w, b, _ = _ln_dense_inputs(m, c, o, True,
+                                                   torch.bfloat16, card, o)
+        for far in (False, True):
+            xi = (30.0 + x.float()).to(torch.bfloat16) if far else x
+            xi = _offset(xi) if shift else xi
+            out = torch.empty(m, o, dtype=torch.bfloat16, device=card)
+            assert gemm_route(xi, w, out, ln_depth=c) is route
+            _held_by(ln_dense(xi, gamma, beta, w, b, eps=1e-6),
+                     ln_dense_reference(xi, gamma, beta, w, b, 1e-6), 2e-2)
 
 
 def test_ln_dense_bwd_repeats_bit_for_bit(card):

@@ -11,7 +11,11 @@ heads, the flash kernel's (B, H, N, d) tiles and the rel-pos kernel's q, k
 and v tiles, with zeros past N and past d; the output maps, written box by
 box with the part past the dims left out, must give ``fused_mha``'s
 (B, N, H*d) layout, its backward's packed dqkv and the flash kernel's
-output. The hardware rules the maps must keep are checked beside them.
+output. The hardware rules the maps must keep are checked beside them. The GEMM
+maps of ``csrc/mlp_gemm.cuh`` (``convnext_mlp``, ``convnext_block``,
+``ln_dense``'s forward) must tile A, B, the shortcut and the output
+exactly at ragged M, N and K, and ``gemm_route`` must send each shape to
+the body that takes it.
 """
 
 import itertools
@@ -27,9 +31,18 @@ from tfimm_tpu_torch.ops.kernels.fused_mha import (
 )
 from tfimm_tpu_torch.ops.kernels.tma import (
     ELEM_BYTES,
+    GEMM_ROWS,
+    GEMM_WIDTHS,
+    LN_MAX_DEPTH,
     TILE,
     fused_mha_maps,
+    gemm_grid,
+    gemm_maps,
+    gemm_route,
+    gemm_width,
     heads_map,
+    matrix_map,
+    packed_gemm_maps,
     packed_fused_mha_maps,
     packed_heads_maps,
     packed_operand_maps,
@@ -485,3 +498,210 @@ def test_backward_scratch_rows(n):
     scratch = stats_scratch(3, n, "cpu")
     assert scratch.shape == (2, 3, n_pad) and scratch.dtype == torch.float32
     assert scratch.is_contiguous()
+
+
+# -- The GEMM body (csrc/mlp_gemm.cuh · gemm_bf16_wgmma) ---------------------
+
+# (M, N, K): ragged in all three (M = 3137, N = 392, K = 96), ConvNeXt-B's
+# stage-3 fc1 with its rows cut, one row, K below one 64-column box, and
+# ViT-B/16's LN1 -> qkv at bs2.
+GEMM_SHAPES = [(3137, 392, 96), (300, 4096, 1024), (1, 8, 8), (200, 48, 24),
+               (394, 2304, 768)]
+
+
+def _gemm_tiles(m, n, width):
+    """The (m0, n0) of every output tile of the persistent walk: the column
+    tiles of a row block one after another."""
+    n_tiles = -(-n // width)
+    return [(t // n_tiles * GEMM_ROWS, t % n_tiles * width)
+            for t in range(-(-m // GEMM_ROWS) * n_tiles)]
+
+
+@pytest.mark.parametrize("width", GEMM_WIDTHS)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_gemm_boxes_give_every_tile(m, n, k, width):
+    """Per output tile and k step, the A box (128 rows at (64 kt, m0)) and
+    the B box (``width`` rows at (64 kt, n0)) hold the tile's rows and k
+    columns of a and b with zeros past M, N and K; their product summed
+    over the k steps is the tile of a @ b^T, and nothing past M or N. Per
+    consumer warpgroup, the shortcut boxes (64 rows at (n0 + 64 c, m0 + 64
+    wg)) hold its rows."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=gen)
+    b = torch.randn(n, k, generator=gen)
+    sc = torch.randn(m, n, generator=gen)
+    a_map, b_map, out_map, sc_map = gemm_maps(m, n, k, width)
+    assert sc_map == out_map
+    k_steps = -(-k // TILE)
+    want = a @ b.t()
+    for m0, n0 in _gemm_tiles(m, n, width):
+        acc = torch.zeros(GEMM_ROWS, width)
+        for kt in range(k_steps):
+            a_box = tma_load(a.reshape(-1), a_map, (TILE * kt, m0))
+            b_box = tma_load(b.reshape(-1), b_map, (TILE * kt, n0))
+            assert a_box.shape == (GEMM_ROWS, TILE)
+            assert b_box.shape == (width, TILE)
+            assert torch.equal(
+                a_box, _padded(a[m0:m0 + GEMM_ROWS, TILE * kt:TILE * (kt + 1)],
+                               GEMM_ROWS, TILE))
+            assert torch.equal(
+                b_box, _padded(b[n0:n0 + width, TILE * kt:TILE * (kt + 1)],
+                               width, TILE))
+            acc += a_box @ b_box.t()
+        rows, cols = min(GEMM_ROWS, m - m0), min(width, n - n0)
+        assert torch.allclose(acc[:rows, :cols],
+                              want[m0:m0 + rows, n0:n0 + cols], atol=1e-4)
+        assert bool((acc[rows:] == 0).all()) and bool((acc[:, cols:] == 0).all())
+        for wg in range(2):
+            for c in range(min(width // TILE, -(-(n - n0) // TILE))):
+                box = tma_load(sc.reshape(-1), sc_map,
+                               (n0 + TILE * c, m0 + TILE * wg))
+                r0, c0 = m0 + TILE * wg, n0 + TILE * c
+                assert torch.equal(box, _padded(sc[r0:r0 + TILE, c0:c0 + TILE],
+                                                TILE, TILE))
+
+
+@pytest.mark.parametrize("width", GEMM_WIDTHS)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_gemm_out_boxes_write_the_output_exactly(m, n, k, width):
+    """Each warpgroup's 64-row boxes, stored where the kernel stores them
+    (skipping a warpgroup past M and 64-column chunks at or past N), write
+    every element of the (M, N) output once and nothing beyond it: the
+    storage after the output keeps its sentinel."""
+    out_map = gemm_maps(m, n, k, width)[2]
+    storage = torch.full((m * n + 4096,), -1.0)
+    count = torch.zeros(m * n + 4096)
+    for m0, n0 in _gemm_tiles(m, n, width):
+        for wg in range(2):
+            if m0 + TILE * wg >= m:
+                continue
+            for c in range(min(width // TILE, -(-(n - n0) // TILE))):
+                coords = (n0 + TILE * c, m0 + TILE * wg)
+                r = torch.arange(TILE * TILE, dtype=torch.float32)
+                rows, cols = coords[1] + r // TILE, coords[0] + r % TILE
+                tma_store(storage, out_map, coords,
+                          (rows * n + cols).reshape(TILE, TILE))
+                tma_store(count, out_map, coords,
+                          tma_load(count, out_map, coords) + 1)
+    assert torch.equal(storage[:m * n], torch.arange(m * n, dtype=torch.float32))
+    assert bool((count[:m * n] == 1).all()) and bool((count[m * n:] == 0).all())
+    assert bool((storage[m * n:] == -1.0).all())
+
+
+@pytest.mark.parametrize("width", GEMM_WIDTHS)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_gemm_maps_keep_the_hardware_rules(m, n, k, width):
+    """16-byte row strides (the route's C, H, O % 8 == 0), boxes of at most
+    256 rows, a 128-byte inner box: 128 rows for A, the tile width for B,
+    64 (a warpgroup's rows) for the output and the shortcut."""
+    maps = gemm_maps(m, n, k, width)
+    for geometry in maps:
+        _check_rules(geometry)
+        assert geometry.box[0] * ELEM_BYTES == 128
+    assert [g.box[1] for g in maps] == [GEMM_ROWS, width, TILE, TILE]
+    assert [g.dims for g in maps] == [(k, m), (k, n), (n, m), (n, m)]
+
+
+def test_packed_gemm_maps_are_the_maps_in_order():
+    """Four geometries a product, at its width, then its grid's blocks,
+    cached per shape; the C launcher reads the width as the b map's box
+    rows (value 15 + 11 of a product) and the grid as its value 60."""
+    products = ((25088, 2048, 512, True, False, 132),
+                (25088, 512, 2048, False, True, 132),
+                (200, 48, 24, True, False, 132))
+    packed = list(packed_gemm_maps(*products))
+    assert len(packed) == 3 * (4 * 15 + 1)
+    want = []
+    for m, n, k, ln, residual, sms in products:
+        width = gemm_width(m, n, k, ln, residual, sms)
+        for g in gemm_maps(m, n, k, width):
+            want += g.pack()
+        want.append(gemm_grid(m, n, width, sms))
+    assert packed == want
+    assert packed[:15] == [2, 512, 25088, 0, 0, 0, 1024, 0, 0, 0,
+                           64, 128, 0, 0, 0]
+    assert packed[15 + 11] == 256 and packed[61 + 15 + 11] == 128
+    # 196 x 8 tiles and 196 x 4 on 132 SMs: a block an SM; 2 x 1: a block
+    # a tile.
+    assert [packed[60], packed[121], packed[182]] == [132, 132, 2]
+    assert packed_gemm_maps(*products) is packed_gemm_maps(*products)
+    assert matrix_map(10, 96, 64).strides == (192,)
+
+
+@pytest.mark.parametrize("m,n,width,sms,blocks", [
+    (401408, 512, 256, 132, 132),
+    (6272, 4096, 256, 132, 132),
+    (6272, 1024, 128, 132, 132),
+    (12608, 2304, 256, 114, 114),   # an H100 PCIe's SM count
+    (200, 48, 128, 132, 2),
+    (128, 256, 256, 132, 1),
+    (129, 257, 256, 132, 4),
+])
+def test_gemm_grid_is_a_block_an_sm_at_most(m, n, width, sms, blocks):
+    assert gemm_grid(m, n, width, sms) == blocks
+
+
+# On 132 SMs: (M, N, K, ln, residual, width): ConvNeXt-B's products
+# (convnext_mlp's fc1 with the LN prologue, convnext_block's without),
+# ViT-B/16's ln_dense and the edges.
+@pytest.mark.parametrize("m,n,k,ln,residual,width", [
+    (401408, 512, 128, True, False, 256),     # stage 0 fc1: equal rounds
+    (401408, 512, 128, False, False, 256),    # the block's
+    (401408, 128, 512, False, True, 128),     # fc2
+    (25088, 2048, 512, True, False, 256),     # stage 2: 12 rounds or 24
+    (25088, 512, 2048, False, True, 128),
+    (6272, 4096, 1024, True, False, 256),     # stage 3: 6 rounds or 12
+    (6272, 1024, 4096, False, False, 128),    # 2 rounds of 256 or 3
+    (12608, 2304, 768, True, False, 256),     # ViT-B/16 LN1 -> qkv
+    (12608, 3072, 3072, True, False, 128),    # the affine too deep for 256
+    (200, 48, 24, True, False, 128),
+])
+def test_gemm_width_picks_the_faster_tiles(m, n, k, ln, residual, width):
+    assert gemm_width(m, n, k, ln, residual, 132) == width
+
+
+def _matrix(rows, cols, dtype=torch.bfloat16, offset=0):
+    flat = torch.zeros(rows * cols + offset, dtype=dtype)
+    return flat[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("c,hidden,offset,dtype,route", [
+    (128, 512, 0, torch.bfloat16, True),     # ConvNeXt-B stage 0
+    (1024, 4096, 0, torch.bfloat16, True),   # stage 3
+    (2048, 8192, 0, torch.bfloat16, True),   # convnext_xlarge's widest
+    (96, 392, 0, torch.bfloat16, True),      # C % 64 != 0, H % 128 != 0
+    (24, 96, 0, torch.bfloat16, True),       # the smallest multiple of 8s
+    (12, 48, 0, torch.bfloat16, False),      # the golden fixture: 24-byte rows
+    (100, 400, 0, torch.bfloat16, False),    # 200-byte rows
+    (128, 36, 0, torch.bfloat16, False),     # an odd hidden width
+    (128, 512, 1, torch.bfloat16, False),    # a base off 16 bytes
+    (128, 512, 8, torch.bfloat16, True),     # a base 16 bytes on
+    (128, 512, 0, torch.float32, False),     # f32: the FMA body
+])
+def test_gemm_route(c, hidden, offset, dtype, route):
+    """Which shapes take the TMA + wgmma body and which keep mma.sync: the
+    convnext_mlp operands (x, shortcut, w1, w2, h, out) of M = 64 rows with
+    x at ``offset`` elements into its storage."""
+    x = _matrix(64, c, dtype, offset)
+    others = [_matrix(64, c, dtype), _matrix(hidden, c, dtype),
+              _matrix(c, hidden, dtype), _matrix(64, hidden, dtype),
+              _matrix(64, c, dtype)]
+    assert gemm_route(x, *others, ln_depth=c) is route
+
+
+def test_gemm_route_limits():
+    """ln_dense's O = 36 and C = 100 keep mma.sync; the LN prologue's depth
+    is bounded by its affine in shared memory; a view that is not
+    contiguous or an empty matrix is refused."""
+    x, w = _matrix(197, 768), _matrix(2304, 768)
+    assert gemm_route(x, w, _matrix(197, 2304), ln_depth=768)
+    assert not gemm_route(x, _matrix(36, 768), _matrix(197, 36), ln_depth=768)
+    assert not gemm_route(_matrix(197, 100), _matrix(40, 100),
+                          _matrix(197, 40), ln_depth=100)
+    deep = _matrix(8, LN_MAX_DEPTH + 8)
+    assert gemm_route(deep, ln_depth=0)
+    assert not gemm_route(deep, ln_depth=LN_MAX_DEPTH + 8)
+    assert gemm_route(_matrix(8, LN_MAX_DEPTH), ln_depth=LN_MAX_DEPTH)
+    assert not gemm_route(_matrix(64, 256)[:, :128])
+    assert not gemm_route(_matrix(64, 256).t())
+    assert not gemm_route(_matrix(0, 128))

@@ -29,9 +29,13 @@
 // written as per-block f32 partials and added up by a second small launch
 // in a fixed order: runs repeat bit for bit, with no float atomics.
 //
-// - forward (2 launches): row_stats, then the mlp_gemm.cuh tiles (as
-//   convnext_mlp's fc1) with the LayerNorm prologue on the A tiles and the
-//   bias epilogue. z never reaches device memory.
+// - forward (2 launches): row statistics, then the mlp_gemm.cuh GEMM (as
+//   convnext_mlp's fc1) with the LayerNorm prologue on the A operand and
+//   the bias epilogue. z never reaches device memory. In bf16 where
+//   tma.py · gemm_route takes x, w and the output (C and O multiples of 8,
+//   16-byte aligned, C up to 4096: ViT-B/16's widths) the GEMM runs
+//   mlp_gemm.cuh's TMA-fed wgmma body, else (C = 100, O = 36) its mma.sync
+//   body (see its note).
 // - backward (7 launches, counted as one): row_stats once, shared by the
 //   dx and dW passes (the JAX kernels recompute the same formula in each);
 //   - dx: a block owns BM rows and every column. It loops over 128-column
@@ -49,12 +53,13 @@
 //     over their rows for db. Partials (splits, O, C) in f32;
 //   - the dW and db partials summed over the slices, in order.
 //
-// Products: bf16 through mma.sync m16n8k16 (f32 accumulate) with ldmatrix
-// fragments (.trans for the operands stored k-major: w in dz = g @ w, and
-// both of dW's); f32 through plain FMAs (TF32 would miss the 1e-5 bar).
-// Tiles are staged in shared memory by cp.async, two buffers deep, 64 bytes
-// of depth per stage; rows padded by 16 bytes, which keeps the ldmatrix row
-// addresses on distinct banks. This first form uses neither wgmma nor TMA.
+// The backward's products: bf16 through mma.sync m16n8k16 (f32
+// accumulate) with ldmatrix fragments (.trans for the operands stored
+// k-major: w in dz = g @ w, and both of dW's); f32 through plain FMAs
+// (TF32 would miss the 1e-5 bar). Tiles are staged in shared memory by
+// cp.async, two buffers deep, 64 bytes of depth per stage; rows padded by
+// 16 bytes, which keeps the ldmatrix row addresses on distinct banks. The
+// backward uses neither wgmma nor TMA yet.
 //
 // Coverage: any M, O >= 1, 1 <= C <= 3,318 (the dx tile). Rows, columns and
 // depth beyond the edges are zero-filled in shared memory (the LN transform
@@ -268,11 +273,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
                 float* __restrict__ rstd, int m, int c, float eps, int vec) {
-  const int64_t row = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
-  if (row >= m) return;
-  row_stats_warp<T>(x + row * c, c, eps, vec, threadIdx.x % 32, mean + row,
-                    rstd + row);
+  row_stats<T>(x, mean, rstd, m, c, eps, vec);
 }
+
+CNX_WGMMA_KERNEL(ln_dense_fwd_wgmma_kernel, true, kBias)
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ln_dense_fwd_kernel(GemmArgs p) {
@@ -523,9 +527,9 @@ int launch_checked(const void* fn, dim3 grid, size_t smem, void** params,
 template <typename T>
 int launch_stats(const T* x, float* mean, float* rstd, int m, int c,
                  float eps, cudaStream_t stream) {
-  const int blocks = (int)(((int64_t)m * 32 + kThreads - 1) / kThreads);
-  ln_stats_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      x, mean, rstd, m, c, eps, c % vec_len<T>() == 0 && aligned16(x));
+  const int vec = c % vec_len<T>() == 0 && aligned16(x);
+  ln_stats_kernel<T><<<stats_blocks<T>(m, c, vec), kThreads, 0, stream>>>(
+      x, mean, rstd, m, c, eps, vec);
   return (int)cudaGetLastError();
 }
 
@@ -541,12 +545,17 @@ int launch_sum(const float* part, int parts, int64_t n, TOut* out,
 template <typename T>
 int launch_fwd(const T* x, const float* gamma, const float* beta, const T* w,
                const float* bias, float* mean, float* rstd, T* out, int m,
-               int c, int o, float eps, cudaStream_t stream) {
+               int c, int o, float eps, const int64_t* maps,
+               cudaStream_t stream) {
   int err = launch_stats<T>(x, mean, rstd, m, c, eps, stream);
   if (err != 0) return err;
   GemmArgs args = {x, w, out, nullptr, mean, rstd, gamma, beta, bias, nullptr,
                    m, o, c,
                    c % vec_len<T>() == 0 && aligned16(x) && aligned16(w)};
+  if constexpr (sizeof(T) == 2) {
+    if (maps != nullptr)
+      return launch_ln_dense_fwd_wgmma_kernel(args, maps, stream);
+  }
   return launch_gemm<T>(ln_dense_fwd_kernel<T>, args, stream);
 }
 
@@ -603,14 +612,19 @@ int launch_bwd(const T* x, const float* gamma, const float* beta, const T* w,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. gamma, beta and bias are f32 (bias may
-// be NULL); mean, rstd (M,) f32 are scratch the caller allocates. Returns a
-// cudaError_t value (0 = ok).
+// be NULL); mean, rstd (M,) f32 are scratch the caller allocates. maps:
+// NULL for the mma.sync body, or (bf16) the product's maps of tma.py ·
+// packed_gemm_maps (x, w, out and out again, then its grid), which select
+// the TMA + wgmma body.
+// Returns a cudaError_t value (0 = ok).
 extern "C" int tfimm_ln_dense_fwd(const void* x, const void* gamma,
                                   const void* beta, const void* w,
                                   const void* bias, void* mean, void* rstd,
                                   void* out, int m, int c, int o, float eps,
-                                  int dtype, void* stream) {
+                                  int dtype, const int64_t* maps,
+                                  void* stream) {
   if (m <= 0 || c <= 0 || o <= 0) return (int)cudaErrorInvalidValue;
+  if (maps != nullptr && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gm = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
@@ -621,11 +635,13 @@ extern "C" int tfimm_ln_dense_fwd(const void* x, const void* gamma,
     case 0:
       return launch_fwd<float>(static_cast<const float*>(x), gm, bt,
                                static_cast<const float*>(w), bs, mu, rs,
-                               static_cast<float*>(out), m, c, o, eps, s);
+                               static_cast<float*>(out), m, c, o, eps,
+                               nullptr, s);
     case 1:
       return launch_fwd<bf16>(static_cast<const bf16*>(x), gm, bt,
                               static_cast<const bf16*>(w), bs, mu, rs,
-                              static_cast<bf16*>(out), m, c, o, eps, s);
+                              static_cast<bf16*>(out), m, c, o, eps, maps,
+                              s);
     default:
       return (int)cudaErrorInvalidValue;
   }

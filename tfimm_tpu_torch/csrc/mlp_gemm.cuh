@@ -1,11 +1,11 @@
 // The MLP GEMM tiles shared by convnext_mlp.cu, convnext_block.cu and
-// ln_dense.cu (its forward): a
-// tiled "A row-major times B row-major transposed" product, out = epi(A @
-// B^T), with an optional LayerNorm prologue on the A tiles. See the note at
-// the top of convnext_mlp.cu for the tiling. Every function here is inline
-// (or a template), so the two objects that include it link together; the
-// __global__ kernels that call the bodies live in each source's anonymous
-// namespace.
+// ln_dense.cu (its forward): a tiled "A row-major times B row-major
+// transposed" product, out = epi(A @ B^T), with an optional LayerNorm
+// prologue on the A tiles. Every function here is inline (or a template),
+// so the objects that include it link together; the __global__ kernels
+// that call the bodies live in each source's anonymous namespace
+// (CNX_WGMMA_KERNEL declares the wgmma body's there). row_stats gives the
+// LN prologue its per-row statistics.
 //
 // Prologues (kLn): false, A is read as it is; true, A is x and the tile is
 // formed as LN(x) = ((x - mean) * rstd) * ln_w + ln_b from per-row f32
@@ -14,12 +14,59 @@
 // rounded to the dtype; kResidual gives shortcut + gamma * (acc + bias) in
 // f32, rounded once; kBias gives acc + bias in f32 (acc alone where bias is
 // NULL), rounded once.
+//
+// Three bodies:
+//
+// - bf16 on Hopper (gemm_bf16_wgmma), the route of every operand set that
+//   tma.py · gemm_route takes (bf16, contiguous, 16-byte aligned rows of a
+//   multiple of 8 elements; the LN prologue up to K = 4096): every
+//   registered ConvNeXt width and ViT-B/16's ln_dense. A persistent grid of
+//   one block an SM walks 128 x BN output tiles (BN = 128 or 256,
+//   tma.py · gemm_width) in 64-deep k steps (one 128-byte swizzle row of
+//   bf16). A producer warpgroup (40 registers a thread by setmaxnreg) has
+//   one thread stream A (128 x 64) and B (BN x 64) tiles by TMA into a
+//   ring of stages (5 at BN = 128, 3 at 256: 160 and 144 KB), signalled on
+//   a "full" mbarrier by the transaction count and released on an "empty"
+//   one by the consumers' warps. Two consumer warpgroups (232 registers)
+//   own 64 rows each and run wgmma m64nBNk16 with the accumulator in
+//   registers (64 or 128 a thread), one group in flight. The LN prologue
+//   reads the landed x tile from shared memory, normalises it in f32 with
+//   the row's mean and rstd and the column pair's affine (kept in shared
+//   memory for all of K) and feeds wgmma A from registers. The epilogue
+//   runs in f32 from the accumulator, writes the rounded tile into a
+//   swizzled staging buffer and leaves it to one TMA store a 64-column
+//   tile, which drops rows past M and columns past N; the residual's
+//   shortcut tile is loaded by TMA into the same buffer while the products
+//   run. TMA's zero fill past M, N and K stands in for masked loads.
+//   What bounds it (PERF.md row 3): at ConvNeXt-B bs128 its products run
+//   at about half of the bf16 peak, below cuBLAS's mainloop on the same
+//   shapes, and fc1 adds its GELU epilogue (an exponential and a
+//   reciprocal on the special-function unit an element, not overlapped
+//   with the products) and, in convnext_mlp, the LN prologue's f32 work.
+//   Tried on the H100 and dropped, each slower or no faster than this form
+//   in development builds at ConvNeXt-B's shapes: z formed in shared
+//   memory by the producer warpgroup's three spare warps (the consumers
+//   then on shared-memory A); clusters of two blocks sharing B by TMA
+//   multicast; stores and shortcut loads from registers, to free the
+//   staging for a fourth stage at BN = 256; two accumulator sets at
+//   BN = 128, the GELU of one tile between the next tile's k steps (and
+//   with a divergent path around the wgmmas, ptxas serialises them:
+//   C7518); A registers formed while the previous group runs (ptxas
+//   serialises every wgmma: C7513).
+// - bf16 elsewhere (gemm_bf16_tile: C or H not a multiple of 8, an
+//   operand off 16 bytes, K above 4096 with the LN prologue): mma.sync
+//   m16n8k16 fed by ldmatrix, 128 x 128 tiles, 32-deep k tiles staged
+//   through registers into two shared buffers.
+// - f32 (gemm_f32_tile): plain FMAs (TF32 would miss the 1e-5 bar), 64 x
+//   64 tiles.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace cnx {
 
@@ -102,45 +149,108 @@ __device__ __forceinline__ float gelu_tanh(float s) {
   return 0.5f * s * (1.f + tanhf(u));
 }
 
-// One row's LayerNorm statistics, by the 32 lanes of a warp: the f32 mean
-// and rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps), the one-pass variance of
+// LayerNorm statistics of the rows of x (M, C): each row's f32 mean and
+// rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps), the one-pass variance of
 // the JAX package's LayerNorm. vec: 16-byte loads (c % vec_len == 0 and x
-// 16-byte aligned).
+// 16-byte aligned). A warp takes its rows in groups of G lanes a row, each
+// group R rows with all their loads in flight before the sums: G = 32 and
+// R = 1 (a warp a row), but for bf16 rows of 16-byte chunks below C = 256
+// (512 bytes), which would leave most of a warp's lanes idle: there G = 16
+// (C >= 128) or 8 and R = 4, so a warp covers 8 or 16 rows.
 template <typename T>
-__device__ __forceinline__ void row_stats_warp(const T* __restrict__ xr, int c,
-                                               float eps, int vec, int lane,
-                                               float* mean, float* rstd) {
+__host__ __device__ inline int stats_lanes(int c, int vec) {
+  return sizeof(T) == 2 && vec && c < 256 ? (c >= 128 ? 16 : 8) : 32;
+}
+__host__ __device__ inline int stats_rows_a_warp(int lanes) {
+  return lanes == 32 ? 1 : 4 * 32 / lanes;
+}
+
+// Blocks of kThreads that row_stats needs for M rows.
+template <typename T>
+inline unsigned stats_blocks(int m, int c, int vec) {
+  const int64_t rows_a_block =
+      (int64_t)kThreads / 32 * stats_rows_a_warp(stats_lanes<T>(c, vec));
+  return (unsigned)((m + rows_a_block - 1) / rows_a_block);
+}
+
+// Rows row0 + lane / G + (32 / G) i (i < R) of x, by groups of G lanes.
+template <typename T, int G, int R>
+__device__ __forceinline__ void row_stats_groups(const T* __restrict__ x,
+                                                 float* __restrict__ mean,
+                                                 float* __restrict__ rstd,
+                                                 int64_t row0, int m, int c,
+                                                 float eps, int vec) {
   constexpr int V = vec_len<T>();
-  float s = 0.f, ss = 0.f;
-  if (vec) {
-    for (int k = lane * V; k < c; k += 32 * V) {
-      Chunk<T> ch;
-      ch.u = *reinterpret_cast<const uint4*>(xr + k);
+  const int lane = threadIdx.x % 32, gl = lane % G;
+  int64_t row[R];
+  float s[R], ss[R];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float v = ch.get(j);
-        s += v;
-        ss += v * v;
+  for (int i = 0; i < R; ++i) {
+    row[i] = row0 + lane / G + (int64_t)(32 / G) * i;
+    s[i] = ss[i] = 0.f;
+  }
+  if (vec) {
+    for (int k = V * gl; k < c; k += V * G) {
+      Chunk<T> ch[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        ch[i].u = row[i] < m
+                      ? *reinterpret_cast<const uint4*>(x + row[i] * c + k)
+                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float v = ch[i].get(j);
+          s[i] += v;
+          ss[i] += v * v;
+        }
       }
     }
   } else {
-    for (int k = lane; k < c; k += 32) {
-      const float v = to_f(xr[k]);
-      s += v;
-      ss += v * v;
+    for (int k = gl; k < c; k += G) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (row[i] >= m) continue;
+        const float v = to_f(x[row[i] * c + k]);
+        s[i] += v;
+        ss[i] += v * v;
+      }
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+      ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], off);
+    }
+    if (gl == 0 && row[i] < m) {
+      const float mu = s[i] / (float)c;
+      mean[row[i]] = mu;
+      rstd[row[i]] = rsqrtf(fmaxf(ss[i] / (float)c - mu * mu, 0.f) + eps);
+    }
   }
-  if (lane == 0) {
-    const float mu = s / (float)c;
-    const float var = fmaxf(ss / (float)c - mu * mu, 0.f);
-    *mean = mu;
-    *rstd = rsqrtf(var + eps);
+}
+
+// The body of a row-statistics kernel of stats_blocks<T>(m, c, vec) blocks
+// of kThreads.
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* __restrict__ x,
+                                          float* __restrict__ mean,
+                                          float* __restrict__ rstd, int m,
+                                          int c, float eps, int vec) {
+  const int lanes = stats_lanes<T>(c, vec);
+  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int64_t row0 = warp * stats_rows_a_warp(lanes);
+  if (row0 >= m) return;   // the whole warp
+  if constexpr (sizeof(T) == 2) {
+    if (lanes == 8)
+      return row_stats_groups<T, 8, 4>(x, mean, rstd, row0, m, c, eps, vec);
+    if (lanes == 16)
+      return row_stats_groups<T, 16, 4>(x, mean, rstd, row0, m, c, eps, vec);
   }
+  row_stats_groups<T, 32, 1>(x, mean, rstd, row0, m, c, eps, vec);
 }
 
 // Load vec_len<T>() consecutive elements (row, k .. k + V - 1) of a
@@ -462,6 +572,353 @@ __device__ __forceinline__ void gemm_f32_tile(const GemmArgs& p,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: TMA-fed wgmma on an mbarrier ring (operands with 16-byte
+// rows; see the note at the top)
+
+constexpr int kWgThreads = 384;   // a producer warpgroup, two consumer ones
+constexpr int kWgRows = 128;      // output tile rows: 64 a consumer warpgroup
+constexpr int kWgDepth = 64;      // k step: one 128-byte swizzle row of bf16
+constexpr int kWgTileBytes = 64 * 64 * 2;   // one 64 x 64 swizzled bf16 tile
+constexpr int kLnMaxDepth = 4096;           // the LN affine in shared memory
+constexpr int kLnMaxDepthWide = 2048;       // ... beside 256-column tiles
+constexpr int kWgProducerRegs = 40;
+constexpr int kWgConsumerRegs = 232;
+
+// Shared memory of a block with BN-column output tiles: the ring of
+// kStages (A 128 x 64, B BN x 64) stages, the output staging (each
+// consumer warpgroup's 64 x BN, in 64-column swizzled tiles), the
+// barriers, then (kLn) the LN affine, one float4 (w[2i], w[2i + 1],
+// b[2i], b[2i + 1]) a column pair: 225.1 KB at most (BN = 128, K = 4096).
+template <int BN>
+struct WgmmaTiles {
+  static constexpr int kStages = BN == 128 ? 5 : 3;
+  static constexpr int kABytes = kWgRows * kWgDepth * 2;
+  static constexpr int kStageBytes = kABytes + BN * kWgDepth * 2;
+  static constexpr int kOut = kStages * kStageBytes;
+  static constexpr int kOutBytes = kWgRows * BN * 2;
+  static constexpr int kBars = kOut + kOutBytes;
+  // full[kStages], empty[kStages], the two warpgroups' shortcut barriers.
+  static constexpr int kAffine = kBars + 8 * (2 * kStages + 2);
+  static constexpr int kChunks = BN / 64;
+
+  // 1024 bytes of slack align the ring to the swizzle's 1024-byte period.
+  static size_t bytes(bool ln, int k) {
+    const int k_pad = (k + kWgDepth - 1) / kWgDepth * kWgDepth;
+    return (size_t)kAffine + (ln ? (size_t)k_pad * 8 : 0) + 1024;
+  }
+};
+
+// 1 / (1 + e^-2u) = (1 + tanh u) / 2, so the tanh GELU 0.5 s (1 + tanh u)
+// is s / (1 + e^-2u): one exponential and one division on the special
+// function unit, where tanhf costs several more instructions. The same
+// function, evaluated otherwise than the other bodies' gelu_tanh: __expf
+// is within 2 + floor(1.173 |2u|) ulp (CUDA's bound, growing with the
+// argument) and __fdividef within 2, so the result is within about
+// 5 + 2.35 |u| ulp of s / (1 + e^-2u), relative; it matters only for
+// u << 0, where h is tiny and 1 + tanhf(u) loses more to cancellation.
+// Rounded to bf16, the two forms can differ in h's last bit.
+__device__ __forceinline__ float gelu_tanh_wgmma(float s) {
+  const float u = 0.7978845608028654f * (s + 0.044715f * s * s * s);
+  return __fdividef(s, 1.f + __expf(-2.f * u));
+}
+
+// out = epi(A @ B^T) over every (128, BN) output tile, the tiles walked by
+// a persistent grid (tile blockIdx.x, + gridDim.x, ...; the columns of a
+// row block in a row). Maps (tma.py · gemm_maps): a (M, K) with 128-row
+// boxes, b (N, K) with BN-row boxes, out and sc (M, N) with 64-row boxes,
+// all 64 columns wide. smem_raw holds WgmmaTiles<BN>::bytes(kLn, K).
+template <bool kLn, int E, int BN>
+__device__ __forceinline__ void gemm_bf16_wgmma(const CUtensorMap* a_map,
+                                                const CUtensorMap* b_map,
+                                                const CUtensorMap* out_map,
+                                                const CUtensorMap* sc_map,
+                                                const GemmArgs& p,
+                                                uint8_t* smem_raw) {
+  using L = WgmmaTiles<BN>;
+  constexpr int S = L::kStages;
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + S;
+  uint64_t* sc_full = empty + S;
+  float4* affine = reinterpret_cast<float4*>(smem + L::kAffine);
+
+  const int n_tiles = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + kWgRows - 1) / kWgRows * n_tiles;
+  const int k_steps = (p.k + kWgDepth - 1) / kWgDepth;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    hopper::mbar_init(&sc_full[0], 1);
+    hopper::mbar_init(&sc_full[1], 1);
+    hopper::fence_barrier_init();
+  }
+  if (kLn) {
+    // Zeros past K: z is then (-mean) * rstd * 0 + 0, finite, and meets
+    // B's zero fill there.
+    for (int i = (int)threadIdx.x; i < k_steps * kWgDepth / 2;
+         i += kWgThreads) {
+      const int c = 2 * i;
+      const bool in = c < p.k;   // K % 8 == 0 on this route: pairs whole
+      affine[i] = in ? make_float4(__ldg(p.ln_w + c), __ldg(p.ln_w + c + 1),
+                                   __ldg(p.ln_b + c), __ldg(p.ln_b + c + 1))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // Producer: one thread streams A and B k steps through the ring, tile
+    // after tile, ahead of the consumers by up to S stages (so the next
+    // tile's first stages load during this tile's epilogue).
+    hopper::setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * kWgRows, n0 = tile % n_tiles * BN;
+        for (int kt = 0; kt < k_steps; ++kt, ++it) {
+          const int s = it % S;
+          if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          uint8_t* stage = smem + s * L::kStageBytes;
+          hopper::mbar_expect_tx(&full[s], L::kStageBytes);
+          hopper::tma_load_2d(stage, a_map, &full[s], kWgDepth * kt, m0);
+          hopper::tma_load_2d(stage + L::kABytes, b_map, &full[s],
+                              kWgDepth * kt, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: rows 64 wg ... + 63 of each tile. Thread (warp
+  // wl of the group, lane g * 4 + t) holds rows row and row + 8 of them.
+  hopper::setmaxnreg_inc<kWgConsumerRegs>();
+  const int wg = warp / 4 - 1, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int row = 16 * wl + g;
+  const bool leader = threadIdx.x % 128 == 0;
+
+  // The epilogue follows each tile's k steps (the producer meanwhile
+  // loads the next tile's first stages).
+  uint8_t* out_s = smem + L::kOut + wg * L::kChunks * kWgTileBytes;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int it = 0, sc_uses = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * kWgRows, n0 = tile % n_tiles * BN;
+    const int r0 = m0 + 64 * wg;   // the warpgroup's first row
+    const bool live = r0 < p.m;
+    const int chunks = min(L::kChunks, (p.n - n0 + 63) / 64);
+    if (E == kResidual && live && leader) {
+      // The shortcut tile into the staging buffer, once the previous
+      // tile's store has read it; it lands while the products run.
+      hopper::tma_store_wait_read();
+      hopper::mbar_expect_tx(&sc_full[wg], chunks * kWgTileBytes);
+      for (int c = 0; c < chunks; ++c)
+        hopper::tma_load_2d(out_s + c * kWgTileBytes, sc_map, &sc_full[wg],
+                            n0 + 64 * c, r0);
+    }
+    // This thread's rows' statistics (the LN prologue).
+    float mu[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + row + 8 * h;
+      if (kLn && r < p.m) {
+        mu[h] = __ldg(p.mean + r);
+        rs[h] = __ldg(p.rstd + r);
+      }
+    }
+
+    // The k steps. With the LN prologue, z = LN(x) is formed from the
+    // staged x tile in the A registers (the k16 step kk's four: rows row,
+    // row + 8 at columns 16 kk + 2 t, then + 8), rounded to bf16, and each
+    // step's products are retired before the next step defines A again:
+    // issued with a group in flight, a product whose A registers were
+    // defined during that group makes ptxas serialise every wgmma (C7513);
+    // forming A during the previous step's products in a second register
+    // set, retired before the issue, measured no faster. Without it, one
+    // group stays in flight.
+    for (int kt = 0; kt < k_steps; ++kt, ++it) {
+      const int s = it % S;
+      hopper::mbar_wait(&full[s], (it / S) & 1);
+      uint8_t* stage = smem + s * L::kStageBytes;
+      const uint64_t bd = hopper::sw128_desc(stage + L::kABytes);
+      if constexpr (kLn) {
+        uint32_t a[16];
+        const uint8_t* x_s = stage + wg * kWgTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j2 = 8 * kk + 4 * h + t;   // the column pair
+            const float4 af = affine[kWgDepth / 2 * kt + j2];
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                  x_s + hopper::sw128_offset(row + 8 * rr, j2));
+              const float x0 = __uint_as_float(v << 16);
+              const float x1 = __uint_as_float(v & 0xffff0000u);
+              const float z0 = ((x0 - mu[rr]) * rs[rr]) * af.x + af.z;
+              const float z1 = ((x1 - mu[rr]) * rs[rr]) * af.y + af.w;
+              a[4 * kk + 2 * h + rr] = hopper::pack_bf16(z0, z1);
+            }
+          }
+        }
+        hopper::fence_regs(a);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs<0>(acc, &a[4 * kk], bd + 2 * kk, kt > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(a);
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      } else {
+        const uint64_t ad = hopper::sw128_desc(stage + wg * kWgTileBytes);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss<0>(acc, ad + 2 * kk, bd + 2 * kk, kt > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % S]);
+      }
+    }
+    if constexpr (!kLn) {
+      hopper::wgmma_wait<0>();
+      if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % S]);
+    }
+    hopper::fence_regs(acc);
+    if (!live) continue;
+
+    // Epilogue in f32 from the accumulator, rounded once into the
+    // staging tiles (column block j: tile j / 8, column pair 4 (j % 8) +
+    // t), then one TMA store a 64-column tile, which drops rows >= M and
+    // columns >= N.
+    if (E == kResidual) {
+      hopper::mbar_wait(&sc_full[wg], sc_uses & 1);
+      ++sc_uses;
+    } else {
+      if (leader) hopper::tma_store_wait_read();
+      hopper::named_barrier(1 + wg, 128);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (n0 + 8 * j >= p.n) continue;   // N % 8 == 0: blocks whole
+      float b0 = 0.f, b1 = 0.f;
+      if (E != kBias || p.bias) {
+        b0 = __ldg(p.bias + col);
+        b1 = __ldg(p.bias + col + 1);
+      }
+      uint8_t* tile_s = out_s + (j / 8) * kWgTileBytes;
+      const int j2 = 4 * (j % 8) + t;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        uint32_t* o = reinterpret_cast<uint32_t*>(
+            tile_s + hopper::sw128_offset(row + 8 * rr, j2));
+        const float s0 = acc[4 * j + 2 * rr], s1 = acc[4 * j + 2 * rr + 1];
+        float v0, v1;
+        if (E == kGeluTanh) {
+          v0 = gelu_tanh_wgmma(s0 + b0);
+          v1 = gelu_tanh_wgmma(s1 + b1);
+        } else if (E == kBias) {
+          v0 = s0 + b0;
+          v1 = s1 + b1;
+        } else {
+          const uint32_t sc = *o;
+          v0 = __uint_as_float(sc << 16) + __ldg(p.gamma + col) * (s0 + b0);
+          v1 = __uint_as_float(sc & 0xffff0000u) +
+               __ldg(p.gamma + col + 1) * (s1 + b1);
+        }
+        *o = hopper::pack_bf16(v0, v1);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+    if (leader) {
+      for (int c = 0; c < chunks; ++c)
+        hopper::tma_store_2d(out_map, out_s + c * kWgTileBytes, n0 + 64 * c,
+                             r0);
+      hopper::tma_store_commit();
+    }
+  }
+
+  // The staging must outlive the stores' reads of it.
+  if (leader) hopper::tma_store_wait_read();
+}
+
+// A product's maps (tma.py · packed_gemm_maps): four geometries (a, b,
+// out, the shortcut), then the persistent grid's blocks.
+constexpr int kGemmMapsSize = 4 * hopper::kGeometrySize + 1;
+
+// The b map's box rows: the output tile's columns (tma.py · gemm_width).
+inline int wgmma_width(const int64_t* maps) {
+  return (int)maps[hopper::kGeometrySize + 11];
+}
+
+// Launch ``kernel``, a __global__ wrapper of gemm_bf16_wgmma<ln, E, BN>
+// that takes the four maps by value (as const __grid_constant__
+// CUtensorMap) and then the arguments, for one product: the maps encoded
+// from `maps` (kGemmMapsSize values: four geometries, a, b, out, the
+// shortcut, the out map again where there is no shortcut, over the
+// arguments' bases; then the grid's blocks, at most one an SM, which the
+// wrapper sizes from the device's SM count as it picks the width).
+// Returns a cudaError_t value.
+template <int BN>
+inline int launch_gemm_wgmma(const void* kernel, bool ln, const int64_t* maps,
+                             const GemmArgs& args, cudaStream_t stream) {
+  if (wgmma_width(maps) != BN) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmaps[4];
+  const void* bases[4] = {args.a, args.b, args.out,
+                          args.shortcut ? args.shortcut : args.out};
+  for (int i = 0; i < 4; ++i) {
+    const int err = hopper::encode_bf16_map(&tmaps[i], bases[i],
+                                            maps + i * hopper::kGeometrySize);
+    if (err != 0) return err;
+  }
+  const size_t smem = WgmmaTiles<BN>::bytes(ln, args.k);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = (int64_t)((args.m + kWgRows - 1) / kWgRows) *
+                        ((args.n + BN - 1) / BN);
+  const int64_t blocks = maps[4 * hopper::kGeometrySize];
+  if (blocks <= 0 || blocks > tiles) return (int)cudaErrorInvalidConfiguration;
+  GemmArgs a = args;
+  void* params[] = {&tmaps[0], &tmaps[1], &tmaps[2], &tmaps[3], &a};
+  err = cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3(kWgThreads),
+                         params, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Declares a __global__ wrapper `name`<BN> of gemm_bf16_wgmma<LN, EPI, BN>
+// and `launch_<name>`, which launches its instantiation at the maps' width.
+#define CNX_WGMMA_KERNEL(name, LN, EPI)                                      \
+  template <int BN>                                                          \
+  __global__ void __launch_bounds__(cnx::kWgThreads, 1)                      \
+      name(const __grid_constant__ CUtensorMap a,                            \
+           const __grid_constant__ CUtensorMap b,                            \
+           const __grid_constant__ CUtensorMap out,                          \
+           const __grid_constant__ CUtensorMap sc, cnx::GemmArgs p) {        \
+    extern __shared__ __align__(16) uint8_t wgmma_smem[];                    \
+    cnx::gemm_bf16_wgmma<LN, EPI, BN>(&a, &b, &out, &sc, p, wgmma_smem);     \
+  }                                                                          \
+  inline int launch_##name(const cnx::GemmArgs& args, const int64_t* maps,   \
+                           cudaStream_t stream) {                            \
+    if (cnx::wgmma_width(maps) == 256)                                       \
+      return cnx::launch_gemm_wgmma<256>(                                    \
+          reinterpret_cast<const void*>(name<256>), LN, maps, args, stream); \
+    return cnx::launch_gemm_wgmma<128>(                                      \
+        reinterpret_cast<const void*>(name<128>), LN, maps, args, stream);   \
+  }
 
 inline bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;

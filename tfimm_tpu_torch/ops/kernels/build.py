@@ -88,6 +88,7 @@ def _declare(lib):
         ctypes.c_void_p,  # out
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, C, H
         ctypes.c_float, ctypes.c_int,  # eps, dtype code
+        geometry,  # bf16 TMA route: fc1's and fc2's tensor maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_convnext_mlp.restype = ctypes.c_int
@@ -231,6 +232,7 @@ def _declare(lib):
         ctypes.c_void_p,  # out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, C
         ctypes.c_int, ctypes.c_float, ctypes.c_int,  # hidden, eps, dtype code
+        geometry,  # bf16 TMA route: fc1's and fc2's tensor maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_convnext_block.restype = ctypes.c_int
@@ -268,6 +270,7 @@ def _declare(lib):
         ctypes.c_void_p,  # out (M, O)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, C, O
         ctypes.c_float, ctypes.c_int,  # eps, dtype code
+        geometry,  # bf16 TMA route: the product's tensor maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_ln_dense_fwd.restype = ctypes.c_int

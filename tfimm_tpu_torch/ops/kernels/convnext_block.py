@@ -23,8 +23,12 @@ On a CUDA tensor ``convnext_block`` launches the hand-written kernels of
 design and what bounds it), counted as one launch, and raises on what they
 do not take; on CPU tensors it runs ``convnext_block_reference``. The
 kernels take bf16 and f32, any B, H, W and hidden width, and C up to
-58,112. They have no backward, as the Pallas kernel has none: on a CUDA
-tensor that autograd would need a gradient for, the wrapper raises.
+58,112. In bf16, where ``tma.gemm_route`` takes x, z, h, the output and the
+weights (C and hidden multiples of 8, 16-byte aligned bases), the products
+run the TMA + wgmma body, else the mma.sync body; the depthwise launch
+picks its own form from its operands (the note's step 1). They have no
+backward, as the Pallas kernel has none: on a CUDA tensor that autograd
+would need a gradient for, the wrapper raises.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ import torch
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
+from tfimm_tpu_torch.ops.kernels.tma import (
+    gemm_route,
+    packed_gemm_maps,
+    sm_count,
+)
 
 __all__ = ["convnext_block", "convnext_block_reference", "MAX_CHANNELS"]
 
@@ -127,9 +136,15 @@ def convnext_block(x, dw_weight, dw_bias, ln_weight, ln_bias, w1, b1, w2, b2,
     w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     vecs = [v.float().contiguous() for v in vectors.values()]
     dev = x.device
-    z = torch.empty((b * h * w, c), dtype=dt, device=dev)
-    hid = torch.empty((b * h * w, hidden), dtype=dt, device=dev)
+    m = b * h * w
+    z = torch.empty((m, c), dtype=dt, device=dev)
+    hid = torch.empty((m, hidden), dtype=dt, device=dev)
+    maps = None
+    if gemm_route(x.view(m, c), w1, w2, z, hid, out.view(m, c)):
+        sms = sm_count(dev.index)
+        maps = packed_gemm_maps((m, hidden, c, False, False, sms),
+                                (m, c, hidden, False, True, sms))
     launch("convnext_block", kernel_library().tfimm_convnext_block, x, taps,
            *vecs[:3], w1, vecs[3], w2, vecs[4], vecs[5], z, hid, out, b, h, w,
-           c, hidden, float(eps), _DTYPE_CODES[dt])
+           c, hidden, float(eps), _DTYPE_CODES[dt], maps)
     return out

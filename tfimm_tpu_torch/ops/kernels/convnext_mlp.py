@@ -16,7 +16,9 @@ On a CUDA tensor ``convnext_mlp`` launches the hand-written kernel of
 ``tfimm_tpu_torch/csrc/convnext_mlp.cu`` (see the note at its top for the
 design and what bounds it) and raises on what it does not take; on CPU
 tensors it runs ``convnext_mlp_reference``. The kernel takes bf16 and f32
-and any M, C and H. It has no backward: the ConvNeXt block calls it only
+and any M, C and H. In bf16 its two products run the TMA + wgmma body
+where ``tma.gemm_route`` takes every operand (C and H multiples of 8,
+16-byte aligned bases, C up to 4096), else the mma.sync body. It has no backward: the ConvNeXt block calls it only
 where autograd is not recording, as the JAX package runs its XLA twin under
 differentiation.
 """
@@ -27,6 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
+from tfimm_tpu_torch.ops.kernels.tma import (
+    gemm_route,
+    packed_gemm_maps,
+    sm_count,
+)
 
 __all__ = ["convnext_mlp", "convnext_mlp_reference"]
 
@@ -104,7 +111,12 @@ def convnext_mlp(x, shortcut, ln_weight, ln_bias, w1, b1, w2, b2, gamma,
     h = torch.empty((m, hidden), dtype=dt, device=x.device)
     mean = torch.empty((m,), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
+    maps = None
+    if gemm_route(x, shortcut, w1, w2, h, out, ln_depth=c):
+        sms = sm_count(x.device.index)
+        maps = packed_gemm_maps((m, hidden, c, True, False, sms),
+                                (m, c, hidden, False, True, sms))
     launch("convnext_mlp", kernel_library().tfimm_convnext_mlp, x, shortcut,
            vecs[0], vecs[1], w1, vecs[2], w2, vecs[3], vecs[4], h, mean, rstd,
-           out, m, c, hidden, float(eps), _DTYPE_CODES[dt])
+           out, m, c, hidden, float(eps), _DTYPE_CODES[dt], maps)
     return out

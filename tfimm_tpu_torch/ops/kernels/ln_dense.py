@@ -35,6 +35,11 @@ from tfimm_tpu_torch.ops.kernels.dispatch import (
     launch,
     log_dispatch,
 )
+from tfimm_tpu_torch.ops.kernels.tma import (
+    gemm_route,
+    packed_gemm_maps,
+    sm_count,
+)
 
 __all__ = ["ln_dense", "ln_dense_diff", "ln_dense_or_none", "ln_dense_bwd",
            "ln_dense_reference", "ln_dense_bwd_reference", "dx_block_rows"]
@@ -154,11 +159,15 @@ def _forward(x, gamma, beta, weight, bias, eps):
         return out
     mean = torch.empty((m,), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
+    weight = weight.to(dt).contiguous()
+    maps = None
+    if gemm_route(x, weight, out, ln_depth=c):
+        maps = packed_gemm_maps((m, o, c, True, False,
+                                 sm_count(x.device.index)))
     launch("ln_dense", kernel_library().tfimm_ln_dense_fwd, x,
-           gamma.float().contiguous(), beta.float().contiguous(),
-           weight.to(dt).contiguous(),
+           gamma.float().contiguous(), beta.float().contiguous(), weight,
            None if bias is None else bias.float().contiguous(), mean, rstd,
-           out, m, c, o, float(eps), _DTYPE_CODES[dt])
+           out, m, c, o, float(eps), _DTYPE_CODES[dt], maps)
     return out
 
 

@@ -9,9 +9,14 @@ written. The kernels encode each map from the 15 int64 values of
 ``TensorMapGeometry.pack`` (``csrc/hopper.cuh · encode_bf16_map``), bf16
 with the 128-byte swizzle, and compute each box's coordinates themselves.
 
-Every box here is 64 columns wide (128 bytes of bf16, one swizzle row) and
-64 rows deep, so one layout serves every head dim d up to 128: one column
-chunk below d = 64, two above, zeros past d.
+Every box here is 64 columns wide (128 bytes of bf16, one swizzle row).
+The attention maps' boxes are 64 rows deep, so one layout serves every
+head dim d up to 128: one column chunk below d = 64, two above, zeros past
+d. The GEMM maps (``matrix_map``, ``gemm_maps``: ``csrc/mlp_gemm.cuh``'s
+TMA + wgmma body, under ``convnext_mlp``, ``convnext_block`` and
+``ln_dense``'s forward) read a row-major (rows, cols) matrix as (cols,
+rows) in boxes of 64 columns and 64, 128 or 256 rows; zeros past the rows
+and columns stand in for the masked loads at the M, N and K tails.
 """
 
 from __future__ import annotations
@@ -21,10 +26,14 @@ import functools
 from dataclasses import dataclass
 from typing import Tuple
 
+import torch
+
 __all__ = ["TILE", "ELEM_BYTES", "TensorMapGeometry", "geometry_array",
            "fused_mha_maps", "rows_map", "heads_map", "padded_rows",
            "packed_fused_mha_maps", "packed_rows_maps", "packed_heads_maps",
-           "packed_operand_maps"]
+           "packed_operand_maps", "GEMM_ROWS", "GEMM_WIDTHS", "LN_MAX_DEPTH",
+           "LN_MAX_DEPTH_WIDE", "matrix_map", "gemm_width", "gemm_maps",
+           "gemm_grid", "packed_gemm_maps", "gemm_route", "sm_count"]
 
 TILE = 64
 ELEM_BYTES = 2     # bf16, the only dtype the maps serve
@@ -136,3 +145,91 @@ def packed_heads_maps(shape: Tuple[int, int, int, int],
     """``packed_operand_maps`` of operands of one ``shape`` with these
     strides."""
     return packed_operand_maps(*((shape, s) for s in strides))
+
+
+# The GEMM body (csrc/mlp_gemm.cuh · gemm_bf16_wgmma): output tiles of
+# GEMM_ROWS rows (two consumer warpgroups of 64) and 128 or 256 columns;
+# the LN prologue keeps the affine of every k column in shared memory, up
+# to LN_MAX_DEPTH columns beside 128-column tiles and LN_MAX_DEPTH_WIDE
+# beside 256-column ones (kLnMaxDepth, kLnMaxDepthWide there).
+GEMM_ROWS = 128
+GEMM_WIDTHS = (128, 256)
+LN_MAX_DEPTH = 4096
+LN_MAX_DEPTH_WIDE = 2048
+
+
+def matrix_map(rows: int, cols: int, box_rows: int) -> TensorMapGeometry:
+    """A contiguous row-major (rows, cols) bf16 matrix as (cols, rows): a
+    (64, box_rows) box at (64 c, r) is columns 64 c... of rows r..., zeros
+    past either edge."""
+    return TensorMapGeometry(dims=(cols, rows), strides=(ELEM_BYTES * cols,),
+                             box=(TILE, box_rows))
+
+
+def gemm_width(m: int, n: int, k: int, ln: bool, residual: bool,
+               sms: int) -> int:
+    """Output tile columns of the product (M, K) x (N, K)^T on ``sms``
+    SMs, one persistent block an SM. 128 under the residual epilogue (its
+    products are long in K, and the ring of 128-column tiles holds five
+    stages to the three of 256-column ones: faster at every ConvNeXt-B
+    stage on the H100), where N fits 128 columns, or where the LN affine
+    would not fit beside 256 columns; else 256 where its rounds of tiles
+    cost no more than 128-column tiles' (a round's time grows with the
+    width)."""
+    def cost(width):
+        tiles = -(-m // GEMM_ROWS) * -(-n // width)
+        return -(-tiles // sms) * width
+
+    if residual or n <= 128 or (ln and k > LN_MAX_DEPTH_WIDE):
+        return 128
+    return 256 if cost(256) <= cost(128) else 128
+
+
+def gemm_maps(m: int, n: int, k: int, width: int):
+    """(a, b, out, shortcut) of out = epi(a @ b^T): a (M, K) in 128-row
+    boxes, b (N, K) in ``width``-row boxes, out and the shortcut (M, N) in
+    64-row boxes (a consumer warpgroup's rows), all contiguous."""
+    out = matrix_map(m, n, TILE)
+    return (matrix_map(m, k, GEMM_ROWS), matrix_map(n, k, width), out, out)
+
+
+def gemm_grid(m: int, n: int, width: int, sms: int) -> int:
+    """Blocks of the persistent grid of the product (M, K) x (N, K)^T at
+    ``width``-column tiles: one an SM, or one a tile where there are
+    fewer."""
+    return min(-(-m // GEMM_ROWS) * -(-n // width), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def packed_gemm_maps(*products: Tuple[int, int, int, bool, bool, int]
+                     ) -> ctypes.Array:
+    """Each (M, N, K, ln, residual, sms) product in order, packed for the C
+    launcher (``csrc/mlp_gemm.cuh · kGemmMapsSize`` values a product): its
+    four ``gemm_maps`` at its ``gemm_width``, then its ``gemm_grid``. The
+    SM count is read once, here, for both."""
+    values = []
+    for m, n, k, ln, residual, sms in products:
+        width = gemm_width(m, n, k, ln, residual, sms)
+        values += [v for g in gemm_maps(m, n, k, width) for v in g.pack()]
+        values.append(gemm_grid(m, n, width, sms))
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+def gemm_route(*matrices: torch.Tensor, ln_depth: int = 0) -> bool:
+    """Whether the TMA + wgmma body takes these operands (else the mma.sync
+    body runs): bf16, each a non-empty contiguous 2-D matrix (``gemm_maps``
+    reads them so) whose columns are a multiple of 8 (TMA's 16-byte rows)
+    and whose base is 16-byte aligned; with the LN prologue over
+    ``ln_depth`` columns, at most LN_MAX_DEPTH of them."""
+    if ln_depth > LN_MAX_DEPTH:
+        return False
+    return all(t.dtype == torch.bfloat16 and t.dim() == 2 and t.numel() > 0
+               and t.is_contiguous() and t.shape[1] % 8 == 0
+               and t.data_ptr() % 16 == 0 for t in matrices)
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device_index: int) -> int:
+    """The SMs of CUDA device ``device_index`` (the persistent grid's
+    blocks)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

@@ -52,6 +52,7 @@ input at every shape, with the unmasked backward missing the bar.
 """
 
 import itertools
+import threading
 
 import numpy as np
 import pytest
@@ -67,6 +68,7 @@ from tfimm_tpu_torch.ops.kernels.cait_attention import (
     talking_head_attention_packed,
     talking_head_attention_reference,
 )
+from tfimm_tpu_torch.ops.kernels import cait_attention as cait_module
 from tfimm_tpu_torch.ops.kernels import dispatch
 from tfimm_tpu_torch.ops.kernels import flash_attention as flash_module
 from tfimm_tpu_torch.ops.kernels import flash_attention_relpos as relpos_module
@@ -757,6 +759,201 @@ def test_talking_head_bwd_kernel_matches_plain(card, b, n, h, d, dtype, tol):
                           pieces(got), pieces(want)):
         err = (a.float() - w.float()).abs().max().item()
         assert err <= tol * w.float().abs().max().item(), (name, err)
+
+
+# Both bodies at chip_smoke.py's CAIT_SHAPES and CAIT_BWD_SHAPES: the
+# Hopper body (TMA + wgmma) where tma.cait_route takes the call, and the
+# first design's body (mma.sync) at every shape, sent there by a route
+# that declines. Same bars.
+ROUTE_SHAPES = [(128, 196, 8, 48), (64, 196, 8, 48), (16, 196, 4, 48),
+                (4, 576, 6, 48), (2, 784, 16, 48), (16, 16, 2, 8),
+                (2, 50, 10, 72)]
+ROUTE_CASES = [(shape, hopper) for shape in ROUTE_SHAPES
+               for hopper in (True, False)
+               if not hopper or (shape[2] <= 8 and shape[3] <= 64)]
+
+
+def _take_route(monkeypatch, hopper):
+    """Keep the wrappers' route (checking it takes the call) or send every
+    call to the first design's bodies."""
+    if hopper:
+        route = cait_module.cait_route
+
+        def checked(*args):
+            assert route(*args)
+            return True
+
+        monkeypatch.setattr(cait_module, "cait_route", checked)
+    else:
+        monkeypatch.setattr(cait_module, "cait_route", lambda *args: False)
+
+
+@pytest.mark.parametrize("shape,hopper", ROUTE_CASES)
+def test_talking_head_routes_match_plain(card, shape, hopper, monkeypatch):
+    b, n, h, d = shape
+    qkv, wl, bl, ww, bw, g = _cait_inputs(b, n, h, d, torch.bfloat16, card,
+                                          b + n + h + d)
+    _take_route(monkeypatch, hopper)
+    kw = dict(nb_heads=h, scale=d ** -0.5)
+    got = talking_head_attention(qkv, wl, bl, ww, bw, **kw)
+    want = talking_head_attention_reference(qkv, wl, bl, ww, bw, **kw).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+    del got, want
+    grads = talking_head_attention_bwd(qkv, wl, bl, ww, bw, g, **kw)
+    assert torch.equal(grads[2], torch.zeros(h, device=card))
+    want = talking_head_attention_bwd_reference(qkv, wl, bl, ww, bw, g, **kw)
+    c = h * d
+    pieces = lambda t: (t[0][..., :c], t[0][..., c:2 * c], t[0][..., 2 * c:],
+                        t[1], t[3], t[4])
+    for name, a, w in zip(("dq", "dk", "dv", "dw_l", "dw_w", "db_w"),
+                          pieces(grads), pieces(want)):
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * w.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("b,n,h,d", [(4, 196, 8, 48), (3, 50, 4, 48),
+                                     (2, 9, 6, 48), (3, 17, 2, 8)])
+def test_talking_head_bwd_overwrites_what_it_reads(card, b, n, h, d,
+                                                   monkeypatch):
+    """The Hopper backward's scratch of a and draw arrives full of NaN (the
+    contents of ``torch.empty`` may be anything): its first launch writes
+    every element its second reads, and the boxes read zeros past N, so the
+    gradients are those of a zeroed scratch bit for bit, finite."""
+    args = _cait_inputs(b, n, h, d, torch.bfloat16, card, b * n + h)
+    kw = dict(nb_heads=h, scale=d ** -0.5)
+    assert cait_module.cait_route(h, args[0], args[5])
+    empty = cait_module.ab_scratch
+    monkeypatch.setattr(cait_module, "ab_scratch",
+                        lambda *a: empty(*a).zero_())
+    want = talking_head_attention_bwd(*args, **kw)
+    monkeypatch.setattr(cait_module, "ab_scratch",
+                        lambda *a: empty(*a).fill_(float("nan")))
+    got = talking_head_attention_bwd(*args, **kw)
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("b,n,h,d", [(4, 196, 8, 48), (3, 50, 4, 48),
+                                     (2, 9, 6, 48), (3, 17, 2, 8)])
+def test_talking_head_forward_keeps_the_row_statistics(card, b, n, h, d,
+                                                       monkeypatch):
+    """Under autograd the Hopper forward keeps log2 l of every row of its
+    64-row tiles (B, H, N rounded up to 64) and the backward skips the pass
+    that would recompute it: the gradients are the recomputing backward's
+    bit for bit. The statistics arrive full of NaN (the contents of
+    ``torch.empty`` may be anything): the forward writes the padded rows
+    too, with values that give finite p there."""
+    qkv, wl, bl, ww, bw, g = _cait_inputs(b, n, h, d, torch.bfloat16, card,
+                                          b * n + d)
+    kw = dict(nb_heads=h, scale=d ** -0.5)
+    empty = cait_module.stats_scratch
+    monkeypatch.setattr(cait_module, "stats_scratch",
+                        lambda *a: empty(*a).fill_(float("nan")))
+    leaves = [t.clone().requires_grad_() for t in (qkv, wl, bl, ww, bw)]
+    counts = dict(dispatch.launch_counts)
+    out = talking_head_attention_packed(*leaves, **kw)
+    out.backward(g)
+    torch.cuda.synchronize()
+    for name in ("talking_head_attention", "talking_head_attention_bwd"):
+        assert dispatch.launch_counts[name] == counts[name] + 1
+    assert torch.equal(out, talking_head_attention(qkv, wl, bl, ww, bw, **kw))
+    want = talking_head_attention_bwd(qkv, wl, bl, ww, bw, g, **kw)
+    for leaf, w in zip(leaves, [want[0], *want[1:]]):
+        assert bool(torch.isfinite(leaf.grad).all())
+        assert torch.equal(leaf.grad, w.to(leaf.grad.dtype))
+
+
+def test_talking_head_kernels_run_first_on_a_new_thread(card):
+    """A thread whose first CUDA work is a Hopper launcher (an autograd
+    thread that starts its backward there) finds no context current: the
+    launchers make the card's current, and give the main thread's results
+    bit for bit."""
+    args = _cait_inputs(3, 50, 4, 48, torch.bfloat16, card, 9)
+    kw = dict(nb_heads=4, scale=48 ** -0.5)
+    want = (talking_head_attention(*args[:5], **kw),
+            talking_head_attention_bwd(*args, **kw))
+    got = {}
+
+    def run():
+        try:
+            got["out"] = (talking_head_attention(*args[:5], **kw),
+                          talking_head_attention_bwd(*args, **kw))
+            torch.cuda.synchronize()
+        except Exception as err:   # raised again on the test's thread
+            got["err"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    if "err" in got:
+        raise got["err"]
+    assert torch.equal(got["out"][0], want[0])
+    for a, w in zip(got["out"][1], want[1]):
+        assert torch.equal(a, w)
+
+
+def _hopper_launch(name, device):
+    """A call of one Hopper (TMA + wgmma) launcher, bf16, on inputs made
+    here, so that running it is the only CUDA work of a new thread."""
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).bfloat16()
+
+    if name == "fused_mha":
+        qkv = rnd(2, 65, 3 * 4 * 64)
+        return lambda: fused_mha(qkv, 4, 0.125)
+    if name == "fused_mha_bwd":
+        qkv, g = rnd(2, 65, 3 * 4 * 64), rnd(2, 65, 4 * 64)
+        return lambda: fused_mha_bwd(qkv, g, 4, 0.125)
+    if name == "flash_attention":
+        q, k, v = _flash_inputs((2, 2, 130, 64), torch.bfloat16, device, 11)
+        return lambda: flash_attention_with_lse(q, k, v)
+    if name == "flash_attention_bwd":
+        case = _flash_bwd_case((2, 2, 130, 64), torch.bfloat16, device, 11)
+        return lambda: flash_attention_bwd(*case)
+    if name == "flash_attention_relpos":
+        q, k, v, rh, rw = _relpos_inputs(2, 9, 7, 64, torch.bfloat16, device, 11)
+        return lambda: flash_attention_relpos_with_lse(
+            q, k, v, rh, rw, grid_size=(9, 7), scale=0.125)
+    if name == "flash_attention_relpos_bwd":
+        case = _relpos_bwd_case(2, 9, 7, 64, torch.bfloat16, device, 11)
+        return lambda: flash_attention_relpos_bwd(*case, grid_size=(9, 7))
+    args = _convnext_inputs(3136, 128, 512, torch.bfloat16, device, seed=11)
+    return lambda: convnext_mlp(*args, 1e-6)
+
+
+@pytest.mark.parametrize("name", [
+    "fused_mha", "fused_mha_bwd", "flash_attention", "flash_attention_bwd",
+    "flash_attention_relpos", "flash_attention_relpos_bwd", "convnext_mlp"])
+def test_hopper_launchers_run_first_on_a_new_thread(card, name):
+    """As the talking-head kernels: every launcher that encodes tensor maps
+    binds the thread's context first (``hopper.cuh · encode_bf16_map``)."""
+    call = _hopper_launch(name, card)
+    want = call()
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = call()
+            torch.cuda.synchronize()
+        except Exception as err:   # raised again on the test's thread
+            got["err"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    if "err" in got:
+        raise got["err"]
+    want = want if isinstance(want, tuple) else (want,)
+    out = got["out"] if isinstance(got["out"], tuple) else (got["out"],)
+    for a, w in zip(out, want, strict=True):
+        assert torch.equal(a, w)
 
 
 def test_talking_head_bwd_is_deterministic(card):

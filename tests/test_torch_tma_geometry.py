@@ -15,7 +15,10 @@ output. The hardware rules the maps must keep are checked beside them. The GEMM
 maps of ``csrc/mlp_gemm.cuh`` (``convnext_mlp``, ``convnext_block``,
 ``ln_dense``'s forward) must tile A, B, the shortcut and the output
 exactly at ragged M, N and K, and ``gemm_route`` must send each shape to
-the body that takes it.
+the body that takes it. The talking-head maps (``cait_maps``,
+``cait_scratch_map``) must give the heads' 16-key stages and the backward
+scratch's 64 x 64 tiles of a and draw, and ``cait_route`` must send each
+call to the body that takes it.
 """
 
 import itertools
@@ -30,11 +33,16 @@ from tfimm_tpu_torch.ops.kernels.fused_mha import (
     _split_qkv,
 )
 from tfimm_tpu_torch.ops.kernels.tma import (
+    CAIT_KEYS,
     ELEM_BYTES,
     GEMM_ROWS,
     GEMM_WIDTHS,
     LN_MAX_DEPTH,
     TILE,
+    cait_maps,
+    cait_route,
+    cait_scratch_cols,
+    cait_scratch_map,
     fused_mha_maps,
     gemm_grid,
     gemm_maps,
@@ -42,6 +50,7 @@ from tfimm_tpu_torch.ops.kernels.tma import (
     gemm_width,
     heads_map,
     matrix_map,
+    packed_cait_maps,
     packed_gemm_maps,
     packed_fused_mha_maps,
     packed_heads_maps,
@@ -705,3 +714,112 @@ def test_gemm_route_limits():
     assert not gemm_route(_matrix(64, 256)[:, :128])
     assert not gemm_route(_matrix(64, 256).t())
     assert not gemm_route(_matrix(0, 128))
+
+
+CAIT_N = [1, 9, 16, 17, 50, 196]
+
+
+@pytest.mark.parametrize("n", CAIT_N)
+@pytest.mark.parametrize("h,d", [(2, 8), (4, 48), (6, 48), (8, 48), (8, 64)])
+def test_cait_key_boxes_give_the_stages(n, h, d):
+    """The talking-head maps: the 64-row map is ``fused_mha``'s; each
+    (64, 1, 1, 16, 1) box of the key map at (0, h, part, 16 t, b) is keys
+    16 t... of head h's k (part 1) or v (part 2) of image b, zeros past N
+    and d; the out map is ``fused_mha``'s."""
+    b = 2
+    gen = torch.Generator().manual_seed(7 * n + h + d)
+    qkv = (torch.randn(b, n, 3 * h * d, generator=gen) + 10.0).bfloat16()
+    rows, keys, out = cait_maps(b, n, h, d)
+    assert (rows, out) == fused_mha_maps(b, n, h, d)
+    _check_rules(keys)
+    stages = -(-n // CAIT_KEYS)
+    flat = qkv.reshape(-1)
+    for part in (1, 2):
+        want = _padded(_split_qkv(qkv, h)[part].bfloat16(),
+                       CAIT_KEYS * stages, TILE)
+        got = torch.zeros_like(want)
+        for bi, hi, t in itertools.product(range(b), range(h), range(stages)):
+            box = tma_load(flat, keys, (0, hi, part, CAIT_KEYS * t, bi))
+            assert box.shape == (1, CAIT_KEYS, 1, 1, TILE)
+            got[bi, hi, CAIT_KEYS * t:CAIT_KEYS * (t + 1)] = box[0, :, 0, 0]
+        assert torch.equal(got, want), part
+
+
+@pytest.mark.parametrize("n", [1, 9, 50, 64, 65, 196])
+def test_cait_scratch_boxes_give_the_tiles(n):
+    """The backward's scratch (2, B, H, N, cols) of a and draw: its rows are
+    16-byte multiples; the (64, 64, 1, 1) box at (64 kt, 64 qt, h,
+    part B + b) is query rows 64 qt... and keys 64 kt... of head h of image
+    b's a or draw, zeros past N both ways, whatever the columns past N
+    hold."""
+    b, h = 2, 3
+    cols = cait_scratch_cols(n)
+    assert cols % 8 == 0 and n <= cols < n + 8
+    m = cait_scratch_map(b, n, h)
+    _check_rules(m)
+    gen = torch.Generator().manual_seed(n)
+    scratch = torch.randn(2, b, h, n, cols, generator=gen).bfloat16()
+    scratch[..., n:] = float("nan")
+    tiles = -(-n // TILE)
+    flat = scratch.reshape(-1)
+    for part, bi, hi, qt, kt in itertools.product(range(2), range(b), range(h),
+                                                  range(tiles), range(tiles)):
+        box = tma_load(flat, m, (TILE * kt, TILE * qt, hi, part * b + bi))
+        assert box.shape == (1, 1, TILE, TILE)
+        want = _padded(scratch[part, bi, hi, :, :n], TILE * tiles,
+                       TILE * tiles)[TILE * qt:TILE * (qt + 1),
+                                     TILE * kt:TILE * (kt + 1)]
+        assert torch.equal(box[0, 0], want)
+
+
+def test_packed_cait_maps_are_the_maps_in_order():
+    forward = packed_cait_maps(3, 196, 8, 48)
+    backward = packed_cait_maps(3, 196, 8, 48, True)
+    maps = cait_maps(3, 196, 8, 48)
+    assert list(forward) == [v for g in maps for v in g.pack()]
+    assert list(backward) == [v for g in (*maps, cait_scratch_map(3, 196, 8))
+                              for v in g.pack()]
+    assert packed_cait_maps(3, 196, 8, 48) is forward   # cached per shape
+
+
+def _qkv(b, n, h, d, dtype=torch.bfloat16, offset=0):
+    flat = torch.zeros(b * n * 3 * h * d + offset, dtype=dtype)
+    return flat[offset:].view(b, n, 3 * h * d)
+
+
+@pytest.mark.parametrize("b,n,h,d,offset,dtype,route", [
+    (64, 196, 8, 48, 0, torch.bfloat16, True),    # cait_s24_224
+    (2, 196, 4, 48, 0, torch.bfloat16, True),     # cait_xxs
+    (2, 576, 6, 48, 0, torch.bfloat16, True),     # cait_xs24_384
+    (3, 16, 2, 8, 0, torch.bfloat16, True),       # the golden fixture
+    (2, 50, 8, 64, 0, torch.bfloat16, True),      # the widest head dim
+    (2, 784, 16, 48, 0, torch.bfloat16, False),   # cait_m48: 16 heads
+    (2, 50, 10, 72, 0, torch.bfloat16, False),    # d = 72
+    (2, 50, 6, 128, 0, torch.bfloat16, False),    # d = 128
+    (2, 196, 8, 48, 1, torch.bfloat16, False),    # 2 bytes off 16
+    (2, 196, 8, 48, 8, torch.bfloat16, True),     # 16 bytes on
+    (2, 196, 8, 48, 0, torch.float32, False),     # f32: the FMA bodies
+])
+def test_cait_route(b, n, h, d, offset, dtype, route):
+    """Which talking-head calls take the Hopper bodies: qkv alone (the
+    forward) and with g (the backward)."""
+    qkv = _qkv(b, n, h, d, dtype, offset)
+    g = torch.zeros(b, n, h * d, dtype=dtype)
+    assert cait_route(h, qkv) is route
+    assert cait_route(h, qkv, g) is route
+
+
+def test_cait_route_limits():
+    """g off 16 bytes or not contiguous sends the backward off the route;
+    so does a strided view of qkv; H above 8 or a head dim that is no
+    multiple of 8 never takes it."""
+    qkv = _qkv(2, 50, 8, 48)
+    g = torch.zeros(2 * 50 * 384 + 1, dtype=torch.bfloat16)
+    assert not cait_route(8, qkv, g[1:].view(2, 50, 384))
+    assert not cait_route(8, qkv, torch.zeros(2, 50, 768,
+                                              dtype=torch.bfloat16)[..., ::2])
+    wide = _qkv(2, 50, 8, 48)
+    assert not cait_route(8, torch.cat([wide, wide], dim=-1)[..., :3 * 384])
+    assert not cait_route(9, _qkv(2, 50, 9, 48))
+    assert not cait_route(4, _qkv(2, 50, 4, 12))
+    assert not cait_route(8, _qkv(2, 0, 8, 48)[:, :, :5])

@@ -1,9 +1,12 @@
 // Pieces shared by the talking-head attention kernels (cait_attention.cu,
 // cait_attention_bwd.cu): constants, the (H, H) mixes in shared memory,
-// the per-entry mix arithmetic, and the tile loads and products of the two
-// tile policies (FmaTiles for f32, MmaTiles for bf16). See the note at the top of
-// cait_attention.cu for the design. Every function here is inline (or a
-// template), so the two objects that include it link together.
+// the per-entry mix arithmetic, the tile loads and products of the two
+// tile policies of the first design (FmaTiles for f32, MmaTiles for bf16),
+// and, at the end, the pieces of the Hopper bodies (namespace cait::tc:
+// TMA-fed wgmma, the bf16 route of tma.py · cait_route). See the notes at
+// the top of cait_attention.cu and cait_attention_bwd.cu for the designs.
+// Every function here is inline (or a template), so the two objects that
+// include it link together.
 //
 // Layouts in shared memory:
 // - a row tile of kTile tokens of one part of qkv (or of g) with all H heads,
@@ -19,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace cait {
 
@@ -571,5 +576,212 @@ inline bool supported(int n, int H, int d) {
   return n > 0 && H > 0 && H <= kMaxHeads && d > 0 && d % 8 == 0 &&
          d <= kMaxHeadDim && H * d <= kMaxDim;
 }
+
+// ---------------------------------------------------------------------------
+// The Hopper bodies (bf16, H <= 8 heads of d <= 64, operands contiguous and
+// 16-byte aligned: tma.py · cait_route). A block owns 64 query rows of one
+// image and every head; its two consumer warpgroups split each stage of 16
+// keys, 8 keys each, so that one thread holds the H raw scores of each of
+// its four entries (rows row and row + 8, keys 2 (l % 4) and + 1 of the
+// warpgroup's 8) at the same register positions of H m64n8 accumulators.
+// A producer warpgroup streams the keys through a ring of stages by TMA
+// (hopper.cuh), one 16-row box a head and part. Tiles are 128-byte
+// swizzled, 64 columns wide: d <= 64 is one chunk, zeros past d.
+
+namespace tc {
+
+constexpr int kRows = 64;                 // query rows of a block
+constexpr int kKeys = 16;                 // keys of a stage (tma.py CAIT_KEYS)
+constexpr int kMaxNH = 8;                 // heads of the route (CAIT_MAX_HEADS)
+constexpr int kMaxD = 64;                 // head dim of the route
+constexpr int kWgThreads = 384;           // two consumer warpgroups, a producer
+constexpr int kConsumers = 256;
+// setmaxnreg: the forward's producer warpgroup sums v's columns on three
+// warps (40 registers); the backward's only issues copies (24), which
+// leaves its consumers 240. Either split fills at most the SM's 65536.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kRowsProducerRegs = 24;
+constexpr int kRowsConsumerRegs = 240;
+constexpr int kRowTile = kRows * 128;     // one head's 64 rows: 8 KB
+constexpr int kKeyTile = kKeys * 128;     // one head's 16 keys: 2 KB
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClamp2 = kSoftmaxClamp * kLog2e;
+// Named barriers (0 is __syncthreads): both consumer warpgroups; one
+// warpgroup (+ wg); the consumers and the forward's column-sum warps.
+constexpr int kBarConsumers = 1;
+constexpr int kBarGroup = 2;
+constexpr int kBarColsums = 4;
+
+// The mixes as f32 rows in shared memory, zero past H: row g of each holds
+// what output head g of the pre-softmax mix (c2, cs) or input head g of the
+// post-softmax mix (ww) takes from every head h.
+template <int NH>
+struct Tables {
+  float c2[NH * NH];   // [g][h]: scale log2(e) w_l[h][g]
+  float cs[NH * NH];   // [g][h]: scale w_l[h][g]
+  float ww[NH * NH];   // [g][h]: w_w[g][h]
+  float bl2[NH];       // log2(e) b_l[g]
+  float bw[NH];        // b_w[h]
+};
+
+template <int NH>
+__device__ __forceinline__ void load_tables(Tables<NH>& t, const MixSrc& src,
+                                            int H, float scale) {
+  const float scale2 = scale * kLog2e;
+  for (int i = threadIdx.x; i < NH * NH; i += blockDim.x) {
+    const int g = i / NH, h = i % NH;
+    const bool ok = g < H && h < H;
+    const float wl =
+        ok ? mix_at(src.w_l, h * src.wl_rs + g * src.wl_cs, src.bf16) : 0.f;
+    t.c2[i] = scale2 * wl;
+    t.cs[i] = scale * wl;
+    t.ww[i] = ok ? mix_at(src.w_w, g * src.ww_rs + h * src.ww_cs, src.bf16)
+                 : 0.f;
+  }
+  for (int i = threadIdx.x; i < NH; i += blockDim.x) {
+    t.bl2[i] = i < H ? kLog2e * mix_at(src.b_l, i, src.bf16) : 0.f;
+    t.bw[i] = i < H ? mix_at(src.b_w, i, src.bf16) : 0.f;
+  }
+}
+
+// Row g of a table into registers.
+template <int NH>
+__device__ __forceinline__ void table_row(const float* t, int g,
+                                          float (&r)[NH]) {
+#pragma unroll
+  for (int h = 0; h < NH; h += 2) {
+    const float2 v = *reinterpret_cast<const float2*>(t + g * NH + h);
+    r[h] = v.x;
+    r[h + 1] = v.y;
+  }
+}
+
+// sum_h w[h] x[h][i] for entry i, as two chains (even and odd heads)
+// that the scheduler can interleave.
+template <int NH>
+__device__ __forceinline__ float head_dot(const float (&w)[NH],
+                                          const float (&x)[NH][4], int i) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int h = 0; h < NH; h += 2) {
+    s0 = fmaf(w[h], x[h][i], s0);
+    s1 = fmaf(w[h + 1], x[h + 1][i], s1);
+  }
+  return s0 + s1;
+}
+
+// s2_g of entry i: log2(e) s'_g = sum_h c2[g][h] raw_h + log2(e) b_l[g].
+template <int NH>
+__device__ __forceinline__ float mixed2(const float (&c)[NH], float bl,
+                                        const float (&raw)[NH][4], int i) {
+  return head_dot<NH>(c, raw, i) + bl;
+}
+
+// Zeros over [begin, end) bytes of shared memory (16-byte multiples): the
+// tiles of heads H ... NH - 1, which no copy fills.
+__device__ __forceinline__ void zero_smem(uint8_t* begin, uint8_t* end) {
+  for (uint8_t* p = begin + 16 * threadIdx.x; p < end; p += 16 * blockDim.x)
+    *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int NH>
+__device__ __forceinline__ void fence_heads(float (&r)[NH][4]) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h) hopper::fence_regs(r[h]);
+}
+
+// acc[h] (=)= a warpgroup's 64 own rows of head h (at own + h kRowTile)
+// times 8 key rows of head h (at keys + h kKeyTile), over the head dim:
+// nb_steps k16 steps a head, all part of the caller's wgmma group, issued
+// a step of every head at a time so that consecutive products write other
+// accumulators. The first step overwrites acc.
+template <int NH>
+__device__ __forceinline__ void products_n8(float (&acc)[NH][4],
+                                            const uint8_t* own,
+                                            const uint8_t* keys, int nb_steps) {
+#pragma unroll
+  for (int ks = 0; ks < kMaxD / 16; ++ks) {
+    if (ks < nb_steps) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        hopper::wgmma_m64n8k16_ss(
+            acc[h], hopper::sw128_desc(own + h * kRowTile) + 2 * ks,
+            hopper::sw128_desc(keys + h * kKeyTile) + 2 * ks, ks > 0);
+    }
+  }
+}
+
+// Keeps the compiler from moving shared-memory reads (the mix rows)
+// across this point. The backward's rows kernel pins each head of its
+// unrolled loops, and (with a __syncwarp) each row half: ptxas
+// interleaved the two halves' independent work and spilled 1.8 KB at
+// NH = 8, and nothing with both pinned (development builds on the H100).
+__device__ __forceinline__ void pin_loads() { asm volatile("" ::: "memory"); }
+
+// Sum over the 4 lanes that hold one row of an accumulator.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Pass 1 for a thread's four entries (keys key and key + 1 of rows row and
+// row + 8): 2^min(s2_g, 80 log2(e)) added to lsum[g][row half] where the
+// key is below n.
+template <int NH>
+__device__ __forceinline__ void add_exp2s(const Tables<NH>& t,
+                                          const float (&raw)[NH][4], int key,
+                                          int n, float (&lsum)[NH][2]) {
+#pragma unroll
+  for (int g = 0; g < NH; ++g) {
+    float c[NH];
+    table_row<NH>(t.c2, g, c);
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      e[i] = hopper::exp2_approx(fminf(mixed2<NH>(c, t.bl2[g], raw, i),
+                                       kClamp2));
+    lsum[g][0] += (key < n ? e[0] : 0.f) + (key + 1 < n ? e[1] : 0.f);
+    lsum[g][1] += (key < n ? e[2] : 0.f) + (key + 1 < n ? e[3] : 0.f);
+  }
+}
+
+// The block's row totals from each consumer thread's partial sums
+// part[g][row half] (its keys of one warpgroup): quad sums, then the two
+// warpgroups' through `sums` ([2][NH][64]) into out[g][row] ([NH][64]),
+// as log2 with kLog2; rows at or past n get 0. Every consumer thread
+// calls it; out is ready on return.
+template <int NH, bool kLog2>
+__device__ __forceinline__ void combine_rows(float (&part)[NH][2], float* sums,
+                                             float* out, int q0, int n) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, row = 16 * (warp % 4) + lane / 4;
+#pragma unroll
+  for (int g = 0; g < NH; ++g) {
+    const float lo = quad_sum(part[g][0]), hi = quad_sum(part[g][1]);
+    if (lane % 4 == 0) {
+      sums[(wg * NH + g) * kRows + row] = lo;
+      sums[(wg * NH + g) * kRows + row + 8] = hi;
+    }
+  }
+  hopper::named_barrier(kBarConsumers, kConsumers);
+  for (int i = threadIdx.x; i < NH * kRows; i += kConsumers) {
+    const float v = sums[i] + sums[NH * kRows + i];
+    out[i] = q0 + i % kRows < n ? (kLog2 ? __log2f(v) : v) : 0.f;
+  }
+  hopper::named_barrier(kBarConsumers, kConsumers);
+}
+
+// Byte offset of the bf16 element (row, col) of a 128-byte-swizzled tile.
+__device__ __forceinline__ uint32_t sw128_elem(int row, int col) {
+  return (uint32_t)(row * 128 + ((((col >> 3) ^ (row & 7))) << 4) +
+                    (col & 7) * 2);
+}
+
+__device__ __forceinline__ float smem_bf16(const uint8_t* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+}  // namespace tc
 
 }  // namespace cait

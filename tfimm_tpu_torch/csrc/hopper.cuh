@@ -5,7 +5,8 @@
 //
 // - Tensor maps: `encode_bf16_map` encodes a bf16 TMA map from a geometry
 //   computed in Python (tfimm_tpu_torch/ops/kernels/tma.py) with the
-//   128-byte swizzle and zero fill out of bounds. It reaches the driver's
+//   128-byte swizzle and zero fill out of bounds, on any thread (it binds
+//   the thread's CUDA context first). It reaches the driver's
 //   cuTensorMapEncodeTiled through cudaGetDriverEntryPointByVersion, so the
 //   library does not link libcuda. A kernel takes the map by value as a
 //   `const __grid_constant__ CUtensorMap`.
@@ -16,8 +17,9 @@
 //   group, with a wait for their completion or only for their reads of
 //   shared memory.
 // - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile
-//   (64 rows of 128 bytes, 1024-byte aligned) and m64n64k16, m64n128k16
-//   and m64n256k16 bf16 -> f32 with A in shared memory or in registers;
+//   (64 rows of 128 bytes, 1024-byte aligned) and m64n8k16, m64n64k16,
+//   m64n128k16 and m64n256k16 bf16 -> f32 with A in shared memory (m64n64k16
+//   also transposed) or in registers;
 //   fence, commit and wait; setmaxnreg to hand registers between the
 //   warpgroups of a warp-specialised block.
 //
@@ -66,9 +68,26 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled_fn() {
   return fn;
 }
 
+// Makes the primary context of the calling thread's current device current
+// on it, once a thread. A thread whose first CUDA work is a launcher (an
+// autograd thread that starts its backward in one) has no context current,
+// and cuTensorMapEncodeTiled then fails; setting the device the thread
+// already has binds its context and changes nothing else. 0 on success,
+// else a cudaError_t value.
+inline int bind_current_context() {
+  static thread_local bool bound = false;
+  if (bound) return 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  bound = err == cudaSuccess;
+  return (int)err;
+}
+
 // 0 on success, else a cudaError_t value.
 inline int encode_bf16_map(CUtensorMap* map, const void* base,
                            const int64_t* geometry) {
+  if (const int err = bind_current_context()) return err;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled_fn();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   const int rank = (int)geometry[0];
@@ -316,9 +335,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 }
 
 // d (+)= A B for a 64 x 64 x 16 step, bf16 in, f32 accumulate; A and B
-// from shared memory. TRANS_B = 0: B K-major; 1: B MN-major. accumulate = 0
+// from shared memory. TRANS_B = 0: B K-major; 1: B MN-major. TRANS_A = 1:
+// A M-major (its 64 rows along the tile's columns, 16 rows of the tile a
+// k16 step, as an MN-major B), for A^T B from a tile of A. accumulate = 0
 // overwrites d.
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
                                                    uint64_t b, int accumulate) {
   asm volatile(
@@ -328,7 +349,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "%30, %31}, %32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -337,7 +358,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+// d (+)= A B for a 64 x 8 x 16 step (A and B from shared memory, B
+// K-major: 8 rows of a tile): four accumulators a thread, rows 16 w + l / 4
+// and that + 8 at columns 2 (l % 4) and + 1, as d[0], d[1] and d[2], d[3].
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // The same with A (64 x 16) from registers, four per thread in the layout

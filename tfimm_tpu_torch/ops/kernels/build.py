@@ -150,6 +150,8 @@ def _declare(lib):
         ctypes.c_void_p,  # out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        geometry,  # bf16 on tma.cait_route: the Hopper body's maps, or NULL
+        ctypes.c_void_p,  # with the maps: f32 log2 l for the backward, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_talking_head_fwd.restype = ctypes.c_int
@@ -161,6 +163,9 @@ def _declare(lib):
         ctypes.c_void_p,  # f32 scratch (2, B, H, N): row sums l, deltas
         ctypes.c_void_p, ctypes.c_void_p,  # f32 scratch partial sums
         ctypes.c_void_p,  # f32 out: dw_l (H, H), dw_w (H, H), db_w, db_l (H,)
+        ctypes.c_void_p,  # bf16 scratch of a and draw (Hopper body) or NULL
+        geometry,  # bf16 on tma.cait_route: the Hopper body's maps, or NULL
+        ctypes.c_void_p,  # with the maps: the forward's f32 log2 l, or NULL
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, d
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
         ctypes.c_void_p,  # cudaStream_t

@@ -21,14 +21,19 @@ stacked body rounds each p_g and mixes ``w_w[g, h] * (p_g @ v)`` in f32.
 On a CUDA tensor ``talking_head_attention`` launches the hand-written
 kernel of ``tfimm_tpu_torch/csrc/cait_attention.cu`` (see the note at its
 top for the design and what bounds it) and raises on what it does not take;
+bf16 operands that ``tma.cait_route`` takes (contiguous, 16-byte aligned,
+H <= 8 heads of d <= 64: every registered CaiT below cait_m36) run its
+Hopper body (TMA-fed wgmma), the rest its first design's bodies;
 on CPU tensors it runs ``talking_head_attention_reference``. The backward,
 ``talking_head_attention_bwd``, gives dqkv in the packed (B, N, 3D) layout
 and dtype, and dw_l, db_l, dw_w, db_w in f32: db_l is exactly zero (the
 softmax is shift-invariant), the others are summed over the batch. On a
-CUDA tensor it launches the kernels of ``csrc/cait_attention_bwd.cu``, on
-CPU tensors it runs ``talking_head_attention_bwd_reference`` (in f32; the
-bf16 kernel rounds a_h and the score cotangent's head mix to bf16 before
-its three products with q, k and g, where the plain version does not).
+CUDA tensor it launches the kernels of ``csrc/cait_attention_bwd.cu``
+(the Hopper body on the same route, which writes a and draw in bf16 to a
+scratch that ``ab_scratch`` allocates), on CPU tensors it runs
+``talking_head_attention_bwd_reference`` (in f32; the bf16 kernels round
+a_h and the score cotangent's head mix to bf16 before their three products
+with q, k and g, where the plain version does not).
 The kernels read the four mixes in place (f32 or bf16, w_l and w_w through
 their strides, so the model's transposed Dense weights need no copy) and
 need both biases. ``talking_head_attention_packed`` goes through the
@@ -49,16 +54,25 @@ from tfimm_tpu_torch.ops.kernels.dispatch import (
     softmax_clamp_grad_mask,
     softmax_nomax,
 )
+from tfimm_tpu_torch.ops.kernels.tma import (
+    TILE as WGMMA_TILE,
+    cait_route,
+    cait_scratch_cols,
+    packed_cait_maps,
+    padded_rows,
+)
 
 __all__ = ["talking_head_attention", "talking_head_attention_reference",
            "talking_head_attention_bwd", "talking_head_attention_bwd_reference",
-           "talking_head_attention_supports", "talking_head_attention_packed"]
+           "talking_head_attention_supports", "talking_head_attention_packed",
+           "ab_scratch", "stats_scratch"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 16
 MAX_HEAD_DIM = 128
 MAX_DIM = 768        # H * d: cait_m36 / cait_m48, the widest registered CaiT
-# The kernels' query and key tiles (csrc/cait_attention*.cu kTile).
+# The first design's query and key tiles (csrc/cait_attention*.cu kTile);
+# the Hopper bodies take 64 query rows a block (WGMMA_TILE).
 TILE = 16
 
 
@@ -206,9 +220,22 @@ def talking_head_attention(qkv, w_l, b_l, w_w, b_w, *, nb_heads: int,
     """(B, N, D) in qkv's dtype. Runs the plain version (where a missing
     bias counts as zeros) when every input lies on the CPU, and the kernel
     otherwise, which needs both biases."""
+    return _forward(qkv, w_l, b_l, w_w, b_w, nb_heads, scale, False)[0]
+
+
+def stats_scratch(b: int, nb_heads: int, n: int, device) -> torch.Tensor:
+    """The Hopper forward's log2 l for the backward, f32 (B, H, N rounded
+    up to 64): the forward writes every row of it, the padded ones too."""
+    return torch.empty((b, nb_heads, padded_rows(n)), dtype=torch.float32,
+                       device=device)
+
+
+def _forward(qkv, w_l, b_l, w_w, b_w, nb_heads, scale, save_stats):
+    """``talking_head_attention`` and, with ``save_stats`` where the Hopper
+    body runs, the log2 l it kept for the backward (else None)."""
     if _on_cpu(qkv, w_l, b_l, w_w, b_w):
         return talking_head_attention_reference(
-            qkv, w_l, b_l, w_w, b_w, nb_heads=nb_heads, scale=scale)
+            qkv, w_l, b_l, w_w, b_w, nb_heads=nb_heads, scale=scale), None
     _check_kernel_inputs("talking_head_attention", qkv, (w_l, b_l, w_w, b_w),
                          nb_heads)
     from tfimm_tpu_torch.ops.kernels.build import kernel_library
@@ -217,22 +244,39 @@ def talking_head_attention(qkv, w_l, b_l, w_w, b_w, *, nb_heads: int,
     dim = three_d // 3
     out = torch.empty((b, n, dim), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
-        return out
+        return out, None
+    maps = stats = None
+    if cait_route(nb_heads, qkv):
+        maps = packed_cait_maps(b, n, nb_heads, dim // nb_heads)
+        if save_stats:
+            stats = stats_scratch(b, nb_heads, n, qkv.device)
     launch("talking_head_attention", kernel_library().tfimm_talking_head_fwd,
            qkv, qkv.stride(0), qkv.stride(1), *_mix_args(w_l, b_l, w_w, b_w),
            out, b, n, nb_heads, dim // nb_heads, float(scale),
-           DTYPE_CODES[qkv.dtype])
-    return out
+           DTYPE_CODES[qkv.dtype], maps, stats)
+    return out, stats
+
+
+def ab_scratch(b: int, nb_heads: int, n: int, device) -> torch.Tensor:
+    """The Hopper backward's bf16 scratch of a and draw, (2, B, H, N,
+    ``cait_scratch_cols(N)``): its first launch writes every element its
+    second reads (rows and keys below N; TMA reads zeros past N)."""
+    return torch.empty((2, b, nb_heads, n, cait_scratch_cols(n)),
+                       dtype=torch.bfloat16, device=device)
 
 
 def talking_head_attention_bwd(qkv, w_l, b_l, w_w, b_w, g, *, nb_heads: int,
-                               scale: float):
+                               scale: float,
+                               row_stats: Optional[torch.Tensor] = None):
     """(dqkv, dw_l, db_l, dw_w, db_w) of ``talking_head_attention`` from
     g = dL/dout (B, N, D): dqkv (B, N, 3D) in qkv's dtype and packed layout,
     the rest in f32, summed over the batch, db_l exactly zero. Runs
     ``talking_head_attention_bwd_reference`` when every input lies on the
     CPU and the kernels otherwise, where it raises on what they do not
-    take. Two calls give bit-identical results: no atomics."""
+    take. ``row_stats``: the log2 l that the forward's Hopper body kept
+    (``_TalkingHead``), which spares the Hopper backward its first pass;
+    the same gradients bit for bit. Two calls give bit-identical results:
+    no atomics."""
     if _on_cpu(qkv, w_l, b_l, w_w, b_w, g):
         return talking_head_attention_bwd_reference(
             qkv, w_l, b_l, w_w, b_w, g, nb_heads=nb_heads, scale=scale)
@@ -257,41 +301,60 @@ def talking_head_attention_bwd(qkv, w_l, b_l, w_w, b_w, g, *, nb_heads: int,
     dbw, dbl = mix[2 * h * h:2 * h * h + h], mix[2 * h * h + h:]
     if b == 0:
         return dqkv, dwl, dbl, dww, dbw
-    tiles = -(-n // TILE)
-    # Row statistics l and delta (B, H, N), the per-block partial sums of
-    # the two mix gradients (2 H^2 each) and of db_w (H each).
-    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dev)
+    # The per-block partial sums of the two mix gradients (2 H^2 each) and
+    # of db_w (H each); the first design also keeps the row statistics l
+    # and delta (B, H, N) between its launches, the Hopper body a and draw.
+    stats = scratch = maps = saved = None
+    if cait_route(h, qkv, g):
+        tiles = -(-n // WGMMA_TILE)
+        scratch = ab_scratch(b, h, n, dev)
+        maps = packed_cait_maps(b, n, h, dim // h, True)
+        if row_stats is not None:
+            if (row_stats.shape != (b, h, padded_rows(n))
+                    or row_stats.dtype != torch.float32
+                    or row_stats.device != dev
+                    or not row_stats.is_contiguous()):
+                raise ValueError(
+                    f"talking_head_attention_bwd: row_stats must be a "
+                    f"contiguous f32 {(b, h, padded_rows(n))} tensor on "
+                    f"{dev}; got {tuple(row_stats.shape)} {row_stats.dtype}")
+            saved = row_stats
+    else:
+        tiles = -(-n // TILE)
+        stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dev)
     part_rows = torch.empty((b * tiles, 2 * h * h), dtype=torch.float32,
                             device=dev)
     part_keys = torch.empty((b * tiles, h), dtype=torch.float32, device=dev)
     launch("talking_head_attention_bwd",
            kernel_library().tfimm_talking_head_bwd, qkv, qkv.stride(0),
            qkv.stride(1), *_mix_args(w_l, b_l, w_w, b_w), g, dqkv, stats,
-           part_rows, part_keys, mix, b, n, h, dim // h, float(scale),
-           DTYPE_CODES[qkv.dtype])
+           part_rows, part_keys, mix, scratch, maps, saved, b, n, h, dim // h,
+           float(scale), DTYPE_CODES[qkv.dtype])
     return dqkv, dwl, dbl, dww, dbw
 
 
 class _TalkingHead(torch.autograd.Function):
     """``talking_head_attention`` with ``talking_head_attention_bwd`` as its
     backward (the custom VJP of ``talking_head_diff`` in the JAX package).
-    Saves qkv and the four mix parameters only: the backward recomputes the
-    softmax. Each mix gradient comes back in its parameter's dtype."""
+    Saves qkv, the four mix parameters and, where the Hopper body runs, the
+    row statistics log2 l (B, H, N rounded up to 64), so that the backward
+    skips the pass that would recompute them. Each mix gradient comes back
+    in its parameter's dtype."""
 
     @staticmethod
     def forward(ctx, qkv, w_l, b_l, w_w, b_w, nb_heads, scale):
-        ctx.save_for_backward(qkv, w_l, b_l, w_w, b_w)
+        out, stats = _forward(qkv, w_l, b_l, w_w, b_w, nb_heads, scale, True)
+        ctx.save_for_backward(qkv, w_l, b_l, w_w, b_w, stats)
         ctx.nb_heads, ctx.scale = nb_heads, scale
-        return talking_head_attention(qkv, w_l, b_l, w_w, b_w,
-                                      nb_heads=nb_heads, scale=scale)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        qkv, w_l, b_l, w_w, b_w = ctx.saved_tensors
+        qkv, w_l, b_l, w_w, b_w, stats = ctx.saved_tensors
         grads = talking_head_attention_bwd(
             qkv, w_l, b_l, w_w, b_w, g.contiguous(), nb_heads=ctx.nb_heads,
-            scale=ctx.scale)
+            scale=ctx.scale, row_stats=stats)
         params = (w_l, b_l, w_w, b_w)
         return (grads[0], *(d.to(p.dtype) for d, p in zip(grads[1:], params)),
                 None, None)

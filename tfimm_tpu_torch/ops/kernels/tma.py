@@ -33,7 +33,10 @@ __all__ = ["TILE", "ELEM_BYTES", "TensorMapGeometry", "geometry_array",
            "packed_fused_mha_maps", "packed_rows_maps", "packed_heads_maps",
            "packed_operand_maps", "GEMM_ROWS", "GEMM_WIDTHS", "LN_MAX_DEPTH",
            "LN_MAX_DEPTH_WIDE", "matrix_map", "gemm_width", "gemm_maps",
-           "gemm_grid", "packed_gemm_maps", "gemm_route", "sm_count"]
+           "gemm_grid", "packed_gemm_maps", "gemm_route", "sm_count",
+           "CAIT_KEYS", "CAIT_MAX_HEADS", "CAIT_MAX_HEAD_DIM", "cait_route",
+           "cait_maps", "cait_scratch_cols", "cait_scratch_map",
+           "packed_cait_maps"]
 
 TILE = 64
 ELEM_BYTES = 2     # bf16, the only dtype the maps serve
@@ -233,3 +236,71 @@ def sm_count(device_index: int) -> int:
     """The SMs of CUDA device ``device_index`` (the persistent grid's
     blocks)."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# The talking-head attention's Hopper bodies (csrc/cait_attention.cu,
+# cait_attention_bwd.cu; cait_attention_common.cuh · namespace tc): 64-row
+# query tiles, stages of CAIT_KEYS keys, every head of a block in shared
+# memory, up to CAIT_MAX_HEADS heads of one 64-column chunk.
+CAIT_KEYS = 16
+CAIT_MAX_HEADS = 8
+CAIT_MAX_HEAD_DIM = TILE
+
+
+def cait_route(nb_heads: int, *tensors: torch.Tensor) -> bool:
+    """Whether the talking-head kernels take these operands (qkv, and g for
+    the backward; the wrappers allocate out and dqkv contiguous) on their
+    TMA + wgmma bodies, else the mma.sync or f32 bodies run: bf16, each
+    contiguous and 16-byte aligned, qkv (B, N, 3 H d) with H <= 8 heads of
+    d <= 64 (every registered CaiT below cait_m36, and the golden
+    fixture's d = 8)."""
+    qkv = tensors[0]
+    if (qkv.dim() != 3 or nb_heads < 1 or nb_heads > CAIT_MAX_HEADS
+            or qkv.shape[-1] % (3 * nb_heads)):
+        return False
+    d = qkv.shape[-1] // (3 * nb_heads)
+    return 0 < d <= CAIT_MAX_HEAD_DIM and d % 8 == 0 and all(
+        t.dtype == torch.bfloat16 and t.is_contiguous()
+        and t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def cait_maps(b: int, n: int, nb_heads: int, d: int):
+    """(rows, keys, out) of the talking-head bodies: qkv (B, N, 3*H*d) as
+    ``fused_mha_maps`` reads it, in boxes of 64 rows (a block's own q or g
+    tiles, and the backward's streamed ones) and of CAIT_KEYS rows (a key
+    stage of one head's k or v), and out (or g) as (d, H, N, B) in 64-row
+    boxes."""
+    rows, out = fused_mha_maps(b, n, nb_heads, d)
+    keys = TensorMapGeometry(dims=rows.dims, strides=rows.strides,
+                             box=(TILE, 1, 1, CAIT_KEYS, 1))
+    return rows, keys, out
+
+
+def cait_scratch_cols(n: int) -> int:
+    """The row length of the backward's scratch of a and draw: N rounded up
+    to 8 elements, the 16 bytes TMA needs between rows."""
+    return -(-n // 8) * 8
+
+
+def cait_scratch_map(b: int, n: int, nb_heads: int) -> TensorMapGeometry:
+    """The talking-head backward's bf16 scratch (2, B, H, N,
+    ``cait_scratch_cols(N)``) of a (part 0) and draw (part 1) as (N, N, H,
+    2 B): a (64, 64, 1, 1) box at (k, q, h, part * B + b) is keys k... of
+    query rows q... of head h of image b; zeros past N both ways, so the
+    columns past N are never read."""
+    e, cols = ELEM_BYTES, cait_scratch_cols(n)
+    return TensorMapGeometry(dims=(n, n, nb_heads, 2 * b),
+                             strides=(e * cols, e * cols * n,
+                                      e * cols * n * nb_heads),
+                             box=(TILE, TILE, 1, 1))
+
+
+@functools.lru_cache(maxsize=256)
+def packed_cait_maps(b: int, n: int, nb_heads: int, d: int,
+                     backward: bool = False) -> ctypes.Array:
+    """``cait_maps`` of a bf16 call, packed; with ``backward`` the scratch
+    map after them."""
+    maps = cait_maps(b, n, nb_heads, d)
+    if backward:
+        maps = (*maps, cait_scratch_map(b, n, nb_heads))
+    return geometry_array(*maps)

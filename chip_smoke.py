@@ -336,6 +336,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -385,6 +386,28 @@ CONVNEXT_LAUNCH_PARTS = {
                              "convnext_block_gemm_bf16_kernel<true>")),
         ("fc2 (residual)", ("convnext_block_fc2",
                             "convnext_block_gemm_bf16_kernel<false>"))]}
+# The seven launches of one swin_block call (six where proj's epilogue takes
+# X2's row statistics: SWIN_X2_STATS is then not launched) and the five of
+# one poolformer_block call (bf16: the GEMMs on mlp_gemm.cuh's wgmma body).
+SWIN_X2_STATS = "row statistics of X2"
+CONVNEXT_LAUNCH_PARTS["swin_block"] = [
+    ("row statistics of x", ("swin_row_stats_kernel<__nv_bfloat16>",)),
+    ("qkv (LN1 prologue)", ("swin_qkv_",)),
+    ("attention (window_mha)", ("window_mha_bf16_kernel",)),
+    ("proj (X2 in f32)", ("swin_proj_",)),
+    (SWIN_X2_STATS, ("swin_row_stats_kernel<float>",)),
+    ("fc1 (LN2 prologue on f32 X2, GELU)", ("swin_fc1_",)),
+    ("fc2 (f32 residual)", ("swin_fc2_",))]
+CONVNEXT_LAUNCH_PARTS["poolformer_block"] = [
+    ("GN1 statistics", ("gn_stats_kernel<__nv_bfloat16>",)),
+    ("pool (x1 in f32)", ("pool_x1_kernel",)),
+    ("GN2 statistics", ("gn_stats_kernel<float>",)),
+    ("fc1 (GN2 prologue on f32 x1, GELU)", ("pf_fc1_",)),
+    ("fc2 (f32 residual)", ("pf_fc2_",))]
+# The GEMMs of those blocks, by their kernels' name prefix (gemm_bodies).
+GEMM_PRODUCTS = {"swin_block": ("swin_qkv", "swin_proj", "swin_fc1",
+                                "swin_fc2"),
+                 "poolformer_block": ("pf_fc1", "pf_fc2")}
 # The launches inside one counted call of talking_head_attention_bwd: the
 # Hopper body's (A) rows and (B) dq, dk, dv; the first design's rows and
 # keys; the fixed-order sum of the mix-gradient partials.
@@ -489,11 +512,13 @@ PVT_RUNS = [("pvt_v2_b2", "1", 3), ("pvt_v2_b2", "0", 0), ("pvt_small", "1", 3),
             ("pvt_v2_b2_linear", "1", 3)]
 # poolformer_block (B, H, W, C, hidden): poolformer_s12's four stages at
 # batch 128, and the blocks of each that a request runs; then a 4x4 map,
-# where edges and corners are all but one pixel in four.
+# where edges and corners are all but one pixel in four, and two widths off
+# the wgmma route (C = 60 and 6: the mma.sync GEMMs and one channel a pool
+# thread).
 POOL_STAGES = [(128, 56, 56, 64, 256), (128, 28, 28, 128, 512),
                (128, 14, 14, 320, 1280), (128, 7, 7, 512, 2048)]
 POOL_DEPTHS = (2, 2, 6, 2)
-POOL_EDGES = [(128, 4, 4, 64, 256)]
+POOL_EDGES = [(128, 4, 4, 64, 256), (16, 7, 7, 60, 240), (4, 5, 3, 6, 24)]
 # f32: two whole-map GroupNorms and two products summed in another order.
 POOL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 POOLFORMER = "poolformer_s12"
@@ -581,7 +606,7 @@ KERNEL_GROUPS = [("convnext_block (convnext_block.cu: depthwise + LayerNorm, "
                  ("pvt_sra (pvt_sra.cu)", ("pvt_sra",)),
                  ("poolformer_block (poolformer_block.cu: GroupNorm "
                   "statistics, pool, GEMMs)", ("gn_stats", "pool_x1",
-                                               "pf_gemm")),
+                                               "pf_fc1_", "pf_fc2_")),
                  # The Hopper backward (attention_bwd.cuh) is one template
                  # for both: <DC, 0> without the bias, <DC, 1 or 2> with it.
                  ("flash attention backward (flash_attention_bwd.cu)",
@@ -600,7 +625,8 @@ KERNEL_GROUPS = [("convnext_block (convnext_block.cu: depthwise + LayerNorm, "
                  ("talking-head attention (cait_attention.cu)",
                   ("talking_head_fwd",)),
                  ("swin_block (GEMMs, row statistics)",
-                  ("swin_gemm", "swin_row_stats")),
+                  ("swin_qkv_", "swin_proj_", "swin_fc1_", "swin_fc2_",
+                   "swin_row_stats")),
                  ("window attention backward (window_mha_bwd.cu)",
                   ("window_mha_bwd", "dbias_sum")),
                  ("window attention (window_mha.cu; within swin_block at "
@@ -637,7 +663,8 @@ def print_registers(build_log: str) -> None:
     """Registers and spills, from ptxas' report in the build log, of the
     backward's Hopper launches (``csrc/attention_bwd.cuh``: (A) rows and
     (B) keys, per 64-column chunks DC and bias), of the GEMM body of
-    ``csrc/mlp_gemm.cuh`` on TMA and wgmma (per caller and tile width), the
+    ``csrc/mlp_gemm.cuh`` on TMA and wgmma (per caller, swin_block's and
+    poolformer_block's products among them, and tile width), the
     tiled depthwise + LayerNorm launch of ``convnext_block.cu`` and the
     talking-head kernels' Hopper launches (``cait_attention.cu`` and
     ``cait_attention_bwd.cu``, per padded head count); nothing when the
@@ -652,7 +679,9 @@ def print_registers(build_log: str) -> None:
                           r"\S*attn_bwd_(rows|keys)_kernelILi(\d)ELi(\d)E",
                           line)
         tiled = re.search(r"Function properties for \S*?((?:mlp_gemm_fc[12]|"
-                          r"convnext_block_fc[12]|ln_dense_fwd)_wgmma_kernel|"
+                          r"convnext_block_fc[12]|ln_dense_fwd|"
+                          r"swin_(?:qkv|proj|fc1|fc2)|pf_fc[12])"
+                          r"_wgmma_kernel|"
                           r"convnext_block_dw_ln_tile_kernel)ILi(\d+)E", line)
         cait = re.search(r"Function properties for \S*?(talking_head_\w+?"
                          r"_wgmma_kernel)(?:ILi(\d+)E)?", line)
@@ -1131,28 +1160,34 @@ def cold_device_events(fn, calls: int = 3, tries: int = 5,
                        f"no launch of one of {list(need)}")
 
 
-def cold_launch_parts(fn, kernel, calls: int = 3, events=None) -> dict:
+def cold_launch_parts(fn, kernel, calls: int = 3, events=None,
+                      skip=()) -> dict:
     """Device ms of each launch of one call of ``fn`` (a call of
     ``kernel``), its operands out of L2 (``cold_device_events``, or the
     ``events`` of such a profile already taken); each launch's mean over
     the events the profile kept of it (a profile may drop a call's
-    events). The phase fails if the profile kept none of a launch."""
+    events). ``skip``: launches this call does not run, reported as 0.0.
+    The phase fails if the profile kept none of a launch, or one of a
+    launch in ``skip``."""
     if events is None:
         events = cold_device_events(fn, calls,
-                                    need=launch_keys(kernel))
+                                    need=launch_keys(kernel, skip))
     parts = {}
     for part, keys in CONVNEXT_LAUNCH_PARTS[kernel]:
         ms = [t for name, t in events if any(k in name for k in keys)]
-        check(bool(ms), f"{kernel}: the profile kept no launch of {part}: "
+        check(bool(ms) is (part not in skip),
+              f"{kernel}: the profile kept {len(ms)} launches of {part}"
+              f"{', which this call does not run' if part in skip else ''}: "
               f"{sorted({name[:90] for name, _ in events})}")
-        parts[part] = sum(ms) / len(ms)
+        parts[part] = sum(ms) / len(ms) if ms else 0.0
     return parts
 
 
-def launch_keys(kernel) -> list:
-    """The name keys of each launch of ``kernel`` (CONVNEXT_LAUNCH_PARTS),
-    as ``cold_device_events`` needs them."""
-    return [keys for _, keys in CONVNEXT_LAUNCH_PARTS[kernel]]
+def launch_keys(kernel, skip=()) -> list:
+    """The name keys of each launch of ``kernel`` (CONVNEXT_LAUNCH_PARTS)
+    but those in ``skip``, as ``cold_device_events`` needs them."""
+    return [keys for part, keys in CONVNEXT_LAUNCH_PARTS[kernel]
+            if part not in skip]
 
 
 def cold_call_kernels(fn, calls: int = 3, need=()) -> dict:
@@ -1553,6 +1588,55 @@ def swin_block_bound(bw, n, c, h, nb_win):
     return bound(nbytes, 24 * m * c * c + 4 * m * n * c)
 
 
+def swin_traffic_bound(bw, n, c, h, nb_win, x2_reads=3):
+    """(ms, what bounds it) of swin_block's multi-launch form, whose
+    intermediates cross device memory: x read three times (statistics,
+    qkv, proj's shortcut); qkv, A and M1 written and read once (bf16); X2
+    written once and read ``x2_reads`` times (f32: fc1, fc2 and, where
+    proj does not take its statistics, their launch); the row statistics
+    (f32 mean and rstd) written and read once each; out written once; the
+    matrices, vectors, bias and mask once; the same operations as
+    ``swin_block_bound``."""
+    m, hid = bw * n, 4 * c
+    nbytes = (2 * m * c * (3 + 2 * 3 + 2 + 1) + 4 * m * c * (1 + x2_reads)
+              + 2 * 2 * m * hid + 4 * 8 * m + 2 * 12 * c * c + 4 * 13 * c
+              + 4 * (h + nb_win) * n * n)
+    return bound(nbytes, 24 * m * c * c + 4 * m * n * c)
+
+
+def gemm_bodies(kernel, fn=None, events=None, wgmma=False) -> dict:
+    """The body and tile width each GEMM of ``kernel`` (GEMM_PRODUCTS) ran
+    on in calls of ``fn`` (or in the device ``events`` of such calls), read
+    from the profiler's kernel names: "wgmma <BN>" for the TMA + wgmma body
+    (``<product>_wgmma_kernel<BN>``), "mma.sync" or "FMA" for the tile
+    bodies (``<product>_tile_kernel<T>``, bf16 or f32). With ``wgmma`` the
+    phase fails unless every product ran the wgmma body."""
+    if events is None:
+        events = cold_device_events(fn, 1, need=[
+            (product + "_",) for product in GEMM_PRODUCTS[kernel]])
+    bodies = {}
+    for product in GEMM_PRODUCTS[kernel]:
+        found = set()
+        for name, _ in events:
+            hit = re.search(product + r"_(wgmma|tile)_kernel<(\w+)>", name)
+            if hit:
+                body, arg = hit.groups()
+                found.add(f"wgmma {arg}" if body == "wgmma"
+                          else "FMA" if arg == "float" else "mma.sync")
+        check(len(found) == 1, f"{kernel}: the profile shows {sorted(found)} "
+              f"for {product}")
+        bodies[product.split("_", 1)[1]] = found.pop()
+    if wgmma:
+        check(all(b.startswith("wgmma") for b in bodies.values()),
+              f"{kernel}: a product left the TMA + wgmma body: {bodies}")
+    return bodies
+
+
+def bodies_line(bodies) -> str:
+    return "bodies (profiler) " + ", ".join(f"{product} {body}" for
+                                            product, body in bodies.items())
+
+
 def per_op_block(params, c, h, side, shifted, dtype):
     """A ``SwinTransformerBlock`` on the card holding the tensors of
     ``params``, and a call that runs it per op, as the model runs the blocks
@@ -1588,13 +1672,16 @@ def per_op_block(params, c, h, side, shifted, dtype):
 
 def compare_paths(what, kernel, per_op):
     """Print the block kernel's time and the per-op block's, each as CUDA
-    events around back-to-back calls and as device time."""
-    times = {name: (cuda_time_ms(fn), device_ms(fn))
+    events around back-to-back calls, as device time and out of L2
+    (``cold_ms``). Returns the per-op block's (back-to-back, out of L2)
+    times."""
+    times = {name: (cuda_time_ms(fn), device_ms(fn), cold_ms(fn))
              for name, fn in (("swin_block", kernel), ("per-op", per_op))}
     print(f"{what}: " + "; ".join(
-        f"{name} {ev!r} ms between events, {dev!r} ms device"
-        for name, (ev, dev) in times.items())
+        f"{name} {ev!r} ms between events, {dev!r} ms device, {cold!r} ms "
+        f"out of L2" for name, (ev, dev, cold) in times.items())
         + " (per-op: cuBLAS, window_mha, eager LayerNorm)", flush=True)
+    return times["per-op"][0], times["per-op"][2]
 
 
 def phase_swin_kernels(reports):
@@ -1633,8 +1720,13 @@ def phase_swin_kernels(reports):
                 ref = plain(*args, nb_heads=h, scale=scale)
                 torch.cuda.synchronize()
                 err, bar, ok = held(got, ref, SWIN_TOL[name][dname])
+                how = ""
+                if name == "swin_block":
+                    how = "; " + bodies_line(gemm_bodies(
+                        name, lambda: kernel(*args, nb_heads=h, scale=scale),
+                        wgmma=dtype == torch.bfloat16))
                 print(f"{name} {what}: max_abs_err={err!r} bar={bar!r} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                      f"{'ok' if ok else 'FAIL'}{how}", flush=True)
                 check(ok, f"{name} disagrees with its plain version ({what}): "
                       f"{err} > {bar}")
                 if dtype == torch.bfloat16 and (bw, n, c, h, side) in (
@@ -1702,57 +1794,106 @@ def phase_swin_kernels(reports):
     del x, params, bias
 
     # swin_block where the main path runs it: stages 1-3, per stage shape,
-    # then per request (each stage's times its blocks, half of them shifted).
+    # then per request (each stage's times its blocks, half of them shifted):
+    # back to back (in L2) and out of L2 (cold_ms), each launch out of L2
+    # by the profiler, the per-op block, the fused bound and the multi-launch
+    # form's traffic bound, the cuBLAS floor of the products both ways.
     report = reports["swin_block"]
-    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms")
+    keys = ("ms", "cold_ms", "plain_ms", "per_op_ms", "per_op_cold_ms",
+            "cublas_floor_ms", "cublas_floor_cold_ms", "bound_ms",
+            "traffic_bound_ms")
     totals = dict.fromkeys(keys, 0.0)
+    launch_totals = {part: 0.0 for part, _ in CONVNEXT_LAUNCH_PARTS[
+        "swin_block"]}
+    stages = {}
     for (bw, n, c, h, side), depth in zip(SWIN_STAGES, SWIN_DEPTHS):
         m = bw * n
         tflop = (24 * m * c * c + 4 * m * n * c) / 1e12
         for shifted in (False, True):
+            what = (f"swin_block bf16 BW={bw} C={c} H={h}"
+                    f"{' shifted' if shifted else ''}")
             x, _, params, bias, mask = swin_inputs(bw, n, c, h, side, shifted,
                                                    torch.bfloat16, 700)
             scale = (c // h) ** -0.5
-            t = {"ms": cuda_time_ms(lambda: swin_block(
-                     x, params, bias, mask, nb_heads=h, scale=scale)),
+
+            def call():
+                return swin_block(x, params, bias, mask, nb_heads=h,
+                                  scale=scale)
+
+            # What ran, from the profile: each product's body and width, and
+            # whether X2's statistics took a launch of their own.
+            events = cold_device_events(call, need=launch_keys(
+                "swin_block", {SWIN_X2_STATS}))
+            bodies = gemm_bodies("swin_block", events=events, wgmma=True)
+            x2_launch = any(k in name for name, _ in events
+                            for k in dict(CONVNEXT_LAUNCH_PARTS[
+                                "swin_block"])[SWIN_X2_STATS])
+            x2_reads = 3 if x2_launch else 2
+            t = {"ms": cuda_time_ms(call), "cold_ms": cold_ms(call),
                  "plain_ms": cuda_time_ms(lambda: swin_block_reference(
                      x, params, bias, mask, nb_heads=h, scale=scale), iters=5)}
             nb_win = 0 if mask is None else mask.shape[0]
             t["bound_ms"], by = swin_block_bound(bw, n, c, h, nb_win)
-            for key in ("ms", "plain_ms"):
-                print(f"swin_block bf16 BW={bw} C={c} H={h}"
-                      f"{' shifted' if shifted else ''}: "
-                      f"{'kernel' if key == 'ms' else 'plain'} {t[key]!r} ms, "
+            t["traffic_bound_ms"], tby = swin_traffic_bound(bw, n, c, h,
+                                                            nb_win, x2_reads)
+            for key, name in (("ms", "kernel back to back"),
+                              ("cold_ms", "kernel out of L2"),
+                              ("plain_ms", "plain")):
+                print(f"{what}: {name} {t[key]!r} ms, "
                       f"{tflop / (t[key] / 1e3)!r} TFLOP/s, "
                       f"{t['bound_ms'] / t[key]!r} of the bound "
-                      f"{t['bound_ms']!r} ms ({by})", flush=True)
-            for key in ("ms", "plain_ms", "bound_ms"):
+                      f"{t['bound_ms']!r} ms ({by}), "
+                      f"{t['traffic_bound_ms'] / t[key]!r} of the multi-launch "
+                      f"form's bound {t['traffic_bound_ms']!r} ms ({tby}; X2 "
+                      f"read {x2_reads} times)",
+                      flush=True)
+            print(f"{what}: {bodies_line(bodies)}", flush=True)
+            parts = cold_launch_parts(
+                call, "swin_block", events=events,
+                skip=set() if x2_launch else {SWIN_X2_STATS})
+            for part, ms in parts.items():
+                print(f"{what}: launch {part} {ms!r} ms out of L2 (profiler)",
+                      flush=True)
+                launch_totals[part] += depth // 2 * ms
+            t["per_op_ms"], t["per_op_cold_ms"] = compare_paths(
+                what, call, per_op_block(params, c, h, side, shifted,
+                                         torch.bfloat16))
+            for key in ("ms", "cold_ms", "plain_ms", "per_op_ms",
+                        "per_op_cold_ms", "bound_ms", "traffic_bound_ms"):
                 totals[key] += depth // 2 * t[key]
-            compare_paths(
-                f"swin_block bf16 BW={bw} C={c} H={h}"
-                f"{' shifted' if shifted else ''}",
-                lambda: swin_block(x, params, bias, mask, nb_heads=h,
-                                   scale=scale),
-                per_op_block(params, c, h, side, shifted, torch.bfloat16))
+            stages[what] = {k: t[k] for k in ("ms", "cold_ms", "per_op_ms",
+                                               "per_op_cold_ms")}
         w_qkv, w_proj, w1, w2 = params.w_qkv, params.w_proj, params.w1, params.w2
         h1 = torch.randn(m, c, device="cuda").to(torch.bfloat16)
         mid = torch.randn(m, 4 * c, device="cuda").to(torch.bfloat16)
-        floor = (cuda_time_ms(lambda: F.linear(h1, w_qkv))
-                 + cuda_time_ms(lambda: F.linear(h1, w_proj))
-                 + cuda_time_ms(lambda: F.linear(h1, w1))
-                 + cuda_time_ms(lambda: F.linear(mid, w2)))
+        products = ((h1, w_qkv), (h1, w_proj), (h1, w1), (mid, w2))
+        floor = sum(cuda_time_ms(lambda a=a, w=w: F.linear(a, w))
+                    for a, w in products)
+        floor_cold = sum(cold_ms(lambda a=a, w=w: F.linear(a, w))
+                         for a, w in products)
         print(f"swin_block bf16 BW={bw} C={c}: cuBLAS floor (four F.linear) "
-              f"{floor!r} ms, {24 * m * c * c / 1e12 / (floor / 1e3)!r} "
-              f"TFLOP/s; {depth} blocks a request", flush=True)
+              f"{floor!r} ms back to back, {floor_cold!r} ms out of L2, "
+              f"{24 * m * c * c / 1e12 / (floor / 1e3)!r} TFLOP/s; {depth} "
+              f"blocks a request", flush=True)
         totals["cublas_floor_ms"] += depth * floor
-        del x, params, bias, mask, h1, mid
+        totals["cublas_floor_cold_ms"] += depth * floor_cold
+        del x, params, bias, mask, h1, mid, products
     report.update(totals)
     report["bound_by"] = "operations"
     report["library_ms"] = totals["cublas_floor_ms"]
+    report["launch_cold_ms"] = launch_totals
+    report["stages"] = stages
     print(f"swin_block per {SWIN} bs{BATCH} request ({sum(SWIN_DEPTHS)} calls): "
-          f"kernel {totals['ms']!r} ms, plain {totals['plain_ms']!r} ms, cuBLAS "
-          f"floor {totals['cublas_floor_ms']!r} ms, bound "
-          f"{totals['bound_ms']!r} ms (operations)", flush=True)
+          f"kernel {totals['ms']!r} ms back to back, {totals['cold_ms']!r} ms "
+          f"out of L2; per-op block {totals['per_op_ms']!r} / "
+          f"{totals['per_op_cold_ms']!r} ms; plain {totals['plain_ms']!r} ms; "
+          f"cuBLAS floor {totals['cublas_floor_ms']!r} / "
+          f"{totals['cublas_floor_cold_ms']!r} ms; bound "
+          f"{totals['bound_ms']!r} ms (operations); the multi-launch form's "
+          f"bound {totals['traffic_bound_ms']!r} ms", flush=True)
+    for part, ms in launch_totals.items():
+        print(f"swin_block per {SWIN} bs{BATCH} request: launch {part} "
+              f"{ms!r} ms out of L2 (profiler)", flush=True)
 
 
 def phase_swin_slice(reports, gpu_line):
@@ -1835,6 +1976,7 @@ def phase_swin_slice(reports, gpu_line):
     for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{SWIN} request profile kernel: {ms!r} ms {name[:150]}",
               flush=True)
+    print_launch_parts(SWIN, names, "swin_block")
 
 
 def window_bwd_inputs(bw, n, c, h, side, shifted, dtype, seed):
@@ -3542,6 +3684,19 @@ def pool_bound(b, h, w, c, hidden):
     return bound(nbytes, 4 * m * c * hidden)
 
 
+def pool_traffic_bound(b, h, w, c, hidden):
+    """(ms, what bounds it) of poolformer_block's five-launch form, whose
+    intermediates cross device memory: x read three times (GN1's two
+    passes, the pool; bf16), x1 written once and read three times (GN2's
+    second pass, fc1, fc2; f32: the pool takes its first pass), h written
+    and read once (bf16), out written once; the matrices and vectors once;
+    the two products."""
+    m = b * h * w
+    nbytes = (2 * m * c * 3 + 4 * m * c * 4 + 2 * 2 * m * hidden
+              + 2 * m * c + 2 * 2 * c * hidden + 4 * (7 * c + hidden))
+    return bound(nbytes, 4 * m * c * hidden)
+
+
 def phase_pool_kernel(report, gpu_line):
     import torch
     import torch.nn.functional as F
@@ -3561,8 +3716,12 @@ def phase_pool_kernel(report, gpu_line):
             ref = poolformer_block_reference(*args)
             torch.cuda.synchronize()
             err, bar, ok = held(got, ref, POOL_TOL[dname])
+            bodies = gemm_bodies(
+                "poolformer_block", lambda: poolformer_block(*args),
+                wgmma=dtype == torch.bfloat16 and i < len(POOL_STAGES))
             print(f"poolformer_block {what}: max_abs_err={err!r} bar={bar!r} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+                  f"{'ok' if ok else 'FAIL'}; {bodies_line(bodies)}",
+                  flush=True)
             check(ok, f"poolformer_block disagrees with its plain version "
                   f"({what}): {err} > {bar}")
             if dtype == torch.bfloat16 and i < len(POOL_STAGES):
@@ -3580,42 +3739,78 @@ def phase_pool_kernel(report, gpu_line):
             del args, got, ref
     report["max_abs_err"] = worst
 
-    keys = ("ms", "plain_ms", "cublas_floor_ms", "bound_ms")
+    # Per stage shape, then per request: back to back (in L2) and out of
+    # L2 (cold_ms), each launch out of L2 by the profiler, the fused bound
+    # and the five-launch form's traffic bound, the cuBLAS floor both ways.
+    keys = ("ms", "cold_ms", "plain_ms", "cublas_floor_ms",
+            "cublas_floor_cold_ms", "bound_ms", "traffic_bound_ms")
     totals = dict.fromkeys(keys, 0.0)
+    launch_totals = {part: 0.0 for part, _ in CONVNEXT_LAUNCH_PARTS[
+        "poolformer_block"]}
     bound_by = {}
+    stages = {}
     for (b, h, w, c, hid), depth in zip(POOL_STAGES, POOL_DEPTHS):
         args = pool_inputs(b, h, w, c, hid, torch.bfloat16, 2200)
         m = b * h * w
         z = torch.randn(m, c, device="cuda").to(torch.bfloat16)
         hidden = torch.randn(m, hid, device="cuda").to(torch.bfloat16)
         w1, w2 = args[6], args[8]
-        t = {"ms": cuda_time_ms(lambda: poolformer_block(*args)),
+        stage = f"poolformer_block bf16 {b}x{h}x{w}x{c}"
+
+        def call():
+            return poolformer_block(*args)
+
+        t = {"ms": cuda_time_ms(call), "cold_ms": cold_ms(call),
              "plain_ms": cuda_time_ms(
                  lambda: poolformer_block_reference(*args), iters=5),
              "fc1_ms": cuda_time_ms(lambda: F.linear(z, w1)),
-             "fc2_ms": cuda_time_ms(lambda: F.linear(hidden, w2))}
+             "fc2_ms": cuda_time_ms(lambda: F.linear(hidden, w2)),
+             "cublas_floor_cold_ms": (cold_ms(lambda: F.linear(z, w1))
+                                      + cold_ms(lambda: F.linear(hidden,
+                                                                 w2)))}
         t["cublas_floor_ms"] = t["fc1_ms"] + t["fc2_ms"]
         t["bound_ms"], by = pool_bound(b, h, w, c, hid)
+        t["traffic_bound_ms"], tby = pool_traffic_bound(b, h, w, c, hid)
         bound_by[by] = bound_by.get(by, 0.0) + depth * t["bound_ms"]
-        for key, what in (("ms", "kernel"), ("plain_ms", "plain"),
-                          ("cublas_floor_ms", "cuBLAS floor")):
-            print(f"poolformer_block bf16 {b}x{h}x{w}x{c}: {what} {t[key]!r} "
-                  f"ms, {t['bound_ms'] / t[key]!r} of the bound", flush=True)
-        print(f"poolformer_block bf16 {b}x{h}x{w}x{c}: F.linear fc1 "
-              f"{t['fc1_ms']!r} ms, fc2 {t['fc2_ms']!r} ms; bound "
-              f"{t['bound_ms']!r} ms ({by}); {depth} blocks a request",
-              flush=True)
+        for key, what in (("ms", "kernel back to back"),
+                          ("cold_ms", "kernel out of L2"), ("plain_ms", "plain"),
+                          ("cublas_floor_ms", "cuBLAS floor back to back"),
+                          ("cublas_floor_cold_ms", "cuBLAS floor out of L2")):
+            print(f"{stage}: {what} {t[key]!r} ms, "
+                  f"{t['bound_ms'] / t[key]!r} of the bound, "
+                  f"{t['traffic_bound_ms'] / t[key]!r} of the five-launch "
+                  f"form's bound", flush=True)
+        events = cold_device_events(call, need=launch_keys("poolformer_block"))
+        bodies = gemm_bodies("poolformer_block", events=events, wgmma=True)
+        print(f"{stage}: F.linear fc1 {t['fc1_ms']!r} ms, fc2 {t['fc2_ms']!r} "
+              f"ms; bound {t['bound_ms']!r} ms ({by}); the five-launch form's "
+              f"bound {t['traffic_bound_ms']!r} ms ({tby}); {depth} blocks a "
+              f"request; {bodies_line(bodies)}", flush=True)
+        for part, ms in cold_launch_parts(call, "poolformer_block",
+                                          events=events).items():
+            print(f"{stage}: launch {part} {ms!r} ms out of L2 (profiler)",
+                  flush=True)
+            launch_totals[part] += depth * ms
         for key in keys:
             totals[key] += depth * t[key]
+        stages[stage] = {k: t[k] for k in ("ms", "cold_ms")}
         del args, z, hidden
     report.update(totals)
     report["bound_by"] = max(bound_by, key=bound_by.get)
     report["library_ms"] = None
+    report["launch_cold_ms"] = launch_totals
+    report["stages"] = stages
     print(f"poolformer_block per {POOLFORMER} bs{BATCH} request "
-          f"({sum(POOL_DEPTHS)} calls): kernel {totals['ms']!r} ms, plain "
-          f"{totals['plain_ms']!r} ms, cuBLAS floor "
-          f"{totals['cublas_floor_ms']!r} ms, bound {totals['bound_ms']!r} ms "
-          f"({report['bound_by']}); on {gpu_line}", flush=True)
+          f"({sum(POOL_DEPTHS)} calls): kernel {totals['ms']!r} ms back to "
+          f"back, {totals['cold_ms']!r} ms out of L2; plain "
+          f"{totals['plain_ms']!r} ms; cuBLAS floor "
+          f"{totals['cublas_floor_ms']!r} / {totals['cublas_floor_cold_ms']!r} "
+          f"ms; bound {totals['bound_ms']!r} ms ({report['bound_by']}); the "
+          f"five-launch form's bound {totals['traffic_bound_ms']!r} ms; on "
+          f"{gpu_line}", flush=True)
+    for part, ms in launch_totals.items():
+        print(f"poolformer_block per {POOLFORMER} bs{BATCH} request: launch "
+              f"{part} {ms!r} ms out of L2 (profiler)", flush=True)
 
 
 def cold_ms(fn, calls: int = 10, warmup: int = 2) -> float:
@@ -5009,7 +5204,8 @@ def main(argv) -> int:
                       "sam_global", "eager_ms", "shapes", "vit_blocks",
                       "cold_ms", "library_cold_ms", "warm_ms",
                       "library_warm_ms", "host_ms", "launch_cold_ms",
-                      "recompute_ms"):
+                      "recompute_ms", "per_op_ms", "per_op_cold_ms",
+                      "cublas_floor_cold_ms", "stages"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

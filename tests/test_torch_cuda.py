@@ -26,7 +26,13 @@ pvt_sra: 2e-2 * max|plain| in bf16 (the kernel rounds q, p and o where the
 plain version does, its sums run in another order) and 1e-5 * max|plain|
 in f32. poolformer_block: 2e-2 * max|plain| in bf16 and 1e-4 * max|plain|
 in f32 (two whole-map GroupNorm reductions and two products, each summed
-in another order). convnext_block: 2e-2 * max|plain| in bf16 (the plain
+in another order). swin_block and poolformer_block are also held at their
+models' stage shapes at batch 128 and chip_smoke.py's edges, on each GEMM
+route (the profile names the body), and repeat bit for bit; the outputs of
+mlp_gemm.cuh's other users (convnext_mlp, convnext_block, ln_dense's
+forward) must keep the digests scripts/perf/torch_gemm_digests.py took of
+them before swin_block and poolformer_block moved onto that GEMM.
+convnext_block: 2e-2 * max|plain| in bf16 (the plain
 version rounds z and h to bf16 at the same places; the sums run in another
 order, so a rounding may land on the other side) and 1e-4 * max|plain| in
 f32 (the 49 taps, the LayerNorm and two products, each summed in another
@@ -485,6 +491,42 @@ def test_convnext_mlp_layer_norm_of_rows_far_from_zero(card, c):
     assert err <= 2e-2 * want.abs().max().item(), err
 
 
+# scripts/perf/torch_gemm_digests.py's digests of convnext_mlp, convnext_block
+# and ln_dense's forward, taken from the tree before swin_block and
+# poolformer_block moved onto mlp_gemm.cuh (on an H100 80GB HBM3; every
+# later run of either tree on that card gave the same).
+MLP_GEMM_DIGESTS = {
+    "convnext_mlp (3137, 128, 512) bfloat16": "86286ab1a0201ae4",
+    "convnext_mlp (1000, 512, 2056) bfloat16": "de4a90b86e21db97",
+    "convnext_mlp (200, 12, 48) bfloat16": "360aa2aa356e599c",
+    "convnext_mlp (300, 128, 512) bfloat16 off16": "9252438423468ce7",
+    "convnext_mlp (600, 96, 384) float32": "ab9aa05427cca83a",
+    "convnext_block (2, 28, 28, 256, 1024) bfloat16": "3587e12ae804e7f2",
+    "convnext_block (2, 14, 14, 128, 512) bfloat16 off16": "4233dd752361a194",
+    "convnext_block (1, 9, 13, 128, 512) float32": "46b927df3639325b",
+    "ln_dense (394, 768, 2304, True) bfloat16": "9836f16f9e558de8",
+    "ln_dense (197, 96, 40, False) bfloat16": "3f0997a581124dfc",
+    "ln_dense (130, 100, 36, True) float32": "4b382a7140f5a698",
+}
+
+
+def test_mlp_gemm_users_keep_their_outputs_bit_for_bit(card):
+    """mlp_gemm.cuh's other users, on each body (wgmma, mma.sync off 16
+    bytes or at C = 12, f32), give the outputs they gave before the body
+    took swin_block's and poolformer_block's prologue and epilogues: the
+    same digests (new template arguments, the old instantiations as they
+    were)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parents[1] / "scripts" / "perf"
+            / "torch_gemm_digests.py")
+    spec = importlib.util.spec_from_file_location("torch_gemm_digests", path)
+    digests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(digests)
+    assert digests.digests(card) == MLP_GEMM_DIGESTS
+
+
 def test_convnext_mlp_repeats(card):
     args = _convnext_inputs(3137, 256, 1024, torch.bfloat16, card, 8)
     assert torch.equal(convnext_mlp(*args, 1e-6), convnext_mlp(*args, 1e-6))
@@ -614,6 +656,87 @@ def test_window_kernels_refuse_what_they_do_not_take(card):
         swin_block(x[:, ::2], params, bias[:, ::2, ::2], nb_heads=3, scale=1.0)
     assert np.isfinite(swin_block(x, params, bias, nb_heads=3,
                                   scale=1.0).cpu().numpy()).all()
+
+
+# swin_block at Swin-T's stage shapes at batch 128, unshifted and shifted,
+# and chip_smoke.py's edges (BW, N, C, H, map side or 0 for no mask): every
+# bf16 one on mlp_gemm.cuh's TMA + wgmma GEMMs, every f32 one on the FMA
+# body.
+SWIN_STAGE_CASES = [(8192, 49, 96, 3, side) for side in (0, 56)] + [
+    (2048, 49, 192, 6, side) for side in (0, 28)] + [
+    (512, 49, 384, 12, side) for side in (0, 14)]
+SWIN_EDGE_CASES = [(32, 144, 128, 4, 24), (64, 49, 64, 4, 14),
+                   (64, 49, 256, 4, 0), (64, 16, 16, 2, 8), (3, 49, 96, 3, 0)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("bw,n,c,h,side", SWIN_STAGE_CASES + SWIN_EDGE_CASES)
+def test_swin_block_at_the_stage_shapes_and_edges(card, bw, n, c, h, side,
+                                                  dtype, tol):
+    x, params, bias, mask = _block_inputs(bw, n, c, h, side, dtype, card,
+                                          seed=bw + c + side)
+    scale = (c // h) ** -0.5
+    got = swin_block(x, params, bias, mask, nb_heads=h, scale=scale)
+    want = swin_block_reference(x, params, bias, mask, nb_heads=h,
+                                scale=scale)
+    assert got.dtype == dtype and got.shape == x.shape
+    _held_by(got, want, tol)
+
+
+def test_swin_block_repeats(card):
+    x, params, bias, mask = _block_inputs(128, 49, 96, 3, 56, torch.bfloat16,
+                                          card, 5)
+    kw = dict(nb_heads=3, scale=32 ** -0.5)
+    assert torch.equal(swin_block(x, params, bias, mask, **kw),
+                       swin_block(x, params, bias, mask, **kw))
+
+
+def _profiled_names(call, need, tries=5):
+    """The device kernels' names of one ``call`` (the last result too),
+    from a profile taken again, up to ``tries`` times, while it lacks a
+    name holding each key of ``need`` (a profile may drop events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        if all(key in names for key in need):
+            break
+    return names, out
+
+
+def test_swin_block_bf16_takes_the_wgmma_gemms_or_raises(card):
+    """bf16: the four products on the TMA + wgmma body (the profile names
+    them), also for x and the weights off 16 bytes (the wrapper copies
+    them); a hidden width off a multiple of 8 raises in bf16 and runs the
+    FMA body in f32."""
+    x, params, bias, _ = _block_inputs(16, 49, 96, 3, 0, torch.bfloat16, card,
+                                       7)
+    odd = params._replace(w_qkv=_offset(params.w_qkv))
+    want = [f"swin_{product}_wgmma_kernel"
+            for product in ("qkv", "proj", "fc1", "fc2")]
+    for xi, p in ((x, params), (_offset(x), odd)):
+        names, got = _profiled_names(
+            lambda: swin_block(xi, p, bias, nb_heads=3, scale=0.2), want)
+        for key in want:
+            assert key in names, key
+        _held_by(got, swin_block_reference(xi, p, bias, nb_heads=3,
+                                           scale=0.2), 2e-2)
+    hid = 100
+    wide = params._replace(w1=params.w1[:hid], b1=params.b1[:hid],
+                           w2=params.w2[:, :hid].contiguous())
+    with pytest.raises(ValueError):
+        swin_block(x, wide, bias, nb_heads=3, scale=0.2)
+    x32 = x.float()
+    wide32 = SwinBlockParams(*(t.float() for t in wide))
+    _held_by(swin_block(x32, wide32, bias, nb_heads=3, scale=0.2),
+             swin_block_reference(x32, wide32, bias, nb_heads=3, scale=0.2),
+             1e-4)
 
 
 def _bwd_inputs(bw, n, c, h, side, dtype, device, seed):
@@ -922,13 +1045,22 @@ def _hopper_launch(name, device):
     if name == "flash_attention_relpos_bwd":
         case = _relpos_bwd_case(2, 9, 7, 64, torch.bfloat16, device, 11)
         return lambda: flash_attention_relpos_bwd(*case, grid_size=(9, 7))
+    if name == "swin_block":
+        x, params, bias, mask = _block_inputs(128, 49, 96, 3, 56,
+                                              torch.bfloat16, device, 11)
+        return lambda: swin_block(x, params, bias, mask, nb_heads=3,
+                                  scale=32 ** -0.5)
+    if name == "poolformer_block":
+        args = _pool_inputs(2, 28, 28, 128, 512, torch.bfloat16, device, 11)
+        return lambda: poolformer_block(*args)
     args = _convnext_inputs(3136, 128, 512, torch.bfloat16, device, seed=11)
     return lambda: convnext_mlp(*args, 1e-6)
 
 
 @pytest.mark.parametrize("name", [
     "fused_mha", "fused_mha_bwd", "flash_attention", "flash_attention_bwd",
-    "flash_attention_relpos", "flash_attention_relpos_bwd", "convnext_mlp"])
+    "flash_attention_relpos", "flash_attention_relpos_bwd", "convnext_mlp",
+    "swin_block", "poolformer_block"])
 def test_hopper_launchers_run_first_on_a_new_thread(card, name):
     """As the talking-head kernels: every launcher that encodes tensor maps
     binds the thread's context first (``hopper.cuh · encode_bf16_map``)."""
@@ -1445,6 +1577,51 @@ def test_poolformer_block_kernel_matches_plain(card, b, h, w, c, hidden,
     want = poolformer_block_reference(*args)
     assert got.dtype == dtype and got.shape == want.shape
     _held_by(got, want, tol)
+
+
+# poolformer_block at PoolFormer-S12's stage shapes at batch 128 and
+# chip_smoke.py's edges (B, H, W, C, hidden): a 4x4 map, C = 60 and C = 6
+# (the mma.sync GEMMs, one channel a pool thread).
+POOL_STAGE_CASES = [(128, 56, 56, 64, 256), (128, 28, 28, 128, 512),
+                    (128, 14, 14, 320, 1280), (128, 7, 7, 512, 2048)]
+POOL_EDGE_CASES = [(128, 4, 4, 64, 256), (16, 7, 7, 60, 240),
+                   (4, 5, 3, 6, 24)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,h,w,c,hidden", POOL_STAGE_CASES + POOL_EDGE_CASES)
+def test_poolformer_block_at_the_stage_shapes_and_edges(card, b, h, w, c,
+                                                        hidden, dtype, tol):
+    args = _pool_inputs(b, h, w, c, hidden, dtype, card, b + h * w + c)
+    got = poolformer_block(*args)
+    want = poolformer_block_reference(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    _held_by(got, want, tol)
+
+
+@pytest.mark.parametrize("c,hidden,moved,wgmma,runs", [
+    (64, 256, None, True, True),      # the TMA + wgmma GEMMs, 8-channel runs
+    (60, 240, None, False, False),    # 120-byte bf16 rows: mma.sync, and a
+                                      # channel a pool thread
+    (64, 256, "w1", False, True),     # w1 off 16 bytes: mma.sync
+    (64, 256, "x", True, False),      # x one element off: a channel a thread
+])
+def test_poolformer_block_takes_each_route(card, c, hidden, moved, wgmma,
+                                           runs):
+    """The GEMM body the route decides and the pool's form, named by the
+    profile, each within the bf16 bar."""
+    args = list(_pool_inputs(2, 14, 14, c, hidden, torch.bfloat16, card, c))
+    if moved is not None:
+        i = {"x": 0, "w1": 6}[moved]
+        args[i] = _offset(args[i])
+    body = "wgmma" if wgmma else "tile"
+    want = [f"pf_fc1_{body}_kernel", f"pf_fc2_{body}_kernel", "pool_x1_kernel"]
+    names, got = _profiled_names(lambda: poolformer_block(*args), want)
+    for key in want:
+        assert key in names, key
+    assert ("pool_x1_kernel<__nv_bfloat16, 8>" in names) is runs
+    _held_by(got, poolformer_block_reference(*args), 2e-2)
 
 
 def test_poolformer_block_repeats(card):

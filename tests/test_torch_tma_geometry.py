@@ -32,12 +32,18 @@ from tfimm_tpu_torch.ops.kernels.fused_mha import (
     _merge_heads,
     _split_qkv,
 )
+from tfimm_tpu_torch.ops.kernels.poolformer_block import (
+    poolformer_gemm_products,
+)
+from tfimm_tpu_torch.ops.kernels.swin_block import swin_gemm_products
 from tfimm_tpu_torch.ops.kernels.tma import (
     CAIT_KEYS,
     ELEM_BYTES,
+    F32_BYTES,
     GEMM_ROWS,
     GEMM_WIDTHS,
     LN_MAX_DEPTH,
+    SWIZZLE_BYTES,
     TILE,
     cait_maps,
     cait_route,
@@ -61,15 +67,16 @@ from tfimm_tpu_torch.ops.kernels.tma import (
 )
 
 
-def _check_rules(m):
-    """cuTensorMapEncodeTiled's rules for a bf16 tiled map with the 128-byte
-    swizzle: rank 1-5, strides multiples of 16 bytes, boxes of at most 256
-    elements, an inner box of 16-128 bytes."""
+def _check_rules(m, elem_bytes=ELEM_BYTES):
+    """cuTensorMapEncodeTiled's rules for a tiled map of ``elem_bytes``
+    elements (bf16 or f32) with the 128-byte swizzle: rank 1-5, strides
+    multiples of 16 bytes, boxes of at most 256 elements, an inner box of
+    16-128 bytes."""
     assert 1 <= len(m.dims) <= 5
     assert len(m.strides) == len(m.dims) - 1 and len(m.box) == len(m.dims)
     assert all(s % 16 == 0 and 0 < s < 2 ** 40 for s in m.strides)
     assert all(0 < b <= 256 for b in m.box)
-    assert m.box[0] * ELEM_BYTES % 16 == 0 and m.box[0] * ELEM_BYTES <= 128
+    assert m.box[0] * elem_bytes % 16 == 0 and m.box[0] * elem_bytes <= 128
 
 
 def _ranges(m, coords):
@@ -80,19 +87,19 @@ def _ranges(m, coords):
     return lo, hi
 
 
-def _elem_strides(m):
-    return [1] + [s // ELEM_BYTES for s in m.strides]
+def _elem_strides(m, elem_bytes=ELEM_BYTES):
+    return [1] + [s // elem_bytes for s in m.strides]
 
 
-def tma_load(flat, m, coords):
-    """The box at ``coords`` (innermost first) of the map ``m`` over the
-    elements ``flat`` from the map's base, outermost dim first; elements out
-    of bounds are zeros."""
+def tma_load(flat, m, coords, elem_bytes=ELEM_BYTES):
+    """The box at ``coords`` (innermost first) of the map ``m`` of
+    ``elem_bytes`` elements over the elements ``flat`` from the map's base,
+    outermost dim first; elements out of bounds are zeros."""
     box = torch.zeros(m.box[::-1], dtype=flat.dtype)
     lo, hi = _ranges(m, coords)
     if any(h <= l for l, h in zip(lo, hi)):
         return box
-    strides = _elem_strides(m)
+    strides = _elem_strides(m, elem_bytes)
     view = torch.as_strided(flat, [h - l for l, h in zip(lo, hi)][::-1],
                             strides[::-1],
                             flat.storage_offset()
@@ -102,13 +109,13 @@ def tma_load(flat, m, coords):
     return box
 
 
-def tma_store(flat, m, coords, box):
-    """Write ``box`` at ``coords`` through the map ``m`` into ``flat``,
-    leaving out the elements out of bounds."""
+def tma_store(flat, m, coords, box, elem_bytes=ELEM_BYTES):
+    """Write ``box`` at ``coords`` through the map ``m`` (of ``elem_bytes``
+    elements) into ``flat``, leaving out the elements out of bounds."""
     lo, hi = _ranges(m, coords)
     if any(h <= l for l, h in zip(lo, hi)):
         return
-    strides = _elem_strides(m)
+    strides = _elem_strides(m, elem_bytes)
     view = torch.as_strided(flat, [h - l for l, h in zip(lo, hi)][::-1],
                             strides[::-1],
                             flat.storage_offset()
@@ -611,6 +618,92 @@ def test_gemm_maps_keep_the_hardware_rules(m, n, k, width):
     assert [g.dims for g in maps] == [(k, m), (k, n), (n, m), (n, m)]
 
 
+# swin_block's and poolformer_block's products at Swin-T's and
+# PoolFormer-S12's stage widths (C, hidden = 4 C), M cut to three row
+# blocks and a ragged tail (M = 343 rows, 7 windows of 49; 392 = 8 x 7 x 7
+# pixels).
+_BLOCK_PRODUCTS = (
+    [(f"swin C={c}", i, p) for c in (96, 192, 384)
+     for i, p in enumerate(swin_gemm_products(343, c, 4 * c, 132))]
+    + [(f"poolformer C={c}", i, p) for c in (64, 128, 320, 512)
+       for i, p in enumerate(poolformer_gemm_products(392, c, 4 * c, 132))])
+
+
+@pytest.mark.parametrize("what,index,product", [
+    pytest.param(*case, id=f"{case[0]}-{case[1]}") for case in _BLOCK_PRODUCTS])
+def test_f32_gemm_boxes_give_every_tile(what, index, product):
+    """The maps of swin_block's and poolformer_block's products (an f32 A
+    under the norm prologue, an f32 shortcut, Swin's f32 X2 output; Swin's
+    qkv all bf16) at
+    the width ``gemm_width`` picks: each keeps the hardware rules with
+    128-byte rows (32 f32 or 64 bf16 columns); per output tile and k step
+    the A boxes (two of 32 columns for an f32 A) and the B box hold the
+    tile's rows and k columns with zeros past M, N and K, and their product
+    summed over the k steps is the tile of a @ b^T; per consumer warpgroup
+    the shortcut boxes (32 or 64 columns at n0 + c cols, m0 + 64 wg) hold
+    its rows; the output boxes, stored as the kernel stores them, write
+    every element of (M, N) once and nothing beyond."""
+    m, n, k = product.m, product.n, product.k
+    width = gemm_width(m, n, k, product.ln, product.residual, product.sms,
+                       product.a_bytes, product.w192)
+    maps = gemm_maps(m, n, k, width, product.a_bytes, product.out_bytes,
+                     product.sc_bytes)
+    sizes = (product.a_bytes, ELEM_BYTES, product.out_bytes, product.sc_bytes)
+    for geometry, size, rows in zip(maps, sizes,
+                                    (GEMM_ROWS, width, TILE, TILE)):
+        _check_rules(geometry, size)
+        assert geometry.box == (SWIZZLE_BYTES // size, rows)
+    a_map, b_map, out_map, sc_map = maps
+    gen = torch.Generator().manual_seed(m + n + k)
+    a, b = torch.randn(m, k, generator=gen), torch.randn(n, k, generator=gen)
+    sc = torch.randn(m, n, generator=gen)
+    a_cols = SWIZZLE_BYTES // product.a_bytes
+    sc_cols = SWIZZLE_BYTES // product.sc_bytes
+    out_cols = SWIZZLE_BYTES // product.out_bytes
+    want = a @ b.t()
+    storage = torch.full((m * n + 4096,), -1.0)
+    count = torch.zeros(m * n + 4096)
+    for m0, n0 in _gemm_tiles(m, n, width):
+        acc = torch.zeros(GEMM_ROWS, width)
+        for kt in range(-(-k // TILE)):
+            a_box = torch.cat([tma_load(a.reshape(-1), a_map,
+                                        (TILE * kt + a_cols * i, m0),
+                                        product.a_bytes)
+                               for i in range(TILE // a_cols)], dim=1)
+            b_box = tma_load(b.reshape(-1), b_map, (TILE * kt, n0))
+            assert torch.equal(
+                a_box, _padded(a[m0:m0 + GEMM_ROWS, TILE * kt:TILE * (kt + 1)],
+                               GEMM_ROWS, TILE))
+            acc += a_box @ b_box.t()
+        rows, cols = min(GEMM_ROWS, m - m0), min(width, n - n0)
+        assert torch.allclose(acc[:rows, :cols],
+                              want[m0:m0 + rows, n0:n0 + cols], atol=1e-4)
+        assert bool((acc[rows:] == 0).all()) and bool((acc[:, cols:] == 0).all())
+        for wg in range(2):
+            r0 = m0 + TILE * wg
+            if product.residual:
+                for c in range(min(width // sc_cols, -(-(n - n0) // sc_cols))):
+                    c0 = n0 + sc_cols * c
+                    box = tma_load(sc.reshape(-1), sc_map, (c0, r0),
+                                   product.sc_bytes)
+                    assert torch.equal(box, _padded(
+                        sc[r0:r0 + TILE, c0:c0 + sc_cols], TILE, sc_cols))
+            if r0 >= m:
+                continue
+            for c in range(min(width // out_cols, -(-(n - n0) // out_cols))):
+                coords = (n0 + out_cols * c, r0)
+                r = torch.arange(TILE * out_cols, dtype=torch.float32)
+                rr, cc = coords[1] + r // out_cols, coords[0] + r % out_cols
+                tma_store(storage, out_map, coords,
+                          (rr * n + cc).reshape(TILE, out_cols),
+                          product.out_bytes)
+                tma_store(count, out_map, coords,
+                          tma_load(count, out_map, coords, product.out_bytes)
+                          + 1, product.out_bytes)
+    assert torch.equal(storage[:m * n], torch.arange(m * n, dtype=torch.float32))
+    assert bool((count[:m * n] == 1).all()) and bool((count[m * n:] == 0).all())
+
+
 def test_packed_gemm_maps_are_the_maps_in_order():
     """Four geometries a product, at its width, then its grid's blocks,
     cached per shape; the C launcher reads the width as the b map's box
@@ -652,8 +745,14 @@ def test_gemm_grid_is_a_block_an_sm_at_most(m, n, width, sms, blocks):
 
 # On 132 SMs: (M, N, K, ln, residual, width): ConvNeXt-B's products
 # (convnext_mlp's fc1 with the LN prologue, convnext_block's without),
-# ViT-B/16's ln_dense and the edges.
-@pytest.mark.parametrize("m,n,k,ln,residual,width", [
+# ViT-B/16's ln_dense and the edges, on kernels of 128 and 256 columns;
+# then, on kernels with 192 too (GemmProduct.w192), swin_block's four
+# products (qkv, proj, fc1 on the f32 X2, fc2) at Swin-T's stages 1-3
+# bs128, as scripts/perf/torch_gemm_widths.py measured them on the H100
+# (PERF.md §6): 192 for qkv and fc1 where its rounds cost least, and
+# for proj and fc2 where it pads N less; fc1's f32 A never at 128 above N
+# = 128. The seventh value of a 192 case is the element bytes of A.
+_WIDTH_CASES = [
     (401408, 512, 128, True, False, 256),     # stage 0 fc1: equal rounds
     (401408, 512, 128, False, False, 256),    # the block's
     (401408, 128, 512, False, True, 128),     # fc2
@@ -664,9 +763,70 @@ def test_gemm_grid_is_a_block_an_sm_at_most(m, n, width, sms, blocks):
     (12608, 2304, 768, True, False, 256),     # ViT-B/16 LN1 -> qkv
     (12608, 3072, 3072, True, False, 128),    # the affine too deep for 256
     (200, 48, 24, True, False, 128),
+]
+_NARROW_WIDTH_CASES = [
+    (401408, 288, 96, True, False, 192, 2),      # stage 1 qkv
+    (401408, 96, 96, False, True, 128, 2),       # proj: N fits 128
+    (401408, 384, 96, True, False, 192, 4),      # fc1
+    (401408, 96, 384, False, True, 128, 2),      # fc2
+    (100352, 576, 192, True, False, 192, 2),     # stage 2
+    (100352, 192, 192, False, True, 192, 2),     # one 192 tile, not two of 128
+    (100352, 768, 192, True, False, 256, 4),     # equal rounds: the wider
+    (100352, 192, 768, False, True, 192, 2),
+    (25088, 1152, 384, True, False, 192, 2),     # stage 3: 9 rounds or 8 of 256
+    (25088, 384, 384, False, True, 128, 2),      # 3 tiles of 128 or 2 of 192
+    (25088, 1536, 384, True, False, 256, 4),
+    (25088, 384, 1536, False, True, 128, 2),
+    (25088, 1536, 3072, True, False, 128, 4),    # the affine too deep for 192
+]
+
+
+@pytest.mark.parametrize("m,n,k,ln,residual,a_bytes,w192,width", [
+    pytest.param(*case[:5], ELEM_BYTES, False, case[5],
+                 id="-".join(map(str, case))) for case in _WIDTH_CASES] + [
+    pytest.param(*case[:5], case[6], True, case[5],
+                 id="-".join(map(str, case[:6])) + "-narrow")
+    for case in _NARROW_WIDTH_CASES])
+def test_gemm_width_picks_the_faster_tiles(m, n, k, ln, residual, a_bytes,
+                                           w192, width):
+    assert gemm_width(m, n, k, ln, residual, 132, a_bytes, w192) == width
+    if not w192:
+        assert gemm_width(m, n, k, ln, residual, 132) == width
+
+
+@pytest.mark.parametrize("block,m,c,widths", [
+    ("swin", 401408, 96, [192, 128, 192, 128]),
+    ("swin", 100352, 192, [192, 192, 256, 192]),
+    ("swin", 25088, 384, [192, 128, 256, 128]),
+    ("poolformer", 401408, 64, [256, 128]),
+    ("poolformer", 100352, 128, [256, 128]),
+    ("poolformer", 25088, 320, [256, 128]),
+    ("poolformer", 6272, 512, [256, 128]),
 ])
-def test_gemm_width_picks_the_faster_tiles(m, n, k, ln, residual, width):
-    assert gemm_width(m, n, k, ln, residual, 132) == width
+def test_block_products_take_the_measured_widths(block, m, c, widths):
+    """swin_block's (qkv, proj, fc1, fc2) and poolformer_block's (fc1, fc2)
+    tile widths at Swin-T's and PoolFormer-S12's stages at batch 128 on 132
+    SMs: the fastest of scripts/perf/torch_gemm_widths.py's sweep on the
+    H100 (PERF.md §6), fc1's f32 A never at 128 columns above N =
+    128; each width one its kernel has."""
+    products = (swin_gemm_products if block == "swin"
+                else poolformer_gemm_products)(m, c, 4 * c, 132)
+    assert [gemm_width(*p[:6], p.a_bytes, p.w192) for p in products] == widths
+    assert all(p.w192 is (block == "swin") for p in products)
+
+
+@pytest.mark.parametrize("a_bytes,n,k,width", [
+    (ELEM_BYTES, 1280, 320, 128),   # bf16 A: the fewest rounds
+    (F32_BYTES, 1280, 320, 256),    # f32 A: never 128 above N = 128
+    (F32_BYTES, 128, 320, 128),     # N fits 128 columns
+    (F32_BYTES, 1280, 3072, 128),   # the affine too deep for 256
+])
+def test_gemm_width_keeps_an_f32_a_off_128_columns(a_bytes, n, k, width):
+    """The norm prologue on an f32 A (PoolFormer's fc1 on x1, Swin's on
+    X2) reads A again for each column tile: above N = 128 its product
+    takes wider tiles even where 128-column ones would take fewer rounds,
+    unless the affine does not fit beside them."""
+    assert gemm_width(25088, n, k, True, False, 132, a_bytes) == width
 
 
 def _matrix(rows, cols, dtype=torch.bfloat16, offset=0):
@@ -674,7 +834,7 @@ def _matrix(rows, cols, dtype=torch.bfloat16, offset=0):
     return flat[offset:].view(rows, cols)
 
 
-@pytest.mark.parametrize("c,hidden,offset,dtype,route", [
+_ROUTE_CASES = [
     (128, 512, 0, torch.bfloat16, True),     # ConvNeXt-B stage 0
     (1024, 4096, 0, torch.bfloat16, True),   # stage 3
     (2048, 8192, 0, torch.bfloat16, True),   # convnext_xlarge's widest
@@ -686,16 +846,47 @@ def _matrix(rows, cols, dtype=torch.bfloat16, offset=0):
     (128, 512, 1, torch.bfloat16, False),    # a base off 16 bytes
     (128, 512, 8, torch.bfloat16, True),     # a base 16 bytes on
     (128, 512, 0, torch.float32, False),     # f32: the FMA body
-])
-def test_gemm_route(c, hidden, offset, dtype, route):
+]
+# x and the shortcut in f32 (PoolFormer's x1, Swin's X2), the rest bf16.
+_F32_ROUTE_CASES = [
+    (64, 256, 0, torch.bfloat16, True),      # PoolFormer-S12 stage 1
+    (96, 384, 0, torch.bfloat16, True),      # Swin-T stage 1
+    (512, 2048, 0, torch.bfloat16, True),    # PoolFormer-S12 stage 4
+    (60, 240, 0, torch.bfloat16, False),     # 240-byte f32, 120-byte bf16 rows
+    (6, 24, 0, torch.bfloat16, False),       # 24-byte f32 rows
+    (128, 512, 1, torch.bfloat16, False),    # the f32 base off 16 bytes
+    (128, 512, 4, torch.bfloat16, True),     # the f32 base 16 bytes on
+    (128, 512, 0, torch.float32, False),     # f32 weights: the FMA body
+]
+
+
+@pytest.mark.parametrize("c,hidden,offset,dtype,route,f32", [
+    pytest.param(*case, False, id=f"{case[0]}-{case[1]}-{case[2]}-dtype{i}-"
+                 f"{case[4]}") for i, case in enumerate(_ROUTE_CASES)] + [
+    pytest.param(*case, True, id=f"{case[0]}-{case[1]}-{case[2]}-f32-"
+                 f"{case[3]}-{case[4]}".replace("torch.", ""))
+    for case in _F32_ROUTE_CASES])
+def test_gemm_route(c, hidden, offset, dtype, route, f32):
     """Which shapes take the TMA + wgmma body and which keep mma.sync: the
     convnext_mlp operands (x, shortcut, w1, w2, h, out) of M = 64 rows with
-    x at ``offset`` elements into its storage."""
-    x = _matrix(64, c, dtype, offset)
-    others = [_matrix(64, c, dtype), _matrix(hidden, c, dtype),
-              _matrix(c, hidden, dtype), _matrix(64, hidden, dtype),
-              _matrix(64, c, dtype)]
-    assert gemm_route(x, *others, ln_depth=c) is route
+    x at ``offset`` elements into its storage; with ``f32``, x and the
+    shortcut f32 (poolformer_block's and swin_block's f32 A and shortcut),
+    passed as ``f32``."""
+    if not f32:
+        x = _matrix(64, c, dtype, offset)
+        others = [_matrix(64, c, dtype), _matrix(hidden, c, dtype),
+                  _matrix(c, hidden, dtype), _matrix(64, hidden, dtype),
+                  _matrix(64, c, dtype)]
+        assert gemm_route(x, *others, ln_depth=c) is route
+        return
+    x, sc = _matrix(64, c, torch.float32, offset), _matrix(64, c, torch.float32)
+    others = [_matrix(hidden, c, dtype), _matrix(c, hidden, dtype),
+              _matrix(64, hidden, dtype), _matrix(64, c, dtype)]
+    assert gemm_route(*others, ln_depth=c, f32=(x, sc)) is route
+    # f32 operands in the bf16 list, or bf16 ones in the f32 list, are
+    # refused.
+    assert not gemm_route(x, *others, ln_depth=c)
+    assert not gemm_route(*others[1:], ln_depth=c, f32=(x, sc, others[0]))
 
 
 def test_gemm_route_limits():

@@ -6,7 +6,8 @@
 // - Tensor maps: `encode_bf16_map` encodes a bf16 TMA map from a geometry
 //   computed in Python (tfimm_tpu_torch/ops/kernels/tma.py) with the
 //   128-byte swizzle and zero fill out of bounds, on any thread (it binds
-//   the thread's CUDA context first). It reaches the driver's
+//   the thread's CUDA context first); `encode_map` also an f32 one (the
+//   GEMM's f32 operands, mlp_gemm.cuh). It reaches the driver's
 //   cuTensorMapEncodeTiled through cudaGetDriverEntryPointByVersion, so the
 //   library does not link libcuda. A kernel takes the map by value as a
 //   `const __grid_constant__ CUtensorMap`.
@@ -84,9 +85,11 @@ inline int bind_current_context() {
   return (int)err;
 }
 
-// 0 on success, else a cudaError_t value.
-inline int encode_bf16_map(CUtensorMap* map, const void* base,
-                           const int64_t* geometry) {
+// 0 on success, else a cudaError_t value. `f32`: the elements are f32
+// (the geometry's byte strides and 128-byte inner box then count 4-byte
+// elements), else bf16.
+inline int encode_map(CUtensorMap* map, const void* base,
+                      const int64_t* geometry, bool f32) {
   if (const int err = bind_current_context()) return err;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled_fn();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -101,11 +104,18 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base,
   }
   for (int i = 0; i + 1 < rank; ++i) strides[i] = (cuuint64_t)geometry[6 + i];
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      (cuuint32_t)rank,
       const_cast<void*>(base), dims, strides, box, element_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base,
+                           const int64_t* geometry) {
+  return encode_map(map, base, geometry, false);
 }
 
 // ---------------------------------------------------------------------------
@@ -403,8 +413,9 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(TRANS_B));
 }
 
-// The wider shapes, m64n128k16 and m64n256k16, with the same operands and
-// the same accumulator layout (64 and 128 registers a thread: column blocks
+// The wider shapes, m64n128k16, m64n192k16 and m64n256k16, with the same
+// operands and the same accumulator layout (64, 96 and 128 registers a
+// thread: column blocks
 // j = 0 .. N / 8 - 1). The B descriptor covers N rows of the K-major tile
 // (N / 8 groups of 8 rows, 1024 bytes apart).
 
@@ -461,6 +472,76 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96],
+    uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, %99;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
+    const uint32_t* a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
@@ -551,11 +632,16 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
 }
 
 
-// d (+)= A B for one k16 step at the width of d (128 or 256 columns).
+// d (+)= A B for one k16 step at the width of d (128, 192 or 256 columns).
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
   wgmma_m64n128k16_ss<TRANS_B>(d, a, b, accumulate);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_m64n192k16_ss<TRANS_B>(d, a, b, accumulate);
 }
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a,
@@ -566,6 +652,11 @@ template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
                                          uint64_t b, int accumulate) {
   wgmma_m64n128k16_rs<TRANS_B>(d, a, b, accumulate);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t* a,
+                                         uint64_t b, int accumulate) {
+  wgmma_m64n192k16_rs<TRANS_B>(d, a, b, accumulate);
 }
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
@@ -607,6 +698,13 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t sw128_offset(int row, int j2) {
   return (uint32_t)(row * 128 + ((((j2 >> 2) ^ (row & 7))) << 4) +
                     ((j2 & 3) << 2));
+}
+
+// Byte offset of the 8 bytes at (row, columns c, c + 1; c even, < 32) of a
+// 128-byte-swizzled 64 x 32 f32 tile: chunk c / 4 of the row, swizzled.
+__device__ __forceinline__ uint32_t sw128_offset_f32(int row, int c) {
+  return (uint32_t)(row * 128 + (((c >> 2) ^ (row & 7)) << 4) +
+                    ((c & 3) << 2));
 }
 
 }  // namespace hopper

@@ -133,6 +133,7 @@ def _declare(lib):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # BW, N, C
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, hidden, nb_windows
         ctypes.c_float, ctypes.c_float, ctypes.c_int,  # eps, scale, dtype code
+        geometry,  # bf16: qkv's, proj's, fc1's and fc2's tensor maps; f32: NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_swin_block.restype = ctypes.c_int
@@ -223,6 +224,7 @@ def _declare(lib):
         ctypes.c_void_p,  # out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, C
         ctypes.c_int, ctypes.c_float, ctypes.c_int,  # hidden, eps, dtype code
+        geometry,  # bf16 TMA route: fc1's and fc2's tensor maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_poolformer_block.restype = ctypes.c_int

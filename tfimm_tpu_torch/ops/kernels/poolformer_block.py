@@ -24,9 +24,13 @@ On a CUDA tensor ``poolformer_block`` launches the hand-written kernels of
 ``tfimm_tpu_torch/csrc/poolformer_block.cu`` (see the note at its top for
 the design and what bounds it), counted as one launch, and raises on what
 they do not take; on CPU tensors it runs ``poolformer_block_reference``.
-The kernels take bf16 and f32 and any B, H, W, C and hidden width. They
-have no backward, as the Pallas kernel has none: on a CUDA tensor that
-autograd would need a gradient for, the wrapper raises.
+The kernels take bf16 and f32 and any B, H, W, C and hidden width. In bf16
+the two products run ``csrc/mlp_gemm.cuh``'s TMA + wgmma body where
+``tma.gemm_route`` takes x1, w1, w2, h and the output (C and hidden
+multiples of 8, 16-byte aligned: every registered PoolFormer), with the
+GELU as s / (1 + e^(-2u)), else the mma.sync body. They have no backward,
+as the Pallas kernel has none: on a CUDA tensor that autograd would need a
+gradient for, the wrapper raises.
 """
 
 from __future__ import annotations
@@ -35,9 +39,17 @@ import torch
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
+from tfimm_tpu_torch.ops.kernels.tma import (
+    F32_BYTES,
+    GemmProduct,
+    gemm_route,
+    packed_gemm_maps,
+    sm_count,
+)
 from tfimm_tpu_torch.ops.pool import avg_pool_2d_exclude_pad
 
-__all__ = ["poolformer_block", "poolformer_block_reference"]
+__all__ = ["poolformer_block", "poolformer_block_reference",
+           "poolformer_gemm_products"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,6 +75,14 @@ def poolformer_block_reference(x, n1_weight, n1_bias, ls1, n2_weight,
     h = F.gelu(h, approximate="tanh").to(dt)
     o = torch.matmul(h.to(acc), w2.to(dt).to(acc).t()) + b2.to(acc)
     return (x1 + o * ls2.to(acc)).to(dt)
+
+
+def poolformer_gemm_products(m: int, c: int, hidden: int, sms: int):
+    """The bf16 block's two products on ``sms`` SMs, as
+    ``tma.packed_gemm_maps`` takes them: fc1 (the GN2 prologue on the f32
+    x1) and fc2 (x1 the f32 shortcut)."""
+    return (GemmProduct(m, hidden, c, True, False, sms, a_bytes=F32_BYTES),
+            GemmProduct(m, c, hidden, False, True, sms, sc_bytes=F32_BYTES))
 
 
 def _check_kernel_inputs(x, vectors, w1, w2):
@@ -123,8 +143,17 @@ def poolformer_block(x, n1_weight, n1_bias, ls1, n2_weight, n2_bias, w1, b1,
     dev = x.device
     x1 = torch.empty(x.shape, dtype=torch.float32, device=dev)
     hid = torch.empty((b * h * w, hidden), dtype=dt, device=dev)
-    stats = torch.empty((4, b), dtype=torch.float32, device=dev)
+    # The norms' mean and rstd, then the pool launch's partial sums of x1
+    # (a block of 256 threads takes at least one channel a thread).
+    stats = torch.empty((4 + -(-h * w * c // 256), b), dtype=torch.float32,
+                        device=dev)
+    m = b * h * w
+    maps = None
+    if gemm_route(w1, w2, hid, out.view(m, c), ln_depth=c,
+                  f32=(x1.view(m, c),)):
+        maps = packed_gemm_maps(*poolformer_gemm_products(
+            m, c, hidden, sm_count(dev.index)))
     launch("poolformer_block", kernel_library().tfimm_poolformer_block, x,
            *vecs, w1, w2, x1, hid, stats, out, b, h, w, c, hidden, float(eps),
-           _DTYPE_CODES[dt])
+           _DTYPE_CODES[dt], maps)
     return out

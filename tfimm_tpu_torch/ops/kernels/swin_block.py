@@ -18,8 +18,13 @@ w_qkv (3C, C), w_proj (C, C), w1 (hidden, C), w2 (C, hidden).
 On a CUDA tensor ``swin_block`` launches the hand-written kernel of
 ``tfimm_tpu_torch/csrc/swin_block.cu`` (see the note at its top for the
 design and what bounds it) and raises on what it does not take; on CPU
-tensors it runs ``swin_block_reference``. It has no backward: Swin calls it
-only where autograd is not recording.
+tensors it runs ``swin_block_reference``. In bf16 its four products run
+``csrc/mlp_gemm.cuh``'s TMA + wgmma body: the wrapper hands the kernel
+contiguous 16-byte aligned operands and their tensor maps, and raises where
+``tma.gemm_route`` declines them (a hidden width off a multiple of 8). On
+that body fc1's tanh GELU is s / (1 + e^(-2u)) after the rounding. In f32
+they run the FMA body. It has no backward: Swin calls it only where
+autograd is not recording.
 """
 
 from __future__ import annotations
@@ -30,6 +35,13 @@ import torch
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
+from tfimm_tpu_torch.ops.kernels.tma import (
+    F32_BYTES,
+    GemmProduct,
+    gemm_route,
+    packed_gemm_maps,
+    sm_count,
+)
 from tfimm_tpu_torch.ops.kernels.window_mha import (
     DTYPE_CODES,
     MAX_HEAD_DIM,
@@ -38,7 +50,8 @@ from tfimm_tpu_torch.ops.kernels.window_mha import (
     window_mha_supports,
 )
 
-__all__ = ["SwinBlockParams", "swin_block", "swin_block_reference"]
+__all__ = ["SwinBlockParams", "swin_block", "swin_block_reference",
+           "swin_gemm_products"]
 
 
 class SwinBlockParams(NamedTuple):
@@ -128,6 +141,27 @@ def _check_kernel_inputs(x, params, bias, mask, nb_heads):
                          f"dividing BW={bw}; got {tuple(mask.shape)}")
 
 
+def swin_gemm_products(m: int, c: int, hidden: int, sms: int):
+    """The bf16 block's four products on ``sms`` SMs, in launch order, as
+    ``tma.packed_gemm_maps`` takes them: qkv (LN1 prologue on x), proj (x
+    the bf16 shortcut, X2 the f32 output), fc1 (LN2 prologue on the f32
+    X2) and fc2 (X2 the f32 shortcut); their kernels have 192-column
+    tiles."""
+    f32 = F32_BYTES
+    return (GemmProduct(m, 3 * c, c, True, False, sms, w192=True),
+            GemmProduct(m, c, c, False, True, sms, out_bytes=f32, w192=True),
+            GemmProduct(m, hidden, c, True, False, sms, a_bytes=f32,
+                        w192=True),
+            GemmProduct(m, c, hidden, False, True, sms, sc_bytes=f32,
+                        w192=True))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned base (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def swin_block(x, params: SwinBlockParams, bias,
                mask: Optional[torch.Tensor] = None, *, nb_heads: int,
                scale: float, eps: float = 1e-5) -> torch.Tensor:
@@ -149,7 +183,7 @@ def swin_block(x, params: SwinBlockParams, bias,
     m, hidden = bw * n, params.w1.shape[0]
     # The kernel reads the matrices in the dtype and the vectors in f32; for
     # a model cast to the dtype the matrices pass through unchanged.
-    p = [t.float().contiguous() if t.dim() == 1 else t.to(dt).contiguous()
+    p = [t.float().contiguous() if t.dim() == 1 else _aligned(t.to(dt))
          for t in params]
     bias = bias.float().contiguous()
     nb_win = 1
@@ -162,7 +196,20 @@ def swin_block(x, params: SwinBlockParams, bias,
                "hid": torch.empty((m, hidden), dtype=dt, device=dev),
                "mean": torch.empty((m,), dtype=torch.float32, device=dev),
                "rstd": torch.empty((m,), dtype=torch.float32, device=dev)}
+    maps = None
+    if dt == torch.bfloat16:
+        x = _aligned(x)
+        mats = SwinBlockParams(*p)
+        if not gemm_route(x.view(m, c), mats.w_qkv, mats.w_proj, mats.w1,
+                          mats.w2,
+                          scratch["qkv"], scratch["attn"], scratch["hid"],
+                          out.view(m, c), ln_depth=c, f32=(scratch["x2"],)):
+            raise ValueError(f"swin_block: bf16 runs the TMA + wgmma GEMMs, "
+                             f"which need C and hidden multiples of 8 and C "
+                             f"at most 4096; got C={c}, hidden={hidden}")
+        maps = packed_gemm_maps(*swin_gemm_products(m, c, hidden,
+                                                    sm_count(dev.index)))
     launch("swin_block", kernel_library().tfimm_swin_block, x, *p[:4], bias,
            mask, *p[4:], *scratch.values(), out, bw, n, c, nb_heads, hidden,
-           nb_win, float(eps), float(scale), DTYPE_CODES[dt])
+           nb_win, float(eps), float(scale), DTYPE_CODES[dt], maps)
     return out

@@ -9,14 +9,17 @@ written. The kernels encode each map from the 15 int64 values of
 ``TensorMapGeometry.pack`` (``csrc/hopper.cuh · encode_bf16_map``), bf16
 with the 128-byte swizzle, and compute each box's coordinates themselves.
 
-Every box here is 64 columns wide (128 bytes of bf16, one swizzle row).
-The attention maps' boxes are 64 rows deep, so one layout serves every
-head dim d up to 128: one column chunk below d = 64, two above, zeros past
-d. The GEMM maps (``matrix_map``, ``gemm_maps``: ``csrc/mlp_gemm.cuh``'s
-TMA + wgmma body, under ``convnext_mlp``, ``convnext_block`` and
-``ln_dense``'s forward) read a row-major (rows, cols) matrix as (cols,
-rows) in boxes of 64 columns and 64, 128 or 256 rows; zeros past the rows
-and columns stand in for the masked loads at the M, N and K tails.
+Every box here is 128 bytes wide, one swizzle row: 64 bf16 columns, or 32
+of f32. The attention maps' boxes are 64 rows deep, so one layout serves
+every head dim d up to 128: one column chunk below d = 64, two above, zeros
+past d. The GEMM maps (``matrix_map``, ``gemm_maps``: ``csrc/mlp_gemm.cuh``'s
+TMA + wgmma body, under ``convnext_mlp``, ``convnext_block``, ``ln_dense``'s
+forward, ``swin_block`` and ``poolformer_block``) read a row-major (rows,
+cols) matrix as (cols, rows) in boxes of 64 bf16 or 32 f32 columns and 64,
+128, 192 or 256 rows; zeros past the rows and columns stand in for the
+masked loads at the M, N and K tails. An f32 map (the f32 A of the norm
+prologue, an f32 shortcut or output) is encoded as f32 by the launcher,
+which knows its operands' types (``csrc/hopper.cuh · encode_map``).
 """
 
 from __future__ import annotations
@@ -24,22 +27,26 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["TILE", "ELEM_BYTES", "TensorMapGeometry", "geometry_array",
+__all__ = ["TILE", "ELEM_BYTES", "F32_BYTES", "SWIZZLE_BYTES",
+           "TensorMapGeometry", "geometry_array",
            "fused_mha_maps", "rows_map", "heads_map", "padded_rows",
            "packed_fused_mha_maps", "packed_rows_maps", "packed_heads_maps",
            "packed_operand_maps", "GEMM_ROWS", "GEMM_WIDTHS", "LN_MAX_DEPTH",
-           "LN_MAX_DEPTH_WIDE", "matrix_map", "gemm_width", "gemm_maps",
-           "gemm_grid", "packed_gemm_maps", "gemm_route", "sm_count",
+           "LN_MAX_DEPTH_WIDE", "GemmProduct", "matrix_map", "gemm_width",
+           "gemm_maps", "gemm_grid", "packed_gemm_maps", "gemm_route",
+           "sm_count",
            "CAIT_KEYS", "CAIT_MAX_HEADS", "CAIT_MAX_HEAD_DIM", "cait_route",
            "cait_maps", "cait_scratch_cols", "cait_scratch_map",
            "packed_cait_maps"]
 
 TILE = 64
-ELEM_BYTES = 2     # bf16, the only dtype the maps serve
+ELEM_BYTES = 2       # bf16: the attention maps and the GEMM's bf16 operands
+F32_BYTES = 4        # the GEMM's f32 operands
+SWIZZLE_BYTES = 128  # a box's inner extent: one 128-byte swizzle row
 _SLOTS = 5
 
 
@@ -151,49 +158,87 @@ def packed_heads_maps(shape: Tuple[int, int, int, int],
 
 
 # The GEMM body (csrc/mlp_gemm.cuh · gemm_bf16_wgmma): output tiles of
-# GEMM_ROWS rows (two consumer warpgroups of 64) and 128 or 256 columns;
-# the LN prologue keeps the affine of every k column in shared memory, up
+# GEMM_ROWS rows (two consumer warpgroups of 64) and GEMM_WIDTHS columns,
+# 192 only in the kernels declared with it (CNX_WGMMA_KERNEL_192: Swin's);
+# the norm prologue keeps the affine of every k column in shared memory, up
 # to LN_MAX_DEPTH columns beside 128-column tiles and LN_MAX_DEPTH_WIDE
-# beside 256-column ones (kLnMaxDepth, kLnMaxDepthWide there).
+# beside wider ones (kLnMaxDepth, kLnMaxDepthWide there).
 GEMM_ROWS = 128
-GEMM_WIDTHS = (128, 256)
+GEMM_WIDTHS = (128, 192, 256)
 LN_MAX_DEPTH = 4096
 LN_MAX_DEPTH_WIDE = 2048
 
 
-def matrix_map(rows: int, cols: int, box_rows: int) -> TensorMapGeometry:
-    """A contiguous row-major (rows, cols) bf16 matrix as (cols, rows): a
-    (64, box_rows) box at (64 c, r) is columns 64 c... of rows r..., zeros
-    past either edge."""
-    return TensorMapGeometry(dims=(cols, rows), strides=(ELEM_BYTES * cols,),
-                             box=(TILE, box_rows))
+class GemmProduct(NamedTuple):
+    """One product out = epi(a @ b^T) of the GEMM body: a (M, K), b (N, K);
+    whether the norm prologue reads a, whether a residual epilogue reads a
+    shortcut; the SM count; the element bytes of a, the output and the
+    shortcut (ELEM_BYTES for bf16, F32_BYTES for f32; b is bf16); whether
+    its kernel has 192-column tiles."""
+
+    m: int
+    n: int
+    k: int
+    ln: bool
+    residual: bool
+    sms: int
+    a_bytes: int = ELEM_BYTES
+    out_bytes: int = ELEM_BYTES
+    sc_bytes: int = ELEM_BYTES
+    w192: bool = False
 
 
-def gemm_width(m: int, n: int, k: int, ln: bool, residual: bool,
-               sms: int) -> int:
+def matrix_map(rows: int, cols: int, box_rows: int,
+               elem_bytes: int = ELEM_BYTES) -> TensorMapGeometry:
+    """A contiguous row-major (rows, cols) matrix of ``elem_bytes``
+    elements as (cols, rows): a (128 / elem_bytes, box_rows) box at (c, r)
+    is columns c... (64 bf16 or 32 f32) of rows r..., zeros past either
+    edge."""
+    return TensorMapGeometry(dims=(cols, rows), strides=(elem_bytes * cols,),
+                             box=(SWIZZLE_BYTES // elem_bytes, box_rows))
+
+
+def gemm_width(m: int, n: int, k: int, ln: bool, residual: bool, sms: int,
+               a_bytes: int = ELEM_BYTES, w192: bool = False) -> int:
     """Output tile columns of the product (M, K) x (N, K)^T on ``sms``
-    SMs, one persistent block an SM. 128 under the residual epilogue (its
-    products are long in K, and the ring of 128-column tiles holds five
-    stages to the three of 256-column ones: faster at every ConvNeXt-B
-    stage on the H100), where N fits 128 columns, or where the LN affine
-    would not fit beside 256 columns; else 256 where its rounds of tiles
-    cost no more than 128-column tiles' (a round's time grows with the
-    width)."""
+    SMs, one persistent block an SM, of a kernel with tiles of 128 and
+    256 columns and, with ``w192``, 192. Under a residual epilogue the
+    width up to 192 that pads N least, the narrower on a tie (its products
+    are long in K, and the ring of 128-column tiles holds five stages to
+    the three of 256-column ones: faster at every ConvNeXt-B stage on the
+    H100; N = 192 in one 192-column tile: faster than two of 128 at
+    Swin-T's stage 2, ``scripts/perf/torch_gemm_widths.py``). Else 128
+    where N fits 128 columns or where the LN affine would not fit beside
+    wider tiles, and otherwise the width whose rounds of tiles cost least
+    (a round's time grows with the width), the wider on a tie; an f32 A
+    under the norm prologue (``a_bytes`` F32_BYTES) not at 128, since each
+    column tile reads it again (slower at every stage of Swin-T and
+    PoolFormer-S12, ``torch_gemm_widths.py``)."""
+    widths = tuple(w for w in GEMM_WIDTHS if w192 or w != 192)
+
     def cost(width):
         tiles = -(-m // GEMM_ROWS) * -(-n // width)
         return -(-tiles // sms) * width
 
-    if residual or n <= 128 or (ln and k > LN_MAX_DEPTH_WIDE):
+    if residual:
+        return min((w for w in widths if w <= 192),
+                   key=lambda w: (-(-n // w) * w, w))
+    if n <= 128 or (ln and k > LN_MAX_DEPTH_WIDE):
         return 128
-    return 256 if cost(256) <= cost(128) else 128
+    if ln and a_bytes == F32_BYTES:
+        widths = widths[1:]
+    return min(widths, key=lambda w: (cost(w), -w))
 
 
-def gemm_maps(m: int, n: int, k: int, width: int):
+def gemm_maps(m: int, n: int, k: int, width: int, a_bytes: int = ELEM_BYTES,
+              out_bytes: int = ELEM_BYTES, sc_bytes: int = None):
     """(a, b, out, shortcut) of out = epi(a @ b^T): a (M, K) in 128-row
     boxes, b (N, K) in ``width``-row boxes, out and the shortcut (M, N) in
-    64-row boxes (a consumer warpgroup's rows), all contiguous."""
-    out = matrix_map(m, n, TILE)
-    return (matrix_map(m, k, GEMM_ROWS), matrix_map(n, k, width), out, out)
+    64-row boxes (a consumer warpgroup's rows), all contiguous, each of its
+    element bytes (the shortcut's those of out where not given)."""
+    sc_bytes = out_bytes if sc_bytes is None else sc_bytes
+    return (matrix_map(m, k, GEMM_ROWS, a_bytes), matrix_map(n, k, width),
+            matrix_map(m, n, TILE, out_bytes), matrix_map(m, n, TILE, sc_bytes))
 
 
 def gemm_grid(m: int, n: int, width: int, sms: int) -> int:
@@ -204,31 +249,42 @@ def gemm_grid(m: int, n: int, width: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def packed_gemm_maps(*products: Tuple[int, int, int, bool, bool, int]
-                     ) -> ctypes.Array:
-    """Each (M, N, K, ln, residual, sms) product in order, packed for the C
-    launcher (``csrc/mlp_gemm.cuh · kGemmMapsSize`` values a product): its
-    four ``gemm_maps`` at its ``gemm_width``, then its ``gemm_grid``. The
-    SM count is read once, here, for both."""
+def packed_gemm_maps(*products: Tuple) -> ctypes.Array:
+    """Each product (a ``GemmProduct``, or its first six fields) in order,
+    packed for the C launcher (``csrc/mlp_gemm.cuh · kGemmMapsSize`` values
+    a product): its four ``gemm_maps`` at its ``gemm_width``, then its
+    ``gemm_grid``. The SM count is read once, by the caller, for both."""
     values = []
-    for m, n, k, ln, residual, sms in products:
-        width = gemm_width(m, n, k, ln, residual, sms)
-        values += [v for g in gemm_maps(m, n, k, width) for v in g.pack()]
-        values.append(gemm_grid(m, n, width, sms))
+    for product in products:
+        p = GemmProduct(*product)
+        width = gemm_width(p.m, p.n, p.k, p.ln, p.residual, p.sms,
+                           p.a_bytes, p.w192)
+        values += [v for g in gemm_maps(p.m, p.n, p.k, width, p.a_bytes,
+                                        p.out_bytes, p.sc_bytes)
+                   for v in g.pack()]
+        values.append(gemm_grid(p.m, p.n, width, p.sms))
     return (ctypes.c_int64 * len(values))(*values)
 
 
-def gemm_route(*matrices: torch.Tensor, ln_depth: int = 0) -> bool:
+def gemm_route(*matrices: torch.Tensor, ln_depth: int = 0,
+               f32: Tuple[torch.Tensor, ...] = ()) -> bool:
     """Whether the TMA + wgmma body takes these operands (else the mma.sync
-    body runs): bf16, each a non-empty contiguous 2-D matrix (``gemm_maps``
-    reads them so) whose columns are a multiple of 8 (TMA's 16-byte rows)
-    and whose base is 16-byte aligned; with the LN prologue over
-    ``ln_depth`` columns, at most LN_MAX_DEPTH of them."""
+    body runs): ``matrices`` bf16 and ``f32`` (an f32 A of the norm
+    prologue, an f32 shortcut or output) f32, each a non-empty contiguous
+    2-D matrix (``gemm_maps`` reads them so) whose rows are a multiple of 16
+    bytes (TMA's row stride: 8 bf16 or 4 f32 columns) and whose base is
+    16-byte aligned; with the norm prologue over ``ln_depth`` columns, at
+    most LN_MAX_DEPTH of them."""
     if ln_depth > LN_MAX_DEPTH:
         return False
-    return all(t.dtype == torch.bfloat16 and t.dim() == 2 and t.numel() > 0
-               and t.is_contiguous() and t.shape[1] % 8 == 0
-               and t.data_ptr() % 16 == 0 for t in matrices)
+
+    def takes(t, dtype):
+        return (t.dtype == dtype and t.dim() == 2 and t.numel() > 0
+                and t.is_contiguous() and t.shape[1] * t.element_size() % 16 == 0
+                and t.data_ptr() % 16 == 0)
+
+    return (all(takes(t, torch.bfloat16) for t in matrices)
+            and all(takes(t, torch.float32) for t in f32))
 
 
 @functools.lru_cache(maxsize=8)

@@ -58,8 +58,14 @@ which ends the run with a non-zero exit code on failure:
    largest plain value in bf16 and 1e-5 (``window_mha``) or 1e-4
    (``swin_block``) in f32. Two controls: with the shift mask left out of
    the plain version a shifted stage-1 block, and with the bias left out
-   the stage-1 attention, must miss the bar by far. Kernel, plain and
-   library times: ``window_mha`` at Swin-T's stage 4 beside
+   the stage-1 attention, must miss the bar by far. Each case prints the
+   body ``window_mha`` took (from the profiler's kernel names: the TMA +
+   wgmma body or the first one); every bf16 case with N <= 64 and d <= 64
+   must take the wgmma body, every other case the first. ``window_mha``
+   at every stage shape (stages 1-3 unshifted and shifted, stage 4) with
+   its operands out of L2 (``cold_ms``) and back to back, with its bound,
+   and summed over a request (10 launches inside ``swin_block``, 2 at
+   stage 4); at stage 4 also its plain version and
    ``F.scaled_dot_product_attention`` with the float mask; ``swin_block``
    at stages 1-3 beside the cuBLAS floor of its four ``F.linear``
    products. Beside each, the block run per op (cuBLAS, ``window_mha``,
@@ -79,7 +85,9 @@ which ends the run with a non-zero exit code on failure:
    value. Two controls on the shifted stage-1 input must miss the bar by
    ``CONTROL_FACTOR``: dbias against the plain version without the mask,
    and the backward against the plain version without the bias. Two calls
-   must give a bit-identical dbias. Per stage: kernel, plain and bound
+   must give a bit-identical dbias. Each case prints the body it took (as
+   phase 7, with the same rule). Per stage: kernel times out of L2
+   (``cold_ms``) and as profiler device time back to back, plain and bound
    times, and the backward alone of ``F.scaled_dot_product_attention``
    with the bias (and mask) as a float mask that requires grad.
 10. The Swin training path: ``tfimm_tpu_torch.train.run`` trains Swin-T at
@@ -393,7 +401,8 @@ SWIN_X2_STATS = "row statistics of X2"
 CONVNEXT_LAUNCH_PARTS["swin_block"] = [
     ("row statistics of x", ("swin_row_stats_kernel<__nv_bfloat16>",)),
     ("qkv (LN1 prologue)", ("swin_qkv_",)),
-    ("attention (window_mha)", ("window_mha_bf16_kernel",)),
+    ("attention (window_mha)", ("window_mha_wgmma_kernel",
+                                "window_mha_bf16_kernel")),
     ("proj (X2 in f32)", ("swin_proj_",)),
     (SWIN_X2_STATS, ("swin_row_stats_kernel<float>",)),
     ("fc1 (LN2 prologue on f32 X2, GELU)", ("swin_fc1_",)),
@@ -667,8 +676,9 @@ def print_registers(build_log: str) -> None:
     poolformer_block's products among them, and tile width), the
     tiled depthwise + LayerNorm launch of ``convnext_block.cu`` and the
     talking-head kernels' Hopper launches (``cait_attention.cu`` and
-    ``cait_attention_bwd.cu``, per padded head count); nothing when the
-    library was built by an earlier process."""
+    ``cait_attention_bwd.cu``, per padded head count) and the window
+    attention's (``window_mha.cu``, ``window_mha_bwd.cu``); nothing when
+    the library was built by an earlier process."""
     import re
 
     lines = build_log.splitlines()
@@ -683,8 +693,9 @@ def print_registers(build_log: str) -> None:
                           r"swin_(?:qkv|proj|fc1|fc2)|pf_fc[12])"
                           r"_wgmma_kernel|"
                           r"convnext_block_dw_ln_tile_kernel)ILi(\d+)E", line)
-        cait = re.search(r"Function properties for \S*?(talking_head_\w+?"
-                         r"_wgmma_kernel)(?:ILi(\d+)E)?", line)
+        cait = re.search(r"Function properties for \S*?((?:talking_head_|"
+                         r"window_mha)\w*?_wgmma_kernel)(?:ILi(\d+)E)?",
+                         line)
         if not (found or tiled or cait) or (found or tiled or cait).groups() in seen:
             continue
         seen.add((found or tiled or cait).groups())
@@ -694,9 +705,10 @@ def print_registers(build_log: str) -> None:
         if cait:
             name, nh = cait.groups()
             heads = f", heads padded to NH = {nh}" if nh else ""
-            print(f"ptxas: {name}{heads}: {regs} registers a thread at launch "
-                  f"(setmaxnreg then splits them between the warpgroups); "
-                  f"{spills}", flush=True)
+            split = (" (setmaxnreg then splits them between the warpgroups)"
+                     if name.startswith("talking_head") else "")
+            print(f"ptxas: {name}{heads}: {regs} registers a thread at launch"
+                  f"{split}; {spills}", flush=True)
             continue
         if tiled:
             name, param = tiled.groups()
@@ -1578,6 +1590,38 @@ def held(got, ref, tol):
     return err, bar, err <= bar and bool(torch.isfinite(got).all())
 
 
+def window_body(fn, bwd=False) -> str:
+    """The body one call of ``fn`` (a ``window_mha`` launch or, with
+    ``bwd``, a ``window_mha_bwd`` one) ran, read from the profiler's kernel
+    names: "wgmma" for the TMA + wgmma body (``window_mha_wgmma_kernel``,
+    ``window_mha_bwd_wgmma_kernel``), "first" for the first bodies
+    (``mma.sync`` in bf16, FMAs in f32)."""
+    key = "window_mha_bwd_" if bwd else "window_mha_"
+    events = cold_device_events(fn, 1, need=[(key,)])
+    names = {name for name, _ in events
+             if key in name and (bwd or "window_mha_bwd" not in name)}
+    bodies = {"wgmma" if "wgmma" in name else "first" for name in names}
+    check(len(bodies) == 1, f"{key}: the profile shows {sorted(names)}")
+    return bodies.pop()
+
+
+def window_body_expected(dtype, n, d) -> str:
+    """The body ``tma.window_route`` sends a call with 16-byte aligned
+    operands (every case here) to: the TMA + wgmma one in bf16 with
+    N <= 64 and d <= 64, else the first."""
+    import torch
+
+    return "wgmma" if dtype == torch.bfloat16 and n <= 64 and d <= 64 \
+        else "first"
+
+
+def window_fwd_bound(bw, n, c, h, nb_win):
+    """q, k, v read and out written once (bf16), the f32 bias and the mask
+    of ``nb_win`` windows (0 without); q k^T and p v."""
+    return bound(2 * 4 * bw * n * c + 4 * (h + nb_win) * n * n,
+                 4 * bw * n * n * c)
+
+
 def swin_block_bound(bw, n, c, h, nb_win):
     """x read and out written once (bf16), the four matrices (bf16), the
     f32 vectors, the bias and the mask of ``nb_win`` windows (0 without);
@@ -1684,7 +1728,7 @@ def compare_paths(what, kernel, per_op):
     return times["per-op"][0], times["per-op"][2]
 
 
-def phase_swin_kernels(reports):
+def phase_swin_kernels(reports, gpu_line):
     import torch
     import torch.nn.functional as F
 
@@ -1721,6 +1765,13 @@ def phase_swin_kernels(reports):
                 torch.cuda.synchronize()
                 err, bar, ok = held(got, ref, SWIN_TOL[name][dname])
                 how = ""
+                if name == "window_mha":
+                    body = window_body(
+                        lambda: kernel(*args, nb_heads=h, scale=scale))
+                    want = window_body_expected(dtype, n, c // h)
+                    how = f"; body {body}"
+                    check(body == want, f"window_mha {what} ran the {body} "
+                          f"body, expected the {want} one")
                 if name == "swin_block":
                     how = "; " + bodies_line(gemm_bodies(
                         name, lambda: kernel(*args, nb_heads=h, scale=scale),
@@ -1757,33 +1808,76 @@ def phase_swin_kernels(reports):
     for name, err in worst.items():
         reports[name]["max_abs_err"] = err
 
-    # window_mha where the main path runs it: Swin-T's stage 4.
+    # window_mha where the main path runs it: inside swin_block at stages
+    # 1-3 (one unshifted and one shifted block of each pair) and alone at
+    # stage 4, each shape with its operands out of L2 (cold_ms) and back to
+    # back, and summed over a request.
     report = reports["window_mha"]
+    cases = [(shape, shifted, depth // 2)
+             for shape, depth in zip(SWIN_STAGES, SWIN_DEPTHS)
+             for shifted in (False, True)] + [(SWIN_STAGE4, False, 2)]
+    stages = {}
+    inside = dict.fromkeys(("cold_ms", "ms", "bound_ms"), 0.0)
+    for (bw, n, c, h, side), shifted, launches in cases:
+        _, qkv, _, bias, mask = swin_inputs(bw, n, c, h, side, shifted,
+                                            torch.bfloat16, 600)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        scale = (c // h) ** -0.5
+
+        def call():
+            return window_mha(q, k, v, bias, mask, nb_heads=h, scale=scale)
+
+        body = window_body(call)
+        check(body == "wgmma", f"window_mha bf16 BW={bw} C={c} ran the "
+              f"{body} body, expected the wgmma one")
+        nb_win = 0 if mask is None else mask.shape[0]
+        t = {"cold_ms": cold_ms(call), "ms": cuda_time_ms(call)}
+        t["bound_ms"], by = window_fwd_bound(bw, n, c, h, nb_win)
+        what = f"BW={bw} C={c} H={h}{' shifted' if shifted else ''}"
+        print(f"window_mha bf16 {what}: out of L2 {t['cold_ms']!r} ms, "
+              f"{t['bound_ms'] / t['cold_ms']!r} of the bound "
+              f"{t['bound_ms']!r} ms ({by}); back to back {t['ms']!r} ms; "
+              f"body {body}; {launches} launches a request", flush=True)
+        stages[what] = t
+        if (bw, n, c, h, side) != SWIN_STAGE4:
+            for key in inside:
+                inside[key] += launches * t[key]
+        del qkv, q, k, v, bias, mask
+    stage4 = stages[f"BW={SWIN_STAGE4[0]} C={SWIN_STAGE4[2]} "
+                    f"H={SWIN_STAGE4[3]}"]
+    request = {key: inside[key] + 2 * stage4[key] for key in inside}
+    print(f"window_mha per {SWIN} bs{BATCH} request: inside swin_block (10 "
+          f"launches) {inside['cold_ms']!r} ms out of L2, {inside['ms']!r} "
+          f"back to back, bound {inside['bound_ms']!r}; with stage 4's 2 "
+          f"{request['cold_ms']!r} / {request['ms']!r} ms, bound "
+          f"{request['bound_ms']!r}; on {gpu_line}", flush=True)
+    report["stages"] = {"per_shape": stages, "inside_swin_block": inside,
+                        "request": request}
+
+    # Stage 4 alone: the kernel out of L2, its device time, the plain
+    # version and SDPA with the bias as a float mask.
     bw, n, c, h, side = SWIN_STAGE4
     _, qkv, _, bias, _ = swin_inputs(bw, n, c, h, side, False, torch.bfloat16,
                                      600)
     q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
     scale = (c // h) ** -0.5
-    # One call's host work (checks, allocation, launch) is about as long as
-    # its device work, so the kernel's time is its device time under the
-    # profiler; the CUDA-event time of back-to-back calls is printed beside.
-    events_ms = cuda_time_ms(
-        lambda: window_mha(q, k, v, bias, nb_heads=h, scale=scale))
-    report["ms"] = device_ms(
+    report["ms"] = stage4["cold_ms"]
+    device = device_ms(
         lambda: window_mha(q, k, v, bias, nb_heads=h, scale=scale), steps=20)
     report["plain_ms"] = cuda_time_ms(
         lambda: window_mha_reference(q, k, v, bias, nb_heads=h, scale=scale))
-    # q, k, v read once, out written once, the f32 bias; q k^T and p v.
-    report["bound_ms"], report["bound_by"] = bound(
-        2 * 4 * bw * n * c + 4 * h * n * n, 4 * bw * n * n * c)
+    report["bound_ms"], report["bound_by"] = window_fwd_bound(bw, n, c, h, 0)
     qh, kh, vh = heads(qkv, h)
     attn_mask = bias.to(torch.bfloat16)[None]
     report["library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=attn_mask, scale=scale))
+    report["library_cold_ms"] = cold_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=attn_mask, scale=scale))
     print(f"window_mha bf16 {SWIN_STAGE4[:4]}: kernel {report['ms']!r} ms "
-          f"device ({events_ms!r} ms between events), "
+          f"out of L2 ({device!r} ms device back to back), "
           f"plain {report['plain_ms']!r} ms, scaled_dot_product_attention "
-          f"(float mask) {report['library_ms']!r} ms, bound "
+          f"(float mask) {report['library_ms']!r} ms back to back, "
+          f"{report['library_cold_ms']!r} out of L2, bound "
           f"{report['bound_ms']!r} ms ({report['bound_by']})", flush=True)
     del qkv, q, k, v, qh, kh, vh
     x, _, params, bias, _ = swin_inputs(bw, n, c, h, side, False,
@@ -1825,6 +1919,11 @@ def phase_swin_kernels(reports):
             events = cold_device_events(call, need=launch_keys(
                 "swin_block", {SWIN_X2_STATS}))
             bodies = gemm_bodies("swin_block", events=events, wgmma=True)
+            bodies["attention"] = ("wgmma" if any(
+                "window_mha_wgmma_kernel" in name for name, _ in events)
+                else "first")
+            check(bodies["attention"] == "wgmma", f"{what}: the attention "
+                  f"left the wgmma body")
             x2_launch = any(k in name for name, _ in events
                             for k in dict(CONVNEXT_LAUNCH_PARTS[
                                 "swin_block"])[SWIN_X2_STATS])
@@ -2078,6 +2177,12 @@ def phase_window_bwd_kernel(report, gpu_line):
             got = (dqkv[..., :c], dqkv[..., c:2 * c], dqkv[..., 2 * c:], dbias)
             ref = window_bwd_plain(qkv, g, bias, mask, h, scale)
             torch.cuda.synchronize()
+            body = window_body(lambda: window_mha_bwd(
+                qkv, g, bias, mask, nb_heads=h, scale=scale), bwd=True)
+            want = window_body_expected(dtype, n, c // h)
+            print(f"window_mha_bwd {what}: body {body}", flush=True)
+            check(body == want, f"window_mha_bwd {what} ran the {body} body, "
+                  f"expected the {want} one")
             bars = []
             for name, a, b in zip(names, got, ref):
                 err, bar, ok = held(a, b, tol)
@@ -2117,8 +2222,9 @@ def phase_window_bwd_kernel(report, gpu_line):
     report["max_abs_err"] = worst
 
     # Per stage shape, then per training step (each stage's times its
-    # blocks, half of those of stages 1-3 shifted).
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    # blocks, half of those of stages 1-3 shifted): the kernel out of L2
+    # (cold_ms) and as profiler device time back to back.
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
     totals = dict.fromkeys(keys, 0.0)
     bound_by, backends = {}, set()
     for (bw, n, c, h, side), depth in zip(SWIN_TRAIN_STAGES,
@@ -2134,7 +2240,7 @@ def phase_window_bwd_kernel(report, gpu_line):
                                       scale=scale)
 
             events_ms = cuda_time_ms(kernel)
-            t = {"ms": device_ms(kernel, steps=20),
+            t = {"ms": cold_ms(kernel), "device_ms": device_ms(kernel, steps=20),
                  "plain_ms": cuda_time_ms(
                      lambda: window_bwd_plain(qkv, g, bias, mask, h, scale),
                      iters=5)}
@@ -2147,7 +2253,8 @@ def phase_window_bwd_kernel(report, gpu_line):
             bound_by[by] = bound_by.get(by, 0.0) + blocks * t["bound_ms"]
             print(f"window_mha_bwd bf16 BW={bw} C={c} H={h}"
                   f"{' shifted' if mask is not None else ''}: kernel "
-                  f"{t['ms']!r} ms device ({events_ms!r} ms between events), "
+                  f"{t['ms']!r} ms out of L2, {t['device_ms']!r} ms device "
+                  f"back to back ({events_ms!r} ms between events), "
                   f"{t['bound_ms'] / t['ms']!r} of the bound "
                   f"{t['bound_ms']!r} ms ({by}); plain {t['plain_ms']!r} ms; "
                   f"scaled_dot_product_attention backward ({backend}) "
@@ -2162,7 +2269,8 @@ def phase_window_bwd_kernel(report, gpu_line):
     report.update(totals)
     report["bound_by"] = max(bound_by, key=bound_by.get)
     print(f"window_mha_bwd per {SWIN} bs{SWIN_TRAIN_BATCH} training step "
-          f"({sum(SWIN_TRAIN_DEPTHS)} calls): kernel {totals['ms']!r} ms, "
+          f"({sum(SWIN_TRAIN_DEPTHS)} calls): kernel {totals['ms']!r} ms "
+          f"out of L2, {totals['device_ms']!r} ms device back to back, "
           f"plain {totals['plain_ms']!r} ms, SDPA backward "
           f"({'/'.join(map(str, sorted(backends, key=str)))}) "
           f"{totals['library_ms']!r} ms, bound {totals['bound_ms']!r} ms "
@@ -5029,7 +5137,9 @@ def main(argv) -> int:
                 f"{n} x (M, C, H) = {shape}"
                 for n, shape in zip(CONVNEXT_DEPTHS, CONVNEXT_STAGES)))
         reports["window_mha"]["work"] = (
-            f"bf16 (BW, N, C, H) = {SWIN_STAGE4[:4]}, no mask")
+            f"bf16 (BW, N, C, H) = {SWIN_STAGE4[:4]}, no mask, operands out "
+            f"of L2; 'stages': every stage shape of a {SWIN} bs{BATCH} "
+            f"request and the request's sums")
         reports["swin_block"]["work"] = (
             f"bf16, one {SWIN} bs{BATCH} request: " + " + ".join(
                 f"{n} x (BW, N, C, H) = {shape[:4]}, half shifted"
@@ -5039,7 +5149,8 @@ def main(argv) -> int:
             + " + ".join(f"{n} x (BW, N, C, H) = {shape[:4]}"
                          for n, shape in zip(SWIN_TRAIN_DEPTHS,
                                              SWIN_TRAIN_STAGES))
-            + ", half of stages 1-3 shifted")
+            + ", half of stages 1-3 shifted; operands out of L2 (two "
+            "launches, counted as one)")
         reports["talking_head_attention"] = {
             "name": "talking_head_attention", "route": "cuda",
             "source": "tfimm_tpu_torch/csrc/cait_attention.cu",
@@ -5137,7 +5248,7 @@ def main(argv) -> int:
             4: lambda: phase_train(reports, gpu_line),
             5: lambda: phase_convnext_kernel(reports["convnext_mlp"]),
             6: lambda: phase_convnext_slice(reports, gpu_line),
-            7: lambda: phase_swin_kernels(reports),
+            7: lambda: phase_swin_kernels(reports, gpu_line),
             8: lambda: phase_swin_slice(reports, gpu_line),
             9: lambda: phase_window_bwd_kernel(reports["window_mha_bwd"],
                                                gpu_line),
@@ -5205,7 +5316,7 @@ def main(argv) -> int:
                       "cold_ms", "library_cold_ms", "warm_ms",
                       "library_warm_ms", "host_ms", "launch_cold_ms",
                       "recompute_ms", "per_op_ms", "per_op_cold_ms",
-                      "cublas_floor_cold_ms", "stages"):
+                      "cublas_floor_cold_ms", "stages", "device_ms"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

@@ -776,6 +776,77 @@ def test_window_mha_bwd_kernel_matches_plain(card, bw, n, c, h, side, dtype,
         assert err <= tol * b.float().abs().max().item(), (name, err)
 
 
+# Swin-T's window shapes (BW, N, C, H, map side or 0 for no mask): serving
+# at batch 128 (stages 1-3 unshifted and shifted, stage 4) and training at
+# batch 64 (the same, stage 4 unshifted).
+SWIN_T_WINDOWS = [(bw * batch // 128, 49, c, h, side)
+                  for batch in (128, 64)
+                  for bw, c, h, sides in ((8192, 96, 3, (0, 56)),
+                                          (2048, 192, 6, (0, 28)),
+                                          (512, 384, 12, (0, 14)),
+                                          (128, 768, 24, (0,)))
+                  for side in sides]
+
+
+@pytest.mark.parametrize("bw,n,c,h,side", SWIN_T_WINDOWS)
+def test_window_kernels_bf16_swin_t_take_the_wgmma_bodies(card, bw, n, c, h,
+                                                          side):
+    """Every bf16 Swin-T window shape, serving and training, shifted and
+    not: the forward and the backward on their TMA + wgmma bodies (the
+    profile names them), each within the bf16 bar of its plain version."""
+    qkv, g, bias, mask = _bwd_inputs(bw, n, c, h, side, torch.bfloat16, card,
+                                     seed=bw + c + side)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    kw = dict(nb_heads=h, scale=(c // h) ** -0.5)
+    names, got = _profiled_names(
+        lambda: window_mha(q, k, v, bias, mask, **kw),
+        ["window_mha_wgmma_kernel"])
+    assert "window_mha_wgmma_kernel" in names
+    assert "window_mha_bf16_kernel" not in names
+    _held_by(got, window_mha_reference(q, k, v, bias, mask, **kw), 2e-2)
+    names, (dqkv, dbias) = _profiled_names(
+        lambda: window_mha_bwd(qkv, g, bias, mask, **kw),
+        ["window_mha_bwd_wgmma_kernel"])
+    assert "window_mha_bwd_wgmma_kernel" in names
+    assert "window_mha_bwd_bf16_kernel" not in names
+    want = window_mha_bwd_reference(q, k, v, bias, mask, g, **kw)
+    for a, b in zip((dqkv[..., :c], dqkv[..., c:2 * c], dqkv[..., 2 * c:],
+                     dbias), want):
+        _held_by(a, b, 2e-2)
+
+
+def test_window_kernels_decline_the_wgmma_bodies_off_the_route(card):
+    """f32, N = 144, d = 72 and an operand off 16 bytes run the first bodies
+    (the profile names them), each within its bar of its plain version."""
+    cases = [((4, 49, 96, 3, 0), torch.float32, False, "f32"),
+             ((8, 144, 128, 4, 24), torch.bfloat16, False, "bf16"),
+             ((4, 49, 216, 3, 0), torch.bfloat16, False, "bf16"),
+             ((4, 49, 96, 3, 0), torch.bfloat16, True, "bf16")]
+    for (bw, n, c, h, side), dtype, offset, body in cases:
+        qkv, g, bias, mask = _bwd_inputs(bw, n, c, h, side, dtype, card,
+                                         seed=bw + n + c)
+        if offset:
+            qkv, g = _offset(qkv), _offset(g)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        kw = dict(nb_heads=h, scale=(c // h) ** -0.5)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        names, got = _profiled_names(
+            lambda: window_mha(q, k, v, bias, mask, **kw),
+            [f"window_mha_{body}_kernel"])
+        assert f"window_mha_{body}_kernel" in names
+        assert "wgmma" not in names
+        _held_by(got, window_mha_reference(q, k, v, bias, mask, **kw), tol)
+        names, (dqkv, dbias) = _profiled_names(
+            lambda: window_mha_bwd(qkv, g, bias, mask, **kw),
+            [f"window_mha_bwd_{body}_kernel"])
+        assert f"window_mha_bwd_{body}_kernel" in names
+        assert "wgmma" not in names
+        want = window_mha_bwd_reference(q, k, v, bias, mask, g, **kw)
+        for a, b in zip((dqkv[..., :c], dqkv[..., c:2 * c],
+                         dqkv[..., 2 * c:], dbias), want):
+            _held_by(a, b, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
 def test_window_mha_bwd_dbias_is_deterministic(card):
     qkv, g, bias, mask = _bwd_inputs(512, 49, 96, 3, 56, torch.bfloat16,
                                      card, seed=3)
@@ -1050,6 +1121,17 @@ def _hopper_launch(name, device):
                                               torch.bfloat16, device, 11)
         return lambda: swin_block(x, params, bias, mask, nb_heads=3,
                                   scale=32 ** -0.5)
+    if name == "window_mha":
+        qkv, _, bias, mask = _bwd_inputs(128, 49, 96, 3, 56, torch.bfloat16,
+                                         device, 11)
+        return lambda: window_mha(qkv[..., :96], qkv[..., 96:192],
+                                  qkv[..., 192:], bias, mask, nb_heads=3,
+                                  scale=32 ** -0.5)
+    if name == "window_mha_bwd":
+        qkv, g, bias, mask = _bwd_inputs(128, 49, 96, 3, 56, torch.bfloat16,
+                                         device, 11)
+        return lambda: window_mha_bwd(qkv, g, bias, mask, nb_heads=3,
+                                      scale=32 ** -0.5)
     if name == "poolformer_block":
         args = _pool_inputs(2, 28, 28, 128, 512, torch.bfloat16, device, 11)
         return lambda: poolformer_block(*args)
@@ -1060,7 +1142,7 @@ def _hopper_launch(name, device):
 @pytest.mark.parametrize("name", [
     "fused_mha", "fused_mha_bwd", "flash_attention", "flash_attention_bwd",
     "flash_attention_relpos", "flash_attention_relpos_bwd", "convnext_mlp",
-    "swin_block", "poolformer_block"])
+    "swin_block", "poolformer_block", "window_mha", "window_mha_bwd"])
 def test_hopper_launchers_run_first_on_a_new_thread(card, name):
     """As the talking-head kernels: every launcher that encodes tensor maps
     binds the thread's context first (``hopper.cuh · encode_bf16_map``)."""

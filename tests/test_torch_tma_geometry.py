@@ -18,7 +18,10 @@ exactly at ragged M, N and K, and ``gemm_route`` must send each shape to
 the body that takes it. The talking-head maps (``cait_maps``,
 ``cait_scratch_map``) must give the heads' 16-key stages and the backward
 scratch's 64 x 64 tiles of a and draw, and ``cait_route`` must send each
-call to the body that takes it.
+call to the body that takes it. The window attention's maps
+(``window_maps``, ``window_bwd_maps``) must give each head of each window,
+its output path must write the output and the packed dqkv exactly, and
+``window_route`` must send each call to the body that takes it.
 """
 
 import itertools
@@ -62,8 +65,14 @@ from tfimm_tpu_torch.ops.kernels.tma import (
     packed_heads_maps,
     packed_operand_maps,
     packed_rows_maps,
+    packed_window_bwd_maps,
+    packed_window_maps,
     padded_rows,
     rows_map,
+    window_bwd_maps,
+    window_group,
+    window_maps,
+    window_route,
 )
 
 
@@ -1014,3 +1023,186 @@ def test_cait_route_limits():
     assert not cait_route(9, _qkv(2, 50, 9, 48))
     assert not cait_route(4, _qkv(2, 50, 4, 12))
     assert not cait_route(8, _qkv(2, 0, 8, 48)[:, :, :5])
+
+
+# The window attention's Hopper bodies: (BW, N, H, d), each window one
+# 64-row tile and each head one 64-column chunk (Swin-T's d = 32, hf_swin's
+# N = 16 and d = 8, d = 64 at N = 64, a ragged d = 24 and N = 7).
+WINDOW_CASES = [(6, 49, 3, 32), (4, 16, 2, 8), (3, 64, 2, 64), (5, 7, 1, 24),
+                (2, 49, 4, 16)]
+
+
+def _window_heads(t, h):
+    """(BW, N, H*d) -> (BW, H, N, d)."""
+    bw, n, c = t.shape
+    return t.reshape(bw, n, h, c // h).transpose(1, 2)
+
+
+def _store_rows(tile, dst, base, ld, n, d):
+    """The window kernels' output path: ``tile`` (64 x 64) as
+    ``window_mha_common.cuh · write_tile`` leaves it in shared memory (the
+    16-byte chunk c of row r at chunk position c ^ (r % 8)), then
+    ``store_rows``: the chunks of its first n rows and d columns, read back
+    through the same swizzle, into ``dst`` at ``base + row * ld``."""
+    swizzled = torch.empty(TILE, TILE // 8, 8, dtype=tile.dtype)
+    for r in range(TILE):
+        for c in range(TILE // 8):
+            swizzled[r, c ^ (r % 8)] = tile[r, 8 * c:8 * c + 8]
+    for r in range(n):
+        for c in range(d // 8):
+            dst[base + r * ld + 8 * c:base + r * ld + 8 * c + 8] = \
+                swizzled[r, c ^ (r % 8)]
+
+
+@pytest.mark.parametrize("bw,n,h,d", WINDOW_CASES)
+def test_window_boxes_give_each_window_head(bw, n, h, d):
+    """The forward's q, k and v as the three slices of a packed qkv and as
+    contiguous tensors: each (64, 1, 64, 1) box at (0, h, 0, r) is head h of
+    window r, zeros past N and past d (the neighbouring heads and the next
+    window, all far from zero here, never show up). Each window's output
+    tile, with garbage past N and d, stored through its first N rows and d
+    columns, gives (BW, N, H*d) exactly and nothing else."""
+    c = h * d
+    gen = torch.Generator().manual_seed(bw * n + d)
+    qkv = (torch.randn(bw, n, 3 * c, generator=gen) + 10.0).bfloat16()
+    flat = qkv.reshape(-1)
+    alone = (torch.randn(bw, n, c, generator=gen) + 10.0).bfloat16()
+    for operands in ([(flat[i * c:], qkv[..., i * c:(i + 1) * c])
+                      for i in range(3)], [(alone.reshape(-1), alone)] * 3):
+        maps = window_maps(bw, n, h, d, *(t.stride()[:2] for _, t in operands))
+        assert len(maps) == 3
+        for m, (base, t) in zip(maps, operands):
+            _check_rules(m)
+            want = _window_heads(t, h)
+            for r, hi in itertools.product(range(bw), range(h)):
+                box = tma_load(base, m, (0, hi, 0, r))
+                assert box.shape == (1, TILE, 1, TILE)
+                assert torch.equal(box[0, :, 0],
+                                   _padded(want[r, hi], TILE, TILE))
+
+    heads = torch.randn(bw, h, n, d, generator=gen).bfloat16()
+    out = torch.full((bw * n * c + 64,), -1.0, dtype=heads.dtype)
+    for r, hi in itertools.product(range(bw), range(h)):
+        tile = torch.full((TILE, TILE), 7.0, dtype=heads.dtype)
+        tile[:n, :d] = heads[r, hi]
+        _store_rows(tile, out, r * n * c + hi * d, c, n, d)
+    assert torch.equal(out[:bw * n * c].reshape(bw, n, c),
+                       heads.transpose(1, 2).reshape(bw, n, c))
+    assert bool((out[bw * n * c:] == -1.0).all())
+
+
+@pytest.mark.parametrize("bw,n,h,d", WINDOW_CASES)
+def test_window_bwd_boxes_read_qkv_and_g_and_write_dqkv(bw, n, h, d):
+    """The backward reads qkv through its own strides (here a view with
+    padded rows) as (d, H, 3, N, BW): a (64, 1, 1, 64, 1) box at
+    (0, h, part, 0, r) is head h of window r's q, k or v, and g through
+    (d, H, N, BW), zeros past N and d. The tiles of dq, dk and dv stored
+    through their first N rows and d columns at part * C + h * d of the
+    window's rows give exactly the contiguous packed dqkv and nothing
+    else."""
+    c = h * d
+    gen = torch.Generator().manual_seed(bw * n + d + 1)
+    wide = (torch.randn(bw, n, 3 * c + 8, generator=gen) + 10.0).bfloat16()
+    qkv = wide[..., :3 * c]
+    g = (torch.randn(bw, n, c, generator=gen) + 10.0).bfloat16()
+    qkv_map, g_map = window_bwd_maps(bw, n, h, d, qkv.stride()[:2])
+    for m in (qkv_map, g_map):
+        _check_rules(m)
+    for r, hi in itertools.product(range(bw), range(h)):
+        for part in range(3):
+            box = tma_load(wide.reshape(-1), qkv_map, (0, hi, part, 0, r))
+            assert box.shape == (1, TILE, 1, 1, TILE)
+            want = _window_heads(qkv[..., part * c:(part + 1) * c], h)
+            assert torch.equal(box[0, :, 0, 0],
+                               _padded(want[r, hi], TILE, TILE))
+        box = tma_load(g.reshape(-1), g_map, (0, hi, 0, r))
+        assert torch.equal(box[0, :, 0], _padded(_window_heads(g, h)[r, hi],
+                                                 TILE, TILE))
+
+    grads = [torch.randn(bw, h, n, d, generator=gen).bfloat16()
+             for _ in range(3)]
+    dqkv = torch.full((bw * n * 3 * c + 64,), -1.0, dtype=g.dtype)
+    for (part, grad), r, hi in itertools.product(enumerate(grads), range(bw),
+                                                 range(h)):
+        tile = torch.full((TILE, TILE), 7.0, dtype=g.dtype)
+        tile[:n, :d] = grad[r, hi]
+        _store_rows(tile, dqkv, r * n * 3 * c + part * c + hi * d, 3 * c, n,
+                    d)
+    want = torch.cat([t.transpose(1, 2).reshape(bw, n, c) for t in grads],
+                     dim=-1)
+    assert torch.equal(dqkv[:bw * n * 3 * c].reshape(bw, n, 3 * c), want)
+    assert bool((dqkv[bw * n * 3 * c:] == -1.0).all())
+
+
+@pytest.mark.parametrize("bw,h,sms,group", [
+    (8192, 3, 132, 187),    # Swin-T stage 1 at bs128: 44 blocks a head
+    (4096, 3, 132, 94),     # its training stage 1 at bs64
+    (128, 24, 132, 26),     # stage 4 at bs128: 5 blocks a head
+    (64, 24, 132, 13),
+    (2, 48, 132, 1),
+    (10, 200, 132, 10),     # more heads than SMs: one block a head
+])
+def test_window_group_makes_one_block_an_sm_at_most(bw, h, sms, group):
+    assert window_group(bw, h, sms) == group
+    blocks = h * -(-bw // group)
+    assert blocks <= max(h, sms)
+
+
+def test_packed_window_maps_are_the_maps_in_order():
+    rows = (49 * 288, 288)
+    forward = packed_window_maps(8192, 49, 3, 32, rows, rows, rows, 132)
+    maps = window_maps(8192, 49, 3, 32, rows, rows, rows)
+    assert list(forward) == [v for m in maps for v in m.pack()] + [187]
+    assert packed_window_maps(8192, 49, 3, 32, rows, rows, rows, 132) is forward
+    backward = packed_window_bwd_maps(4096, 49, 3, 32, rows)
+    assert list(backward) == [v for m in window_bwd_maps(4096, 49, 3, 32, rows)
+                              for v in m.pack()]
+
+
+def _window_qkv(bw, n, c, dtype=torch.bfloat16, offset=0, extra=0):
+    """A packed (BW, N, 3C) qkv starting ``offset`` elements into its
+    storage, its rows ``extra`` elements longer than 3C."""
+    flat = torch.zeros(bw * n * (3 * c + extra) + offset, dtype=dtype)
+    return flat[offset:].view(bw, n, 3 * c + extra)[..., :3 * c]
+
+
+@pytest.mark.parametrize("n,c,h,offset,dtype,route", [
+    (49, 96, 3, 0, torch.bfloat16, True),      # Swin-T stage 1
+    (49, 192, 6, 0, torch.bfloat16, True),     # stage 2
+    (49, 384, 12, 0, torch.bfloat16, True),    # stage 3
+    (49, 768, 24, 0, torch.bfloat16, True),    # stage 4
+    (16, 16, 2, 0, torch.bfloat16, True),      # hf_swin: N = 16, d = 8
+    (64, 256, 4, 0, torch.bfloat16, True),     # N and d at 64
+    (49, 96, 3, 0, torch.float32, False),      # f32: the FMA bodies
+    (144, 128, 4, 0, torch.bfloat16, False),   # window 12
+    (49, 216, 3, 0, torch.bfloat16, False),    # d = 72
+    (49, 96, 3, 1, torch.bfloat16, False),     # 2 bytes off 16
+    (49, 96, 3, 8, torch.bfloat16, True),      # 16 bytes on
+])
+def test_window_route(n, c, h, offset, dtype, route):
+    """Which window-attention calls take the Hopper bodies: the forward's
+    q, k and v (the slices of a packed qkv) and the backward's qkv and g."""
+    qkv = _window_qkv(2, n, c, dtype, offset)
+    g = torch.zeros(2, n, c, dtype=dtype)
+    d = c // h
+    assert window_route(n, d, *(qkv[..., i * c:(i + 1) * c]
+                                for i in range(3))) is route
+    assert window_route(n, d, qkv, g) is route
+
+
+def test_window_route_limits():
+    """g off 16 bytes, an operand whose last dimension is strided or whose
+    rows are no whole 16 bytes, N = 65 and head dims that are no multiple
+    of 8 or above 64 leave the route."""
+    qkv = _window_qkv(2, 49, 96)
+    g = torch.zeros(2 * 49 * 96 + 8, dtype=torch.bfloat16)
+    assert window_route(49, 32, qkv, g[8:].view(2, 49, 96))
+    assert not window_route(49, 32, qkv, g[1:2 * 49 * 96 + 1].view(2, 49, 96))
+    strided = torch.zeros(2, 49, 192, dtype=torch.bfloat16)[..., ::2]
+    assert not window_route(49, 32, strided, strided, strided)
+    assert not window_route(49, 32, _window_qkv(2, 49, 96, extra=1))
+    assert window_route(49, 32, _window_qkv(2, 49, 96, extra=8))
+    assert not window_route(65, 32, _window_qkv(2, 65, 96))
+    assert not window_route(49, 12, _window_qkv(2, 49, 96))
+    assert not window_route(49, 80, _window_qkv(2, 49, 240))
+    assert not window_route(49, 0, _window_qkv(2, 49, 96))

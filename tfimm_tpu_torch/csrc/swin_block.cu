@@ -41,7 +41,9 @@
 // 2. qkv: a GEMM whose A tiles are normalised (LN1) in registers, so H1
 //    never reaches device memory;
 // 3. window attention: tfimm_window_mha (window_mha.cu) on the three slices
-//    of the packed qkv, read in place through their strides;
+//    of the packed qkv, read in place through their strides (in bf16 with
+//    N <= 64 and d <= 64, every registered Swin at window 7, its TMA +
+//    wgmma body, through the maps the wrapper hands over);
 // 4. proj, with the epilogue X2 = x + round(acc + b_proj), written in f32;
 // 5. row statistics of X2, or (bf16, C no wider than proj's tiles) none:
 //    proj's epilogue takes them from its f32 X2 tile, one-pass and in f32
@@ -77,7 +79,7 @@ extern "C" int tfimm_window_mha(const void* q, const void* k, const void* v,
                                 const void* bias, const void* mask, void* out,
                                 int bw, int n, int nb_heads, int head_dim,
                                 int nb_win, float scale, int dtype,
-                                void* stream);
+                                const int64_t* maps, void* stream);
 
 namespace {
 
@@ -142,7 +144,7 @@ int vec_ab(const void* a, const void* b, int k) {
 
 template <typename T>
 int launch_block(const BlockArgs& b, int dtype, const int64_t* maps,
-                 cudaStream_t s) {
+                 const int64_t* attn_maps, cudaStream_t s) {
   // bf16: every product on the wgmma body, with its maps (kGemmMapsSize
   // values each, in launch order); f32: the FMA body.
   constexpr bool kWgmma = sizeof(T) == 2;
@@ -161,7 +163,8 @@ int launch_block(const BlockArgs& b, int dtype, const int64_t* maps,
   const int64_t bs = (int64_t)b.n * 3 * c, rs = 3 * (int64_t)c;
   err = tfimm_window_mha(q, q + c, q + 2 * c, bs, rs, bs, rs, bs, rs, b.bias,
                          b.mask, b.attn, b.bw, b.n, b.nb_heads,
-                         c / b.nb_heads, b.nb_win, b.scale, dtype, s);
+                         c / b.nb_heads, b.nb_win, b.scale, dtype, attn_maps,
+                         s);
   if (err != 0) return err;
   // On the wgmma body, where proj's tiles hold whole rows (C <= their
   // width: Swin-T's stages 1-2), proj's epilogue also takes X2's row
@@ -210,7 +213,10 @@ int launch_block(const BlockArgs& b, int dtype, const int64_t* maps,
 // 0 = float32, 1 = bfloat16. maps: bf16 only, and there required: the four
 // products' maps of tma.py · packed_gemm_maps (qkv: x, w_qkv, qkv; proj:
 // attn, w_proj, x2, x; fc1: x2, w1, hid; fc2: hid, w2, out, x2), each with
-// its grid. Returns a cudaError_t value (0 = ok).
+// its grid. attn_maps: bf16 on tma.py · window_route only, else null: the
+// attention's maps over the qkv scratch and attn (tma.py ·
+// packed_window_maps), which select window_mha.cu's TMA + wgmma body.
+// Returns a cudaError_t value (0 = ok).
 extern "C" int tfimm_swin_block(
     const void* x, const void* ln1_w, const void* ln1_b, const void* w_qkv,
     const void* b_qkv, const void* bias, const void* mask, const void* w_proj,
@@ -218,11 +224,12 @@ extern "C" int tfimm_swin_block(
     const void* b1, const void* w2, const void* b2, void* qkv, void* attn,
     void* x2, void* hid, void* mean, void* rstd, void* out, int bw, int n,
     int c, int nb_heads, int hidden, int nb_win, float eps, float scale,
-    int dtype, const int64_t* maps, void* stream) {
+    int dtype, const int64_t* maps, const int64_t* attn_maps, void* stream) {
   if (bw <= 0 || n <= 0 || c <= 0 || hidden <= 0 || nb_heads <= 0 ||
       c % nb_heads != 0 || (int64_t)bw * n > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  if ((maps != nullptr) != (dtype == 1)) return (int)cudaErrorInvalidValue;
+  if ((maps != nullptr) != (dtype == 1) || (attn_maps != nullptr && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const BlockArgs b = {
       x, static_cast<const float*>(ln1_w), static_cast<const float*>(ln1_b),
       w_qkv, static_cast<const float*>(b_qkv), bias, mask, w_proj,
@@ -234,9 +241,9 @@ extern "C" int tfimm_swin_block(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_block<float>(b, dtype, nullptr, s);
+      return launch_block<float>(b, dtype, nullptr, nullptr, s);
     case 1:
-      return launch_block<__nv_bfloat16>(b, dtype, maps, s);
+      return launch_block<__nv_bfloat16>(b, dtype, maps, attn_maps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

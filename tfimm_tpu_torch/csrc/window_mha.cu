@@ -20,41 +20,72 @@
 // slices of a packed (BW, N, 3C) qkv need no copy; the output is written
 // contiguous, (BW, N, C), with the heads concatenated.
 //
-// Two kernels, one per io dtype, each with one thread block per (window,
-// head):
+// What bounds it on an H100: at Swin-T's stage 1 at batch 128 (BW = 8192
+// windows, N = 49, C = 96, H = 3, the shift mask of 64 windows) one call
+// reads 231 MB of q, k, v and writes 77 MB, against 4 * BW * N^2 * C = 7.6
+// GFLOP: under 25 flops a byte, so device memory bounds it (about 92 us at
+// 3.35 TB/s; 11.6 us at stage 4). Three bodies:
 //
-// - bf16: tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//   q, k, v of the window's head are stored in shared memory with N padded
-//   to NP (32, 64 or 144) rows and d padded to DP (16, 32, 64 or 128)
-//   columns with zeros. 4 warps, each owning 16-row query tiles in turn: the
-//   warp computes the 16 x NP score tile in registers, adds the bias and the
-//   mask in f32, exponentiates, sums each row over the lanes of its group,
-//   normalises, and reuses the registers as the A operand of p @ v (the
-//   accumulator layout of two adjacent 8-key score tiles is the A layout of
-//   one 16-key step). Pad keys are left out of the row sum (their p is 0)
-//   and pad query rows are not stored. q . k is exact in f32 per product;
-//   the scale multiplies the f32 score, which differs from scaling q first
-//   by f32 rounding only.
+// - bf16 on Hopper (tma.py · window_route: N <= 64, d a multiple of 8 up to
+//   64, 16-byte aligned operands and strides; every registered Swin at
+//   window 7, and hf_swin's N = 16, d = 8): TMA + wgmma, one 64-row tile a
+//   window and one 64-column chunk a head (window_mha_common.cuh). q, k and
+//   v are 4-D TMA tensors (d, H, N, BW) through their own strides, so a
+//   (64, 1, 64, 1) box is one head of one window, with zeros past N and
+//   past d. A block owns one head and a group of that head's windows, in
+//   the order of the mask positions (window_mha_common.cuh); the wrapper
+//   sizes the groups so that one block runs on each SM. One producer warp
+//   streams each window's q, k and v through a ring of kStages stages
+//   (full / empty mbarriers); two consumer warpgroups take alternate
+//   windows. A consumer computes S = q k^T (wgmma m64n64k16, both operands
+//   K-major, d / 16 steps), adds the bias and mask it holds in registers
+//   in the layout of S (bias[h] + mask[p] summed in f32 and scaled by
+//   log2(e), loaded once a mask position: the shifted blocks read their
+//   mask once a block, not once a score), takes p = 2^min(scale log2(e) s
+//   + bm, 80 log2(e)) (ex2.approx), the row sum over the 4 lanes of a row,
+//   p = e (1 / rowsum), rounded to bf16 in registers as the A operand of
+//   o = p v (wgmma, v MN-major), and writes o (bf16) into its own swizzled
+//   tile, from which its first N rows and d columns go out by plain 16-byte
+//   stores. The release of a stage waits only for the products. Measured on
+//   the H100 in development builds: a division an entry, and a TMA store of
+//   o that queued behind the ring's loads on the SM's TMA unit, each held
+//   an earlier build of this body above the first design's time
+//   (scripts/perf/torch_window_parts.py times the body with a part left
+//   out).
+//   Departures from the first body: the bias and the mask are summed
+//   before the score is added (the first body adds them one at a time; the
+//   mask is 0 or -100, so only masked entries differ, and their p is below
+//   1e-40 either way); log2(e) is folded in; p is e times the row sum's
+//   reciprocal (a rounding of f32 p before its rounding to bf16); at d = 32
+//   the products run 64 deep and wide, half of it zeros (TMA's fill), which
+//   costs little where memory bounds the kernel.
+// - bf16 off that route (N up to 144, d up to 128, misaligned operands):
+//   the first design, tensor cores through mma.sync m16n8k16 (bf16 in, f32
+//   accumulate), one thread block per (window, head). q, k, v of the
+//   window's head are stored in shared memory with N padded to NP (32, 64
+//   or 144) rows and d padded to DP (16, 32, 64 or 128) columns with zeros.
+//   4 warps, each owning 16-row query tiles in turn: the warp computes the
+//   16 x NP score tile in registers, adds the bias and the mask in f32,
+//   exponentiates, sums each row over the lanes of its group, normalises,
+//   and reuses the registers as the A operand of p @ v (the accumulator
+//   layout of two adjacent 8-key score tiles is the A layout of one 16-key
+//   step). Pad keys are left out of the row sum (their p is 0) and pad
+//   query rows are not stored. It loads each block's tiles with plain
+//   synchronous loads and reads the bias (and the mask) from L2 per score.
 // - f32: plain f32 FMAs (TF32 would miss the 1e-5 bar). k and v in shared
 //   memory with a padded row (d + 1); one warp per query row in turn, the
 //   lanes over keys for the scores and over head columns for p @ v.
 //
-// What bounds it on an H100: at Swin-T's stage 4 (BW = 128 windows at batch
-// 128, N = 49, C = 768, H = 24, no mask) one call reads 28.9 MB of q, k, v,
-// 0.23 MB of bias and writes 9.6 MB, against 4 * BW * H * N^2 * d = 0.94
-// GFLOP: under 25 flops a byte, so device memory bounds it (about 11.5 us at
-// 3.35 TB/s). This first form loads each block's tiles with plain
-// synchronous loads and reads the bias (and the mask) from L2 per block;
-// N = 49 pads to 64 rows and keys (41% of the products are padding).
-//
 // Coverage: any BW, N <= 144, any H, d a multiple of 8 up to 128, any
-// strides whose last dimension is 1. 16-byte loads when every base and
-// stride allow them, element loads otherwise. Every launch is followed by
-// cudaGetLastError().
+// strides whose last dimension is 1. 16-byte loads in the mma.sync body
+// when every base and stride allow them, element loads otherwise. Every
+// launch is followed by cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "window_mha_common.cuh"
 
 namespace {
 
@@ -301,6 +332,177 @@ int dispatch_bf16(const WinArgs& a, int bw, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on Hopper: TMA + wgmma (window_mha_common.cuh)
+
+constexpr int kStages = 6;                // ring stages of (q, k, v)
+
+struct TcArgs {
+  const float* bias;    // (H, N, N)
+  const float* mask;    // (nW, N, N) or null
+  __nv_bfloat16* out;   // (BW, N, C) contiguous
+  int bw, n, d, c;
+  int per_pos, nb_pos;  // windows a mask position, positions (1 unmasked)
+  int group;            // list entries a block
+  float scale_log2;     // scale * log2(e)
+};
+
+struct TcTiles {
+  static constexpr int kRing = 0;                      // stages x (q, k, v)
+  static constexpr int kOut = kRing + kStages * 3 * wtc::kTileBytes;
+  // A consumer's staging of the bias + mask (N^2 f32).
+  static constexpr int kStaging = kOut + wtc::kConsumers * wtc::kTileBytes;
+  static constexpr int kStagingBytes = wtc::kTile * wtc::kTile * 4;
+  static constexpr int kBars = kStaging + wtc::kConsumers * kStagingBytes;
+  // full[stages], empty[stages]; 1024 bytes of slack for alignment.
+  static constexpr int kBytes = kBars + 8 * 2 * kStages + 1024;
+};
+
+__global__ void __launch_bounds__(wtc::kThreads, 1)
+window_mha_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        TcArgs a) {
+  using L = TcTiles;
+  using wtc::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* ring = smem + L::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.y;
+  const int i0 = blockIdx.x * a.group;
+  const int count = min(a.group, a.bw - i0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], 4);   // one arrival a warp of a consumer
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // Producer: each window's q, k and v tiles of head h, in list order.
+    hopper::setmaxnreg_dec<wtc::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < count; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) hopper::mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
+        int pos;
+        const int r = wtc::window_at(i0 + t, a.per_pos, a.nb_pos, &pos);
+        uint8_t* stage = ring + st * 3 * kTileBytes;
+        hopper::mbar_expect_tx(&full[st], 3 * kTileBytes);
+        hopper::tma_load_4d(stage, &q_map, &full[st], 0, h, 0, r);
+        hopper::tma_load_4d(stage + kTileBytes, &k_map, &full[st], 0, h, 0, r);
+        hopper::tma_load_4d(stage + 2 * kTileBytes, &v_map, &full[st], 0, h,
+                            0, r);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: list entries wg, wg + 2, ...
+  hopper::setmaxnreg_inc<wtc::kConsumerRegs>();
+  const int wg = warp / 4 - 1, tid = threadIdx.x % 128;
+  const int row = (tid / 32) * 16 + lane / 4;   // and row + 8
+  const int nb_k = (a.d + 15) / 16;             // k16 steps of q . k
+  const int nb_keys = (a.n + 15) / 16;          // k16 steps of p @ v
+  const int64_t nn = (int64_t)a.n * a.n;
+  uint8_t* out_s = smem + L::kOut + wg * kTileBytes;
+  float* staging =
+      reinterpret_cast<float*>(smem + L::kStaging + wg * L::kStagingBytes);
+  float bm[32];
+  int bm_pos = -1;
+  for (int t = wg; t < count; t += wtc::kConsumers) {
+    const int st = t % kStages;
+    int pos;
+    const int r = wtc::window_at(i0 + t, a.per_pos, a.nb_pos, &pos);
+    if (pos != bm_pos) {
+      wtc::load_bias(bm, staging, a.bias + h * nn,
+                     a.mask == nullptr ? nullptr : a.mask + pos * nn, a.n,
+                     tid, 1 + wg);
+      bm_pos = pos;
+    }
+    const uint8_t* stage = ring + st * 3 * kTileBytes;
+    hopper::mbar_wait(&full[st], (t / kStages) & 1);
+
+    float s[32];
+    wtc::zero(s);
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < nb_k)
+        hopper::wgmma_m64n64k16_ss<0>(
+            s, hopper::sw128_desc(stage) + 2 * ks,
+            hopper::sw128_desc(stage + kTileBytes) + 2 * ks, ks > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    wtc::softmax_tile(s, bm, a.scale_log2, row < a.n, row + 8 < a.n);
+    uint32_t p[16];
+    wtc::pack_a(p, s);
+    float o[32];
+    wtc::zero(o);
+    hopper::fence_regs(p);
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (m < nb_keys)
+        hopper::wgmma_m64n64k16_rs<1>(
+            o, &p[4 * m], hopper::sw128_desc(stage + 2 * kTileBytes) + 128 * m,
+            m > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(p);
+    hopper::fence_regs(o);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+
+    // o into this warpgroup's tile once every thread has stored the last
+    // window's from it; then its first n rows and d columns out.
+    hopper::named_barrier(1 + wg, 128);
+    wtc::write_tile(out_s, o, 1.f, tid);
+    hopper::named_barrier(1 + wg, 128);
+    wtc::store_rows(out_s, a.out + (int64_t)r * a.n * a.c + h * a.d, a.c, a.n,
+                    a.d, tid);
+  }
+}
+
+// maps: the q, k and v geometries of tma.py · window_maps, then the list
+// entries a block.
+int launch_wgmma(const WinArgs& w, int bw, const int64_t* maps,
+                 cudaStream_t stream) {
+  CUtensorMap tmaps[3];
+  const void* bases[3] = {w.q, w.k, w.v};
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::encode_bf16_map(&tmaps[i], bases[i],
+                                            maps + i * hopper::kGeometrySize);
+    if (err != 0) return err;
+  }
+  const int group = (int)maps[3 * hopper::kGeometrySize];
+  if (group <= 0) return (int)cudaErrorInvalidValue;
+  const int nb_pos = w.mask == nullptr ? 1 : w.nb_win;
+  const TcArgs a = {w.bias, w.mask, static_cast<__nv_bfloat16*>(w.out), bw,
+                    w.n, w.d, w.nb_heads * w.d, bw / nb_pos, nb_pos, group,
+                    w.scale * wtc::kLog2e};
+  constexpr int smem = TcTiles::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_mha_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((bw + group - 1) / group, w.nb_heads);
+  window_mha_wgmma_kernel<<<grid, wtc::kThreads, smem, stream>>>(
+      tmaps[0], tmaps[1], tmaps[2], a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // f32: FMA
 
 size_t fma_smem_bytes(int n, int d) {
@@ -376,14 +578,18 @@ bool aligned16(const void* ptr) {
 // q, k, v: (BW, N, H * d) with batch strides *_bs and row strides *_rs in
 // elements (the last dimension contiguous); bias (H, N, N) f32; mask
 // (nb_win, N, N) f32 or null; out (BW, N, H * d) contiguous. dtype: 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
+// float32, 1 = bfloat16. maps: bf16 on tma.py · window_route only, else
+// null: the geometries of the q, k and v tensor maps
+// (hopper::kGeometrySize int64 values each) and the windows a block, as
+// tma.py · packed_window_maps computes them; they select the TMA + wgmma
+// body. Returns a cudaError_t value (0 = ok).
 extern "C" int tfimm_window_mha(const void* q, const void* k, const void* v,
                                 int64_t q_bs, int64_t q_rs, int64_t k_bs,
                                 int64_t k_rs, int64_t v_bs, int64_t v_rs,
                                 const void* bias, const void* mask, void* out,
                                 int bw, int n, int nb_heads, int head_dim,
                                 int nb_win, float scale, int dtype,
-                                void* stream) {
+                                const int64_t* maps, void* stream) {
   if (bw <= 0 || n <= 0 || n > kMaxN || nb_heads <= 0 || nb_heads > 65535 ||
       head_dim <= 0 || head_dim % 8 != 0 || head_dim > kMaxHeadDim ||
       nb_win <= 0 || bw % nb_win != 0)
@@ -392,6 +598,13 @@ extern "C" int tfimm_window_mha(const void* q, const void* k, const void* v,
                static_cast<const float*>(bias), static_cast<const float*>(mask),
                out, n, nb_heads, head_dim, nb_win, scale, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (maps != nullptr) {
+    if (dtype != 1 || n > wtc::kTile || head_dim > wtc::kTile)
+      return (int)cudaErrorInvalidValue;
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+      return (int)cudaErrorMisalignedAddress;
+    return launch_wgmma(a, bw, maps, s);
+  }
   switch (dtype) {
     case 0:
       return launch_f32(a, bw, s);

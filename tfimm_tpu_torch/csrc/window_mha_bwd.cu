@@ -19,38 +19,68 @@
 //
 // The mask gets no gradient: it is a constant, as in the JAX package.
 //
-// Design. One thread block per (group of windows, head): grid (groups, H),
-// 4 warps, and the block walks its group's windows in order. Per window it
-// holds q, k, v and g of its head in shared memory and runs two phases:
-//
-// 1. Query rows, 16 to a warp (as window_mha.cu's forward): s = q k^T and
-//    dp = g v^T in registers; a row of N <= 144 keys lies in one warp, so l
-//    = rowsum(e) and delta = rowsum(p dp) are complete before p is rounded;
-//    ds is formed, added to the block's f32 bias-gradient tile, and
-//    multiplied with k into dq. l and delta go to shared memory.
-// 2. Key rows, 16 to a warp: s^T = k q^T and dp^T = v g^T again, p^T and
-//    ds^T from l and delta, then dv = p^T g and dk = scale * ds^T q.
-//
 // The bias gradient is a reduction over all BW windows, which the TPU
 // kernel keeps resident across its sequential grid. Here it is a
-// deterministic two-level sum without atomics: every element of a block's
-// (N, N) tile belongs to one thread (the same for every window of the
-// group), so the block adds its windows' ds in a fixed order; at the end of
-// the group the tile goes to an f32 partial (groups, H, N, N), and a second
-// launch sums the partials over the groups in a fixed order. The wrapper
-// picks the group size so that about 1024 blocks run. Writing ds per
-// window instead would add 2 * BW * H * N^2 * 4 bytes of traffic.
+// deterministic two-level sum without atomics: a block owns one head and a
+// group of windows, every element of its (N, N) f32 sum belongs to one
+// thread, which adds its windows' ds in a fixed order; at the end of the
+// group the sum goes to an f32 partial (groups, H, N, N), and a second
+// launch sums the partials over the groups in a fixed order (the two
+// launches count as one). Writing ds per window instead would add
+// 2 * BW * H * N^2 * 4 bytes of traffic.
 //
-// - bf16 (the training path): tensor cores through mma.sync m16n8k16 (bf16
-//   in, f32 accumulate). Up to N = 64 the block stages bias[h] + mask[w % nW]
-//   (added in f32 first, where the forward adds them one at a time to the
-//   score) in shared memory for each window. q, k, v and g are stored with N padded to NP (64
-//   or 144) rows and d padded to DP (32, 64 or 128) columns with zeros, rows padded by 8 elements against bank conflicts (not at NP =
-//   144 with DP = 128, where the padding would not fit beside the bias
-//   tile). s, l, dp, delta, the bias tile and every sum stay f32; p and ds
-//   are rounded to bf16 before the products dv = p^T g, dq = ds k and
-//   dk = ds^T q (mma.sync takes bf16 operands), where the JAX backward
-//   computes all five products in f32.
+// What bounds it on an H100: at Swin-T's stage 1 in training (BW = 4096
+// windows at batch 64, N = 49, C = 96, H = 3, the shift mask of 64 windows)
+// one call reads q, k, v and g and writes dq, dk and dv, 7 * BW * N * C * 2
+// = 270 MB, against 5 products of 2 * BW * H * N^2 * d = 1.9 GFLOP each:
+// device memory bounds it (about 80 us at 3.35 TB/s). Three bodies:
+//
+// - bf16 on Hopper (tma.py · window_route, as the forward's;
+//   window_mha_common.cuh): TMA + wgmma, five products in one pass, one
+//   64-row tile a window. qkv is a 5-D TMA tensor (d, H, 3, N, BW) through
+//   its own strides and g a 4-D one (d, H, N, BW), so a box is one head of
+//   one window's q, k, v or g, with zeros past N and past d; dq, dk and dv
+//   go out from the warpgroup's own tiles by plain 16-byte stores of their
+//   first N rows and d columns (a TMA store queues behind the ring's loads,
+//   window_mha.cu's note). A
+//   block owns one head and a group of its windows in the order of the
+//   mask positions; the wrapper sizes the groups so that one block runs on
+//   each SM. One producer warp streams each window's q, k, v and g through
+//   a ring of kStages stages; two consumer warpgroups take alternate
+//   windows. Per window a consumer computes S = q k^T and dP = g v^T in one
+//   wgmma group (both K-major), adds the resident bias + mask (summed in
+//   f32, scaled by log2(e), loaded once a mask position), takes p = e /
+//   rowsum with e = 2^min(scale log2(e) s + bm, 80 log2(e)): a row lies in
+//   one tile, so l and delta = rowsum(p dp) (f32 p and dp) are complete in
+//   registers, and ds = where(at the clamp, 0, p (dp - delta)) in f32 is
+//   added to its bias-gradient sum, held in the layout of S in shared
+//   memory (in registers it made ptxas spill). p and ds are
+//   rounded to bf16 into shared memory, the A operands of dq = scale ds k
+//   (K-major), then dk = scale ds^T q and dv = p^T g (transposed) in a
+//   second group, k, q and g as MN-major B operands. So five products
+//   where the first body takes seven. At the end the second warpgroup hands
+//   its sum to the first through shared memory, which adds the two (a fixed
+//   order) and writes the partial. Departures: as the forward's (the bias
+//   and mask summed first, log2(e) folded in, p = e (1 / rowsum), d = 32 in
+//   64-column boxes).
+// - bf16 off that route (N up to 144, d up to 128, misaligned operands):
+//   the first design, one thread block per (group of windows, head) of 4
+//   warps, tensor cores through mma.sync m16n8k16 (bf16 in, f32
+//   accumulate). Per window it holds q, k, v and g of its head in shared
+//   memory and runs two phases:
+//   1. Query rows, 16 to a warp: s = q k^T and dp = g v^T in registers; l
+//      and delta are complete before p is rounded; ds is formed, added to
+//      the block's f32 bias-gradient tile, and multiplied with k into dq.
+//      l and delta go to shared memory.
+//   2. Key rows, 16 to a warp: s^T = k q^T and dp^T = v g^T again, p^T and
+//      ds^T from l and delta, then dv = p^T g and dk = scale * ds^T q.
+//   Up to N = 64 the block stages bias[h] + mask[w % nW] (added in f32
+//   first) in shared memory for each window. q, k, v and g are stored with
+//   N padded to NP (64 or 144) rows and d padded to DP (32, 64 or 128)
+//   columns with zeros, rows padded by 8 elements against bank conflicts
+//   (not at NP = 144 with DP = 128, where the padding would not fit beside
+//   the bias tile). The wrapper picks the group size so that about 1024
+//   blocks run.
 // - f32: plain f32 FMAs (TF32 would miss the f32 bar). Phase 1 holds k and
 //   v, phase 2 q and g, each (N, d + 1) in shared memory; one warp per row,
 //   the lanes over the other side's rows for the scores and over head
@@ -58,14 +88,10 @@
 //   N = 144, d = 128, so each thread adds its elements straight into the
 //   block's partial in device memory (still one owner per element).
 //
-// What bounds it on an H100: at Swin-T's stage 1 in training (BW = 4096
-// windows at batch 64, N = 49, C = 96, H = 3, the shift mask of 64 windows)
-// one call reads q, k, v and g and writes dq, dk and dv, 7 * BW * N * C * 2
-// = 270 MB, against 5 products of 2 * BW * H * N^2 * d = 2.8 GFLOP each:
-// device memory bounds it (about 80 us at 3.35 TB/s). This first form
-// loads the tiles with plain synchronous loads, recomputes s and dp in
-// phase 2 (seven products), reads the bias and the mask from L2 per
-// element, and at N = 49 spends 41% of its products on the padding to 64.
+// In bf16 both bodies keep s, l, dp, delta, the bias sums and every
+// accumulation in f32, and round p and ds to bf16 before the products dv,
+// dq and dk (the tensor cores take bf16 operands), where the JAX backward
+// computes all five products in f32.
 //
 // Coverage: the forward's. Any BW, N <= 144, any H, d a multiple of 8 up to
 // 128, nW dividing BW, qkv with any batch and row strides whose last
@@ -75,6 +101,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "window_mha_common.cuh"
 
 namespace {
 
@@ -455,6 +483,261 @@ int dispatch_bf16(const BwdArgs& a, int groups, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on Hopper: TMA + wgmma (window_mha_common.cuh)
+
+constexpr int kStages = 4;                // ring stages of (q, k, v, g)
+
+struct TcArgs {
+  const float* bias;    // (H, N, N)
+  const float* mask;    // (nW, N, N) or null
+  __nv_bfloat16* dqkv;  // (BW, N, 3 H d) contiguous
+  float* partial;       // (groups, H, N, N)
+  int bw, n, d, nb_heads;
+  int per_pos, nb_pos;  // windows a mask position, positions (1 unmasked)
+  int group;            // list entries a block
+  float scale, scale_log2;
+};
+
+struct TcTiles {
+  static constexpr int kStage = 4 * wtc::kTileBytes;   // q, k, v, g
+  static constexpr int kRing = 0;
+  // A consumer's own tiles: p, ds and dq (then dv, dk and dq for the
+  // stores; p's and ds's stage the bias + mask when it is reloaded).
+  static constexpr int kOwn = kRing + kStages * kStage;
+  static constexpr int kOwnBytes = 3 * wtc::kTileBytes;
+  // A consumer's bias-gradient sum (f32, thread-major: entry i of thread t
+  // at 128 i + t, the layout of S).
+  static constexpr int kSum = kOwn + wtc::kConsumers * kOwnBytes;
+  static constexpr int kSumBytes = 32 * 128 * 4;
+  static constexpr int kBars = kSum + wtc::kConsumers * kSumBytes;
+  // full[stages], empty[stages]; 1024 bytes of slack for alignment.
+  static constexpr int kBytes = kBars + 8 * 2 * kStages + 1024;
+};
+
+__global__ void __launch_bounds__(wtc::kThreads, 1)
+window_mha_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                            const __grid_constant__ CUtensorMap g_map,
+                            TcArgs a) {
+  using L = TcTiles;
+  using wtc::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* ring = smem + L::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.y;
+  const int i0 = blockIdx.x * a.group;
+  const int count = min(a.group, a.bw - i0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], 4);   // one arrival a warp of a consumer
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // Producer: each window's q, k, v and g tiles of head h, in list order.
+    hopper::setmaxnreg_dec<wtc::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < count; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) hopper::mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
+        int pos;
+        const int r = wtc::window_at(i0 + t, a.per_pos, a.nb_pos, &pos);
+        uint8_t* stage = ring + st * L::kStage;
+        hopper::mbar_expect_tx(&full[st], L::kStage);
+        for (int part = 0; part < 3; ++part)
+          hopper::tma_load_5d(stage + part * kTileBytes, &qkv_map, &full[st],
+                              0, h, part, 0, r);
+        hopper::tma_load_4d(stage + 3 * kTileBytes, &g_map, &full[st], 0, h, 0,
+                            r);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: list entries wg, wg + 2, ...
+  hopper::setmaxnreg_inc<wtc::kConsumerRegs>();
+  const int wg = warp / 4 - 1, tid = threadIdx.x % 128;
+  const int row = (tid / 32) * 16 + lane / 4, t4 = lane % 4;   // and row + 8
+  const int nb_k = (a.d + 15) / 16;             // k16 steps over the head dim
+  const int nb_keys = (a.n + 15) / 16;          // k16 steps over the window
+  const int64_t nn = (int64_t)a.n * a.n;
+  uint8_t* own = smem + L::kOwn + wg * L::kOwnBytes;
+  uint8_t* p_s = own;                    // p, then dv
+  uint8_t* ds_s = own + kTileBytes;      // ds, then dk
+  uint8_t* dq_s = own + 2 * kTileBytes;  // dq
+  // The bias gradient's sum waits in shared memory between windows, so that
+  // the products' accumulators fit the registers beside the bias.
+  float* db_s = reinterpret_cast<float*>(smem + L::kSum) + wg * 32 * 128;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) db_s[128 * i + tid] = 0.f;
+  float bm[32];
+  int bm_pos = -1;
+  for (int t = wg; t < count; t += wtc::kConsumers) {
+    const int st = t % kStages;
+    int pos;
+    const int r = wtc::window_at(i0 + t, a.per_pos, a.nb_pos, &pos);
+    if (pos != bm_pos) {
+      // Staged in the p and ds tiles (16 KB), free once the last window's
+      // gradients are stored (load_bias's first barrier).
+      wtc::load_bias(bm, reinterpret_cast<float*>(p_s), a.bias + h * nn,
+                     a.mask == nullptr ? nullptr : a.mask + pos * nn, a.n,
+                     tid, 1 + wg);
+      bm_pos = pos;
+    }
+    const uint8_t* stage = ring + st * L::kStage;
+    const uint8_t* q_t = stage;
+    const uint8_t* k_t = stage + kTileBytes;
+    const uint8_t* v_t = stage + 2 * kTileBytes;
+    const uint8_t* g_t = stage + 3 * kTileBytes;
+    hopper::mbar_wait(&full[st], (t / kStages) & 1);
+
+    // S = q k^T and dP = g v^T, one group.
+    float s[32], dp[32];
+    wtc::zero(s);
+    wtc::zero(dp);
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < nb_k) {
+        hopper::wgmma_m64n64k16_ss<0>(s, hopper::sw128_desc(q_t) + 2 * ks,
+                                      hopper::sw128_desc(k_t) + 2 * ks, ks > 0);
+        hopper::wgmma_m64n64k16_ss<0>(dp, hopper::sw128_desc(g_t) + 2 * ks,
+                                      hopper::sw128_desc(v_t) + 2 * ks, ks > 0);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // p (f32, in s), delta = rowsum(p dp), ds (f32, in dp) and its sum.
+    const uint32_t clamped =
+        wtc::softmax_tile(s, bm, a.scale_log2, row < a.n, row + 8 < a.n);
+    float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) d_hi += s[i] * dp[i]; else d_lo += s[i] * dp[i];
+    }
+    d_lo = wtc::quad_sum(d_lo);
+    d_hi = wtc::quad_sum(d_hi);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      dp[i] = (clamped >> i) & 1u ? 0.f : s[i] * (dp[i] - (i & 2 ? d_hi : d_lo));
+      db_s[128 * i + tid] += dp[i];
+    }
+    // p and ds (bf16) into this warpgroup's tiles once every thread has
+    // stored the last window's gradients from them.
+    hopper::named_barrier(1 + wg, 128);
+    wtc::write_tile(p_s, s, 1.f, tid);
+    wtc::write_tile(ds_s, dp, 1.f, tid);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+
+    // dq = ds k (ds K-major) into its tile, then dk = ds^T q and dv = p^T g
+    // (p and ds transposed) in one group; all from shared memory, k, q and
+    // g MN-major. Two groups keep two accumulators live beside the bias:
+    // with all three ptxas spilled.
+    float dq[32];
+    wtc::zero(dq);
+    hopper::fence_regs(dq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (m < nb_keys)
+        hopper::wgmma_m64n64k16_ss<1>(dq, hopper::sw128_desc(ds_s) + 2 * m,
+                                      hopper::sw128_desc(k_t) + 128 * m, m > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
+    wtc::write_tile(dq_s, dq, a.scale, tid);
+    float dk[32], dv[32];
+    wtc::zero(dk);
+    wtc::zero(dv);
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (m < nb_keys) {
+        hopper::wgmma_m64n64k16_ss<1, 1>(dk, hopper::sw128_desc(ds_s) + 128 * m,
+                                         hopper::sw128_desc(q_t) + 128 * m,
+                                         m > 0);
+        hopper::wgmma_m64n64k16_ss<1, 1>(dv, hopper::sw128_desc(p_s) + 128 * m,
+                                         hopper::sw128_desc(g_t) + 128 * m,
+                                         m > 0);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+
+    // dk and dv into the own tiles (every warp's products have read p and
+    // ds), then dq, dk and dv's first n rows and d columns into the packed
+    // dqkv.
+    hopper::named_barrier(1 + wg, 128);
+    wtc::write_tile(ds_s, dk, a.scale, tid);
+    wtc::write_tile(p_s, dv, 1.f, tid);
+    hopper::named_barrier(1 + wg, 128);
+    const int64_t ld = 3 * (int64_t)a.nb_heads * a.d;
+    __nv_bfloat16* out = a.dqkv + (int64_t)r * a.n * ld + h * a.d;
+    wtc::store_rows(dq_s, out, ld, a.n, a.d, tid);
+    wtc::store_rows(ds_s, out + ld / 3, ld, a.n, a.d, tid);
+    wtc::store_rows(p_s, out + 2 * (ld / 3), ld, a.n, a.d, tid);
+  }
+
+  // The first warpgroup adds the second's sum to its own (a fixed order)
+  // and writes the block's partial.
+  hopper::named_barrier(3, 256);
+  if (wg == 1) return;
+  const float* other = db_s + 32 * 128;
+  float* part = a.partial + ((int64_t)blockIdx.x * a.nb_heads + h) * nn;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = row + (e & 2 ? 8 : 0), c = 8 * j + 2 * t4 + (e & 1);
+      const int i = 4 * j + e;
+      if (rr < a.n && c < a.n)
+        part[rr * a.n + c] = db_s[128 * i + tid] + other[128 * i + tid];
+    }
+}
+
+// maps: the qkv and g geometries of tma.py · window_bwd_maps.
+int launch_wgmma(const BwdArgs& b, const int64_t* maps, int groups,
+                 cudaStream_t stream) {
+  CUtensorMap tmaps[2];
+  const void* bases[2] = {b.qkv, b.g};
+  for (int i = 0; i < 2; ++i) {
+    const int err = hopper::encode_bf16_map(&tmaps[i], bases[i],
+                                            maps + i * hopper::kGeometrySize);
+    if (err != 0) return err;
+  }
+  const int nb_pos = b.mask == nullptr ? 1 : b.nb_win;
+  const TcArgs a = {b.bias, b.mask, static_cast<__nv_bfloat16*>(b.dqkv),
+                    b.partial, b.bw, b.n, b.d, b.nb_heads,
+                    b.bw / nb_pos, nb_pos, b.group, b.scale,
+                    b.scale * wtc::kLog2e};
+  constexpr int smem = TcTiles::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_mha_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  window_mha_bwd_wgmma_kernel<<<dim3(groups, b.nb_heads), wtc::kThreads, smem,
+                                stream>>>(tmaps[0], tmaps[1], a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // f32: FMA
 
 constexpr int kLaneRows = (kMaxN + 31) / 32;   // other-side rows per lane
@@ -663,14 +946,18 @@ bool aligned16(const void* ptr) {
 // (H, N, N) f32; mask (nb_win, N, N) f32 or null; dqkv (BW, N, 3 H d)
 // contiguous; partial: f32 scratch of (ceil(BW / group), H, N, N); dbias
 // (H, N, N) f32. group: windows per block. dtype: 0 = float32, 1 =
-// bfloat16. Returns a cudaError_t value (0 = ok).
+// bfloat16. maps: bf16 on tma.py · window_route only, else null: the
+// geometries of the qkv and g tensor maps (hopper::kGeometrySize int64
+// values each) of tma.py · packed_window_bwd_maps; they select the TMA +
+// wgmma body. Returns a cudaError_t value (0 = ok).
 extern "C" int tfimm_window_mha_bwd(const void* qkv, int64_t qkv_bs,
                                     int64_t qkv_rs, const void* g,
                                     const void* bias, const void* mask,
                                     void* dqkv, void* partial, void* dbias,
                                     int bw, int n, int nb_heads, int head_dim,
                                     int nb_win, int group, float scale,
-                                    int dtype, void* stream) {
+                                    int dtype, const int64_t* maps,
+                                    void* stream) {
   if (bw <= 0 || n <= 0 || n > kMaxN || nb_heads <= 0 || nb_heads > 65535 ||
       head_dim <= 0 || head_dim % 8 != 0 || head_dim > kMaxHeadDim ||
       nb_win <= 0 || bw % nb_win != 0 || group <= 0)
@@ -682,17 +969,25 @@ extern "C" int tfimm_window_mha_bwd(const void* qkv, int64_t qkv_bs,
                bw, n, nb_heads, head_dim, nb_win, group, scale, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
-  switch (dtype) {
-    case 0:
-      err = launch_f32(a, groups, s);
-      break;
-    case 1:
-      a.vec_qkv = aligned16(qkv) && (qkv_bs | qkv_rs) % 8 == 0;
-      a.vec_g = aligned16(g);
-      err = dispatch_bf16(a, groups, s);
-      break;
-    default:
+  if (maps != nullptr) {
+    if (dtype != 1 || n > wtc::kTile || head_dim > wtc::kTile)
       return (int)cudaErrorInvalidValue;
+    if (!aligned16(qkv) || !aligned16(g) || !aligned16(dqkv))
+      return (int)cudaErrorMisalignedAddress;
+    err = launch_wgmma(a, maps, groups, s);
+  } else {
+    switch (dtype) {
+      case 0:
+        err = launch_f32(a, groups, s);
+        break;
+      case 1:
+        a.vec_qkv = aligned16(qkv) && (qkv_bs | qkv_rs) % 8 == 0;
+        a.vec_g = aligned16(g);
+        err = dispatch_bf16(a, groups, s);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   if (err != 0) return err;
   const int count = nb_heads * n * n;

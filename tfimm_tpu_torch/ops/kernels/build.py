@@ -102,6 +102,7 @@ def _declare(lib):
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # BW, N, H, d
         ctypes.c_int,  # nb_windows of the mask
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        geometry,  # bf16 on tma.window_route: the Hopper body's maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_window_mha.restype = ctypes.c_int
@@ -115,6 +116,7 @@ def _declare(lib):
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # BW, N, H, d
         ctypes.c_int, ctypes.c_int,  # nb_windows of the mask, windows per block
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        geometry,  # bf16 on tma.window_route: the Hopper body's maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_window_mha_bwd.restype = ctypes.c_int
@@ -134,6 +136,7 @@ def _declare(lib):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, hidden, nb_windows
         ctypes.c_float, ctypes.c_float, ctypes.c_int,  # eps, scale, dtype code
         geometry,  # bf16: qkv's, proj's, fc1's and fc2's tensor maps; f32: NULL
+        geometry,  # bf16 on tma.window_route: the attention's maps, or NULL
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_swin_block.restype = ctypes.c_int

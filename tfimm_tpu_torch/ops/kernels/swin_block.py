@@ -23,7 +23,9 @@ tensors it runs ``swin_block_reference``. In bf16 its four products run
 contiguous 16-byte aligned operands and their tensor maps, and raises where
 ``tma.gemm_route`` declines them (a hidden width off a multiple of 8). On
 that body fc1's tanh GELU is s / (1 + e^(-2u)) after the rounding. In f32
-they run the FMA body. It has no backward: Swin calls it only where
+they run the FMA body. Its attention takes ``window_mha``'s TMA + wgmma body
+where ``tma.window_route`` takes the qkv scratch's slices (bf16, N <= 64,
+d <= 64), with their maps. It has no backward: Swin calls it only where
 autograd is not recording.
 """
 
@@ -40,7 +42,9 @@ from tfimm_tpu_torch.ops.kernels.tma import (
     GemmProduct,
     gemm_route,
     packed_gemm_maps,
+    packed_window_maps,
     sm_count,
+    window_route,
 )
 from tfimm_tpu_torch.ops.kernels.window_mha import (
     DTYPE_CODES,
@@ -196,7 +200,7 @@ def swin_block(x, params: SwinBlockParams, bias,
                "hid": torch.empty((m, hidden), dtype=dt, device=dev),
                "mean": torch.empty((m,), dtype=torch.float32, device=dev),
                "rstd": torch.empty((m,), dtype=torch.float32, device=dev)}
-    maps = None
+    maps = attn_maps = None
     if dt == torch.bfloat16:
         x = _aligned(x)
         mats = SwinBlockParams(*p)
@@ -207,9 +211,18 @@ def swin_block(x, params: SwinBlockParams, bias,
             raise ValueError(f"swin_block: bf16 runs the TMA + wgmma GEMMs, "
                              f"which need C and hidden multiples of 8 and C "
                              f"at most 4096; got C={c}, hidden={hidden}")
-        maps = packed_gemm_maps(*swin_gemm_products(m, c, hidden,
-                                                    sm_count(dev.index)))
+        sms = sm_count(dev.index)
+        maps = packed_gemm_maps(*swin_gemm_products(m, c, hidden, sms))
+        # The attention reads the three slices of the qkv scratch in place.
+        qkv = scratch["qkv"].view(bw, n, 3 * c)
+        d = c // nb_heads
+        if window_route(n, d, *(qkv[..., i * c:(i + 1) * c]
+                                for i in range(3))):
+            rows = qkv.stride()[:2]
+            attn_maps = packed_window_maps(bw, n, nb_heads, d, rows, rows,
+                                           rows, sms)
     launch("swin_block", kernel_library().tfimm_swin_block, x, *p[:4], bias,
            mask, *p[4:], *scratch.values(), out, bw, n, c, nb_heads, hidden,
-           nb_win, float(eps), float(scale), DTYPE_CODES[dt], maps)
+           nb_win, float(eps), float(scale), DTYPE_CODES[dt], maps,
+           attn_maps)
     return out

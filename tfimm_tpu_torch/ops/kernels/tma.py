@@ -41,7 +41,9 @@ __all__ = ["TILE", "ELEM_BYTES", "F32_BYTES", "SWIZZLE_BYTES",
            "sm_count",
            "CAIT_KEYS", "CAIT_MAX_HEADS", "CAIT_MAX_HEAD_DIM", "cait_route",
            "cait_maps", "cait_scratch_cols", "cait_scratch_map",
-           "packed_cait_maps"]
+           "packed_cait_maps", "window_route", "window_map", "window_maps",
+           "window_group", "packed_window_maps", "window_bwd_maps",
+           "packed_window_bwd_maps"]
 
 TILE = 64
 ELEM_BYTES = 2       # bf16: the attention maps and the GEMM's bf16 operands
@@ -360,3 +362,87 @@ def packed_cait_maps(b: int, n: int, nb_heads: int, d: int,
     if backward:
         maps = (*maps, cait_scratch_map(b, n, nb_heads))
     return geometry_array(*maps)
+
+
+# The window attention's Hopper bodies (csrc/window_mha.cu,
+# window_mha_bwd.cu; window_mha_common.cuh): one 64-row tile a window, one
+# 64-column chunk a head; a block owns one head and a group of its windows.
+
+
+def window_route(n: int, d: int, *tensors: torch.Tensor) -> bool:
+    """Whether the window attention's TMA + wgmma bodies take a call with
+    windows of ``n`` tokens and heads of ``d`` columns on these operands (q,
+    k and v for the forward; qkv and g for the backward; the wrappers
+    allocate out and dqkv contiguous), else the first bodies run: bf16,
+    N <= 64 and d a multiple of 8 up to 64 (every registered Swin at window
+    7, d = 32, and ``hf_swin``'s N = 16, d = 8), each operand's base on a
+    16-byte boundary, its last dimension unit-stride and its other strides
+    whole 16 bytes (TMA's rules; the three slices of a packed qkv keep
+    them)."""
+    if not (0 < n <= TILE and 0 < d <= TILE and d % 8 == 0):
+        return False
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+               and t.stride(-1) == 1
+               and all(s * ELEM_BYTES % 16 == 0 for s in t.stride()[:-1])
+               for t in tensors)
+
+
+def window_map(bw: int, n: int, nb_heads: int, d: int,
+               stride: Tuple[int, int]) -> TensorMapGeometry:
+    """A (BW, N, H*d) operand with element strides ``stride`` (window, row;
+    unit along the last dim) as (d, H, N, BW): a (64, 1, 64, 1) box at
+    (0, h, 0, r) is head h of window r, zeros past d and past N."""
+    e = ELEM_BYTES
+    return TensorMapGeometry(dims=(d, nb_heads, n, bw),
+                             strides=(e * d, e * stride[1], e * stride[0]),
+                             box=(TILE, 1, TILE, 1))
+
+
+def window_maps(bw: int, n: int, nb_heads: int, d: int, *strides):
+    """(q, k, v) of the forward, each with its own (window, row) strides.
+    The kernels write their outputs by plain stores, not through maps."""
+    return tuple(window_map(bw, n, nb_heads, d, s) for s in strides)
+
+
+def window_group(bw: int, nb_heads: int, sms: int) -> int:
+    """Windows a block of the Hopper bodies walks: the windows of a head in
+    groups, as many groups as make one block an SM at most
+    (``sms // nb_heads`` a head, at least one)."""
+    groups = max(1, min(bw, sms // nb_heads))
+    return -(-bw // groups)
+
+
+@functools.lru_cache(maxsize=256)
+def packed_window_maps(bw: int, n: int, nb_heads: int, d: int,
+                       q_stride: Tuple[int, int], k_stride: Tuple[int, int],
+                       v_stride: Tuple[int, int], sms: int) -> ctypes.Array:
+    """``window_maps`` of a bf16 forward, packed, then its
+    ``window_group``."""
+    maps = window_maps(bw, n, nb_heads, d, q_stride, k_stride, v_stride)
+    values = [v for m in maps for v in m.pack()]
+    values.append(window_group(bw, nb_heads, sms))
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+def window_bwd_maps(bw: int, n: int, nb_heads: int, d: int,
+                    qkv_stride: Tuple[int, int]):
+    """(qkv, g) of the backward: qkv (BW, N, 3*H*d), its last dim in (3,
+    H, d) order, through its own (window, row) strides as (d, H, 3, N, BW),
+    so that a (64, 1, 1, 64, 1) box at (0, h, part, 0, r) is head h of
+    window r's q (part 0), k (1) or v (2); g (BW, N, H*d) contiguous as
+    ``window_map``."""
+    e = ELEM_BYTES
+    qkv = TensorMapGeometry(
+        dims=(d, nb_heads, 3, n, bw),
+        strides=(e * d, e * nb_heads * d, e * qkv_stride[1],
+                 e * qkv_stride[0]),
+        box=(TILE, 1, 1, TILE, 1))
+    return qkv, window_map(bw, n, nb_heads, d,
+                           (n * nb_heads * d, nb_heads * d))
+
+
+@functools.lru_cache(maxsize=256)
+def packed_window_bwd_maps(bw: int, n: int, nb_heads: int, d: int,
+                           qkv_stride: Tuple[int, int]) -> ctypes.Array:
+    """``window_bwd_maps`` of a bf16 backward, packed."""
+    return geometry_array(*window_bwd_maps(bw, n, nb_heads, d, qkv_stride))

@@ -18,7 +18,11 @@ On a CUDA tensor ``window_mha`` launches the hand-written kernel of
 design and what bounds it) and raises on what it does not take; on CPU
 tensors it runs ``window_mha_reference``. The kernel reads q, k and v
 through their strides, so three slices of a packed qkv need no copy. It
-takes bf16 and f32, N up to 144 and d a multiple of 8 up to 128.
+takes bf16 and f32, N up to 144 and d a multiple of 8 up to 128. Calls that
+``tma.window_route`` takes (bf16, N <= 64, d <= 64, 16-byte aligned
+operands: every registered Swin at window 7) run the TMA + wgmma bodies of
+both kernels, with the tensor maps of ``tma.packed_window_maps`` and
+``tma.packed_window_bwd_maps``; the others run the first bodies.
 
 The backward, ``window_mha_bwd``, gives dqkv in the packed (BW, N, 3C)
 layout and dbias (H, N, N) in f32, summed over the windows; the mask gets
@@ -41,6 +45,13 @@ from tfimm_tpu_torch.ops.kernels.dispatch import (
     softmax_clamp_grad_mask,
     softmax_nomax,
 )
+from tfimm_tpu_torch.ops.kernels.tma import (
+    packed_window_bwd_maps,
+    packed_window_maps,
+    sm_count,
+    window_group,
+    window_route,
+)
 
 __all__ = ["window_mha", "window_mha_reference", "window_mha_supports",
            "window_mha_bwd", "window_mha_bwd_reference", "window_mha_packed"]
@@ -48,9 +59,10 @@ __all__ = ["window_mha", "window_mha_reference", "window_mha_supports",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TOKENS = 144          # window 12
 MAX_HEAD_DIM = 128
-# The backward kernel runs one block per (group of windows, head) and sums
-# each group's bias gradient in the block; the group size is chosen so that
-# about this many blocks run.
+# The backward's first bodies run one block per (group of windows, head)
+# and sum each group's bias gradient in the block; the group size is chosen
+# so that about this many blocks run (the Hopper body's by
+# ``tma.window_group``).
 BWD_BLOCKS = 1024
 
 
@@ -180,10 +192,16 @@ def window_mha(q, k, v, bias, mask: Optional[torch.Tensor] = None, *,
     if mask is not None:
         mask = mask.float().contiguous()
         nb_win = mask.shape[0]
+    d = c // nb_heads
+    maps = None
+    if window_route(n, d, q, k, v):
+        maps = packed_window_maps(bw, n, nb_heads, d, q.stride()[:2],
+                                  k.stride()[:2], v.stride()[:2],
+                                  sm_count(q.device.index))
     launch("window_mha", kernel_library().tfimm_window_mha, q, k, v,
            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-           v.stride(1), bias, mask, out, bw, n, nb_heads, c // nb_heads,
-           nb_win, float(scale), DTYPE_CODES[q.dtype])
+           v.stride(1), bias, mask, out, bw, n, nb_heads, d, nb_win,
+           float(scale), DTYPE_CODES[q.dtype], maps)
     return out
 
 
@@ -213,7 +231,13 @@ def window_mha_bwd(qkv, g, bias, mask: Optional[torch.Tensor] = None, *,
                         device=qkv.device)
     if bw == 0:
         return dqkv, dbias.zero_()
-    group = max(1, -(-bw * nb_heads // BWD_BLOCKS))     # windows per block
+    d = c // nb_heads
+    maps = None
+    if window_route(n, d, qkv, g):
+        group = window_group(bw, nb_heads, sm_count(qkv.device.index))
+        maps = packed_window_bwd_maps(bw, n, nb_heads, d, qkv.stride()[:2])
+    else:
+        group = max(1, -(-bw * nb_heads // BWD_BLOCKS))   # windows per block
     partial = torch.empty((-(-bw // group), nb_heads, n, n),
                           dtype=torch.float32, device=qkv.device)
     bias = bias.float().contiguous()
@@ -223,8 +247,8 @@ def window_mha_bwd(qkv, g, bias, mask: Optional[torch.Tensor] = None, *,
         nb_win = mask.shape[0]
     launch("window_mha_bwd", kernel_library().tfimm_window_mha_bwd, qkv,
            qkv.stride(0), qkv.stride(1), g, bias, mask, dqkv, partial, dbias,
-           bw, n, nb_heads, c // nb_heads, nb_win, group, float(scale),
-           DTYPE_CODES[qkv.dtype])
+           bw, n, nb_heads, d, nb_win, group, float(scale),
+           DTYPE_CODES[qkv.dtype], maps)
     return dqkv, dbias
 
 

@@ -196,12 +196,17 @@ which ends the run with a non-zero exit code on failure:
    share.
 19. ``pvt_sra`` against its plain version on the card at pvt_v2_b2's stage 1
    at batch 128 (N = 3136, S = 49, C = 64; pvt_small's and
-   pvt_v2_b2_linear's too), pvt_v2_b0's C = 32, S = 256, a ragged N and
-   C = 512, in bf16 and in f32 with TF32 off, within 2e-2 and 1e-5 of the
-   largest plain value. Control: the plain version with k and v swapped
-   must miss the bar by ``CONTROL_FACTOR``. Kernel, plain and bound times,
-   and the library's ``F.linear`` + ``F.scaled_dot_product_attention`` +
-   ``F.linear`` on the same inputs.
+   pvt_v2_b2_linear's too), pvt_v2_b0's C = 32, S = 256, a ragged N,
+   C = 512 and 300 images of one 64-row tile each (three tiles on some
+   blocks of the TMA + wgmma body, whose two consumers then take alternate
+   images), in bf16 and in f32 with TF32 off, within 2e-2 and 1e-5 of the
+   largest plain value; each case's body read from one profile of them
+   all (the TMA + wgmma body where ``tma.sra_route`` takes the call, the
+   first bodies elsewhere). Control: the plain version with k and v
+   swapped must miss the bar by ``CONTROL_FACTOR``. At every bf16 shape, kernel, plain and
+   library times with the operands out of L2 (``cold_ms``; the library
+   is ``F.linear`` + ``F.scaled_dot_product_attention`` + ``F.linear`` on
+   the same inputs), the bound, and the kernel back to back in L2.
 20. PVT serving: ``pvt_v2_b2`` in bf16 with seeded random weights answers
    5 requests of 128 uint8 224x224 images with ``TFIMM_TPU_FUSED_PVT_SRA=1``
    (3 ``pvt_sra`` launches a request, stage 1) and again with it off (0);
@@ -293,12 +298,16 @@ which ends the run with a non-zero exit code on failure:
    with O = 40 and no bias, ViT-L's C = 1024, C = 100, C = 3072), in bf16
    and in f32 with TF32 off: the output and dx within 2e-2 and 1e-5,
    dgamma, dbeta, dW and db within 2e-2 and 1e-4 of the largest plain
-   value; two backward calls bit-identical. Then, with the operands out of
-   L2, kernel, plain, bound and library times at the training and serving
-   shapes: the library is one eager ``F.layer_norm`` + ``F.linear``
-   (cuBLAS) on the same operands, for the backward that composition's
-   autograd backward alone; beside it the port's own eager pair
-   (``ops/norm.py · LayerNorm`` then ``Dense``).
+   value; two backward calls bit-identical; each backward's body read from
+   one profile of them all (the TMA + wgmma body where
+   ``tma.ln_dense_bwd_route`` takes the call). Then, with the operands out
+   of L2, kernel, plain, bound and library times at the training and
+   serving shapes: the library is one eager ``F.layer_norm`` +
+   ``F.linear`` (cuBLAS) on the same operands, for the backward that
+   composition's autograd backward alone; beside it the port's own eager
+   pair (``ops/norm.py · LayerNorm`` then ``Dense``); and, from one more
+   profile, each launch of the backward and the library backward's device
+   time, out of L2.
 32. ``ln_dense_or_none`` at its place in ViT-B/16: a bf16 model with seeded
    weights runs a bs64 batch; on each of its 12 blocks' real inputs the op
    against the block's own ``norm1`` -> ``attn.qkv`` and ``norm2`` ->
@@ -340,6 +349,7 @@ path, and lists only the kernels those phases measured in full.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -512,9 +522,10 @@ SAM_GRAD_PARAMS = ("image_encoder.blocks.2.attn.rel_pos_h",
                    "image_encoder.blocks.0.attn.qkv.weight")
 SAM_FINETUNE_IMAGES = 2
 # pvt_sra (B, N, S, C): pvt_v2_b2's stage 1 at batch 128 (pvt_small's and
-# pvt_v2_b2_linear's too), pvt_v2_b0's C = 32, S = 256, a ragged N, C = 512.
+# pvt_v2_b2_linear's too), pvt_v2_b0's C = 32, S = 256, a ragged N, C = 512,
+# one 64-row tile an image over three tiles a block.
 SRA_SHAPES = [(128, 3136, 49, 64), (128, 3136, 49, 32), (16, 3136, 256, 64),
-              (4, 3001, 49, 64), (2, 64, 49, 512)]
+              (4, 3001, 49, 64), (2, 64, 49, 512), (300, 49, 49, 64)]
 SRA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # PVT serving: (model, the SRA switch, pvt_sra launches a request).
 PVT_RUNS = [("pvt_v2_b2", "1", 3), ("pvt_v2_b2", "0", 0), ("pvt_small", "1", 3),
@@ -602,6 +613,10 @@ EMBED_DIM = 128
 EMBED_LAUNCHES = {"convnext_mlp": 36}
 # The 50 MB L2 is evicted before each cold-timed call by a write this large.
 L2_FLUSH_BYTES = 512 * 2 ** 20
+# Tiny launches that open and close each short profile (profile_pad).
+PROFILE_PAD = 256
+# profile_cases' range that names the flush's kernel.
+FLUSH_RANGE = "chip_smoke flush"
 CONTROL_FACTOR = 5.0
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -676,9 +691,11 @@ def print_registers(build_log: str) -> None:
     poolformer_block's products among them, and tile width), the
     tiled depthwise + LayerNorm launch of ``convnext_block.cu`` and the
     talking-head kernels' Hopper launches (``cait_attention.cu`` and
-    ``cait_attention_bwd.cu``, per padded head count) and the window
-    attention's (``window_mha.cu``, ``window_mha_bwd.cu``); nothing when
-    the library was built by an earlier process."""
+    ``cait_attention_bwd.cu``, per padded head count), the window
+    attention's (``window_mha.cu``, ``window_mha_bwd.cu``), ``pvt_sra.cu``'s
+    and ``ln_dense.cu``'s backward (its two GEMMs per tile width, its dx
+    pass per column chunks); nothing when the library was built by an
+    earlier process."""
     import re
 
     lines = build_log.splitlines()
@@ -694,8 +711,9 @@ def print_registers(build_log: str) -> None:
                           r"_wgmma_kernel|"
                           r"convnext_block_dw_ln_tile_kernel)ILi(\d+)E", line)
         cait = re.search(r"Function properties for \S*?((?:talking_head_|"
-                         r"window_mha)\w*?_wgmma_kernel)(?:ILi(\d+)E)?",
-                         line)
+                         r"window_mha)\w*?_wgmma_kernel|pvt_sra_wgmma_kernel|"
+                         r"ln_dense_d[zw]_wgmma_kernel|ln_dense_dx_rows_kernel)"
+                         r"(?:ILi(\d+)E)?", line)
         if not (found or tiled or cait) or (found or tiled or cait).groups() in seen:
             continue
         seen.add((found or tiled or cait).groups())
@@ -705,6 +723,9 @@ def print_registers(build_log: str) -> None:
         if cait:
             name, nh = cait.groups()
             heads = f", heads padded to NH = {nh}" if nh else ""
+            if name.startswith("ln_dense"):
+                heads = (f", {nh} column chunks" if "rows" in name
+                         else f", output tile columns {nh}")
             split = (" (setmaxnreg then splits them between the warpgroups)"
                      if name.startswith("talking_head") else "")
             print(f"ptxas: {name}{heads}: {regs} registers a thread at launch"
@@ -1133,6 +1154,105 @@ def print_launch_parts(what, names, kernel) -> None:
               f"request", flush=True)
 
 
+def profile_pad(flush) -> None:
+    """PROFILE_PAD tiny launches (fills of ``flush``, which the readers
+    leave out), a synchronize and a 50 ms pause, at each end of a short
+    profile. In some full runs on the H100 the sessions after phase 18
+    lost their first few records and all from some point on (one with
+    4,096 fills ahead of its calls kept 4,091 of them and no call; one
+    padded after its calls kept all but its first six); the cause is not
+    known. The pads keep the calls away from both ends."""
+    import torch
+
+    for _ in range(PROFILE_PAD):
+        flush[:4].fill_(0.0)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def profile_cases(cases: dict, tries: int = 5) -> dict:
+    """The device events of a phase's cases, from one profile: ``cases``
+    maps a label to (fn, calls, keys); the label's ``calls`` calls of
+    ``fn``, each after a negation in place of L2_FLUSH_BYTES (so its
+    operands are out of L2; a kernel ``fn`` does not launch, whose name is
+    read from a range of its own ahead of the cases), run in one
+    ``record_function(label)`` range that opens with a 1 ms pause and ends
+    with a synchronize, so that the device's clock, as the profile aligns
+    it with the host's, places each launch inside its range. Returns
+    {label: [(name, ms), ...]}, the device events that started inside the
+    label's range, the flush's left out. A profile in which the flush's
+    range kept no event, or a label's range holds no flush or more than
+    ``calls`` (its events would not be its own), no other event, or none
+    whose name holds a key of ``keys``, is taken again two seconds later,
+    up to ``tries`` in all; then the phase fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for fn, _, _ in cases.values():
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profile_pad(flush)
+            with record_function(FLUSH_RANGE):
+                flush.neg_()
+                torch.cuda.synchronize()
+            for label, (fn, calls, _) in cases.items():
+                with record_function(label):
+                    time.sleep(0.001)
+                    for _ in range(calls):
+                        flush.neg_()
+                        fn()
+                    torch.cuda.synchronize()
+            profile_pad(flush)
+        ranges = {evt.name: evt.time_range for evt in prof.events()
+                  if evt.device_type == cpu
+                  and (evt.name in cases or evt.name == FLUSH_RANGE)}
+        device = [(evt.time_range.start, evt.name,
+                   evt.time_range.elapsed_us() / 1e3)
+                  for evt in prof.events() if evt.device_type == cuda
+                  and not getattr(evt, "is_user_annotation", False)]
+
+        def inside(label):
+            span = ranges.get(label)
+            return [(name, ms) for start, name, ms in device
+                    if span is not None and span.start <= start <= span.end]
+
+        flush_names = {name for name, _ in inside(FLUSH_RANGE)}
+        found, short = {}, [] if flush_names else ["the flush"]
+        for label, (_, calls, keys) in cases.items():
+            events = inside(label)
+            found[label] = [(name, ms) for name, ms in events
+                            if name not in flush_names]
+            flushes = len(events) - len(found[label])
+            if (not 0 < flushes <= calls or not found[label]
+                    or any(not any(k in name for name, _ in found[label])
+                           for k in keys)):
+                short.append(f"{label} ({flushes} flushes, "
+                             f"{sorted({n[:60] for n, _ in found[label]})})")
+        if not short:
+            return found
+        print(f"profile {attempt} of {tries} lacks {short}", flush=True)
+        time.sleep(2.0)
+    raise SmokeFailure(f"{tries} profiles in a row lacked the launches of "
+                       f"some of {list(cases)}")
+
+
+def launch_means(events, calls: int) -> dict:
+    """Device ms of every kernel in ``events`` (name, ms) of ``calls``
+    calls, by name: a name's mean over its events, times its launches a
+    call."""
+    by_name = {}
+    for name, t in events:
+        by_name.setdefault(name, []).append(t)
+    return {name: statistics.mean(ts) * max(1, round(len(ts) / calls))
+            for name, ts in by_name.items()}
+
+
 def cold_device_events(fn, calls: int = 3, tries: int = 5,
                        need=()) -> list:
     """The device events (name, ms) of ``calls`` calls of ``fn`` from one
@@ -1140,8 +1260,8 @@ def cold_device_events(fn, calls: int = 3, tries: int = 5,
     out of L2; the flush's own fill left out. ``need`` lists the launches
     the profile must hold, each as a tuple of name keys of which one must
     be in an event's name. A profile that kept no device event, or none of
-    a needed launch (a profile may drop events), is taken again, up to
-    ``tries`` profiles in all; then the phase fails."""
+    a needed launch (a profile may drop events), is taken again two seconds
+    later, up to ``tries`` profiles in all; then the phase fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1152,10 +1272,12 @@ def cold_device_events(fn, calls: int = 3, tries: int = 5,
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            profile_pad(flush)
             for _ in range(calls):
                 flush.fill_(1.0)
                 fn()
             torch.cuda.synchronize()
+            profile_pad(flush)
         events = [(evt.name, evt.time_range.elapsed_us() / 1e3)
                   for evt in prof.events()
                   if evt.device_type == torch.autograd.DeviceType.CUDA
@@ -1168,6 +1290,7 @@ def cold_device_events(fn, calls: int = 3, tries: int = 5,
         kept = f"no launch of {missing}" if events else "no device event"
         print(f"profile {attempt} of {tries} kept {kept}: {names}",
               flush=True)
+        time.sleep(2.0)
     raise SmokeFailure(f"{tries} profiles in a row kept no device event or "
                        f"no launch of one of {list(need)}")
 
@@ -1205,13 +1328,8 @@ def launch_keys(kernel, skip=()) -> list:
 def cold_call_kernels(fn, calls: int = 3, need=()) -> dict:
     """Device ms of every kernel one call of ``fn`` launches, by name, its
     operands out of L2 (``cold_device_events``, which retakes a profile
-    without a launch that ``need`` names): a name's mean over its events,
-    times its launches a call."""
-    by_name = {}
-    for name, t in cold_device_events(fn, calls, need=need):
-        by_name.setdefault(name, []).append(t)
-    return {name: statistics.mean(ts) * max(1, round(len(ts) / calls))
-            for name, ts in by_name.items()}
+    without a launch that ``need`` names; ``launch_means``)."""
+    return launch_means(cold_device_events(fn, calls, need=need), calls)
 
 
 def run_watched(config):
@@ -3588,12 +3706,35 @@ def sra_bound(b, n, s, c):
     return bound(nbytes, 2 * b * n * c * (2 * c + 2 * s))
 
 
+def body_of(events) -> str:
+    """The body a call ran, from its device events (``profile_cases``):
+    "wgmma" where one of its kernels is a TMA + wgmma body (its name holds
+    "wgmma"), else "first"."""
+    return "wgmma" if any("wgmma" in name for name, _ in events) else "first"
+
+
+def sra_body_expected(dtype, s, c) -> str:
+    """The body ``tma.sra_route`` sends a ``pvt_sra`` call with contiguous
+    16-byte aligned operands (every case here) to."""
+    import torch
+
+    return "wgmma" if (dtype == torch.bfloat16 and c % 16 == 0 and c <= 64
+                       and s <= 64) else "first"
+
+
 def phase_sra_kernel(report, gpu_line):
+    """Phase 19: ``pvt_sra`` against its plain version at every shape in
+    both dtypes, a control; each case's body read from one profile of
+    them all, printed and checked; then,
+    at every bf16 shape, the kernel, its plain version and F.linear + SDPA
+    + F.linear with their operands out of L2 (``cold_ms``), and the kernel
+    back to back in L2."""
     import torch
     import torch.nn.functional as F
 
     from tfimm_tpu_torch.ops.kernels.pvt_sra import pvt_sra, pvt_sra_reference
 
+    calls, cases = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for i, (b, n, s, c) in enumerate(SRA_SHAPES):
@@ -3609,6 +3750,9 @@ def phase_sra_kernel(report, gpu_line):
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"pvt_sra disagrees with its plain version ({what}): "
                   f"{err} > {bar}")
+            calls[what] = (functools.partial(pvt_sra, x, kv, wq, bq, wp, bp,
+                                             scale), 1, ("pvt_sra_",))
+            cases[what] = (dtype, b, n, s, c)
             if dtype == torch.bfloat16 and i == 0:
                 report["max_abs_err"] = err
                 # Control: the plain version with k and v swapped must miss.
@@ -3622,27 +3766,54 @@ def phase_sra_kernel(report, gpu_line):
                       "within the bar")
             del x, kv, got, ref
 
-    b, n, s, c = SRA_SHAPES[0]
-    x, kv, wq, bq, wp, bp = sra_inputs(b, n, s, c, torch.bfloat16, 2000)
-    scale = c ** -0.5
-    k, v = kv[..., :c].unsqueeze(1), kv[..., c:].unsqueeze(1)
-    bq16, bp16 = bq.to(torch.bfloat16), bp.to(torch.bfloat16)
+    bodies = {}
+    for what, events in profile_cases(calls).items():
+        dtype, b, n, s, c = cases[what]
+        body = body_of(events)
+        print(f"pvt_sra {what}: body {body}", flush=True)
+        check(body == sra_body_expected(dtype, s, c),
+              f"pvt_sra ({what}) ran the {body} body")
+        bodies[str(dtype).split(".")[1], b, n, s, c] = body
+    del calls
 
-    def library():
-        q = F.linear(x, wq, bq16) * scale
-        o = F.scaled_dot_product_attention(q.unsqueeze(1), k, v, scale=1.0)
-        return F.linear(o.squeeze(1), wp, bp16)
+    for i, (b, n, s, c) in enumerate(SRA_SHAPES):
+        x, kv, wq, bq, wp, bp = sra_inputs(b, n, s, c, torch.bfloat16,
+                                           2000 + i)
+        scale = c ** -0.5
+        k, v = kv[..., :c].unsqueeze(1), kv[..., c:].unsqueeze(1)
+        bq16, bp16 = bq.to(torch.bfloat16), bp.to(torch.bfloat16)
 
-    report["ms"] = cuda_time_ms(lambda: pvt_sra(x, kv, wq, bq, wp, bp, scale))
-    report["plain_ms"] = cuda_time_ms(lambda: pvt_sra_reference(
-        x, kv[..., :c], kv[..., c:], wq, bq, wp, bp, scale), iters=5)
-    report["library_ms"] = cuda_time_ms(library)
-    report["bound_ms"], report["bound_by"] = sra_bound(b, n, s, c)
-    print(f"pvt_sra bf16 {SRA_SHAPES[0]}: kernel {report['ms']!r} ms, "
-          f"{report['bound_ms'] / report['ms']!r} of the bound "
-          f"{report['bound_ms']!r} ms ({report['bound_by']}); plain "
-          f"{report['plain_ms']!r} ms; F.linear + scaled_dot_product_attention"
-          f" + F.linear {report['library_ms']!r} ms; on {gpu_line}", flush=True)
+        def kernel():
+            return pvt_sra(x, kv, wq, bq, wp, bp, scale)
+
+        def library():
+            q = F.linear(x, wq, bq16) * scale
+            o = F.scaled_dot_product_attention(q.unsqueeze(1), k, v,
+                                               scale=1.0)
+            return F.linear(o.squeeze(1), wp, bp16)
+
+        times = {"ms": cold_ms(kernel), "ms_in_l2": cuda_time_ms(kernel),
+                 "plain_ms": cold_ms(lambda: pvt_sra_reference(
+                     x, kv[..., :c], kv[..., c:], wq, bq, wp, bp, scale),
+                     calls=3, warmup=1),
+                 "library_ms": cold_ms(library)}
+        times["bound_ms"], times["bound_by"] = sra_bound(b, n, s, c)
+        times["shape"] = (b, n, s, c)
+        if i == 0:
+            report.update(times)
+        else:
+            report.setdefault("shapes", []).append(times)
+        times["body"] = bodies["bfloat16", b, n, s, c]
+        print(f"pvt_sra bf16 (B, N, S, C) = {(b, n, s, c)} "
+              f"({times['body']} body), operands "
+              f"out of L2: kernel {times['ms']!r} ms, "
+              f"{times['bound_ms'] / times['ms']!r} of the bound "
+              f"{times['bound_ms']!r} ms ({times['bound_by']}); plain "
+              f"{times['plain_ms']!r} ms; F.linear + scaled_dot_product_"
+              f"attention + F.linear {times['library_ms']!r} ms; back to back "
+              f"in L2: kernel {times['ms_in_l2']!r} ms; on {gpu_line}",
+              flush=True)
+        del x, kv
 
 
 def family_requests(model, pp, requests, launches, batch=BATCH):
@@ -4714,6 +4885,17 @@ def eager_pair(gamma, beta, w, b):
             [*norm.parameters(), *dense.parameters()])
 
 
+def ln_dense_bwd_body_expected(dtype, c, o) -> str:
+    """The body ``tma.ln_dense_bwd_route`` sends a backward with contiguous
+    16-byte aligned operands (every case here) to."""
+    import torch
+
+    from tfimm_tpu_torch.ops.kernels.tma import LN_BWD_MAX_DIM
+
+    return "wgmma" if (dtype == torch.bfloat16 and c % 8 == 0 and o % 8 == 0
+                       and c <= LN_BWD_MAX_DIM) else "first"
+
+
 def backward_of(fn, x, params, g):
     """A closure that runs the autograd backward alone of ``fn(x)`` with
     respect to x and ``params`` (the graph is built once and kept)."""
@@ -4726,7 +4908,9 @@ def backward_of(fn, x, params, g):
 
 def phase_ln_dense_kernel(reports, gpu_line):
     """Phase 31: ``ln_dense`` and its backward against their plain
-    versions, then the times."""
+    versions, each backward's body read from one profile of them all; then
+    the times, with the backward's launches and the library backward's
+    device time from one more profile."""
     import torch
 
     from tfimm_tpu_torch.ops.kernels.ln_dense import (
@@ -4738,6 +4922,7 @@ def phase_ln_dense_kernel(reports, gpu_line):
 
     cases = [(*shape, True) for shape in LN_DENSE_TRAIN] + LN_DENSE_EDGES
     names = ("dx", "dgamma", "dbeta", "dW", "db")
+    calls, expect = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for i, (m, c, o, bias) in enumerate(cases):
@@ -4759,6 +4944,10 @@ def phase_ln_dense_kernel(reports, gpu_line):
                                           LN_DENSE_EPS)
             torch.cuda.synchronize()
             check((got[4] is None) == (not bias), f"ln_dense_bwd db ({what})")
+            calls[what] = (functools.partial(ln_dense_bwd, x, gamma, beta, w,
+                                             gy, bias, LN_DENSE_EPS),
+                           1, ("ln_dense_d",))
+            expect[what] = ln_dense_bwd_body_expected(dtype, c, o)
             errs = []
             for k, (a, r) in enumerate(zip(got, want)):
                 if r is None:
@@ -4778,7 +4967,14 @@ def phase_ln_dense_kernel(reports, gpu_line):
                 print(f"ln_dense_bwd {what}: two calls bit-identical ok",
                       flush=True)
             del x, gamma, beta, w, b, gy, y, ref, got, want
+    for what, events in profile_cases(calls).items():
+        body = body_of(events)
+        print(f"ln_dense_bwd {what}: body {body}", flush=True)
+        check(body == expect[what], f"ln_dense_bwd ({what}) ran the {body} "
+              f"body")
+    del calls
 
+    calls, timed = {}, {}
     for backward in (False, True):
         name = "ln_dense_bwd" if backward else "ln_dense"
         shapes = LN_DENSE_TRAIN + ([] if backward else LN_DENSE_SERVE)
@@ -4816,10 +5012,19 @@ def phase_ln_dense_kernel(reports, gpu_line):
             times["bound_ms"], times["bound_by"] = ln_dense_bound(m, c, o,
                                                                   backward)
             times["shape"] = (m, c, o)
+            if backward:
+                what = f"ln_dense_bwd bf16 (M, C, O) = ({m}, {c}, {o})"
+                times["host_ms"] = host_ms_per_call(what, fns["ms"])
+                calls[what] = (functools.partial(
+                    ln_dense_bwd, x, gamma, beta, w, gy, True, LN_DENSE_EPS),
+                    3, ("ln_dense_d",))
+                calls[what + " library"] = (fns["library_ms"], 3, ())
             if j == 0:
                 reports[name].update(times)
             else:
                 reports[name].setdefault("shapes", []).append(times)
+            if backward:
+                timed[what] = reports[name] if j == 0 else times
             print(f"{name} bf16 (M, C, O) = ({m}, {c}, {o}), operands out of "
                   f"L2: kernel {times['ms']!r} ms, "
                   f"{times['bound_ms'] / times['ms']!r} of the bound "
@@ -4829,6 +5034,22 @@ def phase_ln_dense_kernel(reports, gpu_line):
                   f"ms; the port's LayerNorm + Dense{' backward' if backward else ''} "
                   f"{times['eager_ms']!r} ms; on {gpu_line}", flush=True)
             del x, gamma, beta, w, b, gy, eager, eager_params, fns
+
+    events = profile_cases(calls)
+    for what, times in timed.items():
+        times["launch_cold_ms"] = launch_means(events[what], 3)
+        for kernel, ms in sorted(times["launch_cold_ms"].items()):
+            print(f"{what} launch {kernel[:70]}: {ms!r} ms out of L2 "
+                  f"(profiler)", flush=True)
+        times["device_ms"] = sum(times["launch_cold_ms"].values())
+        times["library_device_ms"] = sum(
+            launch_means(events[what + " library"], 3).values())
+        print(f"{what}: its launches' device time {times['device_ms']!r} ms "
+              f"out of L2, the wrapper's host time {times['host_ms']!r} ms a "
+              f"call; F.layer_norm + F.linear backward's device time "
+              f"{times['library_device_ms']!r} ms out of L2 (profiler), its "
+              f"event time {times['library_ms']!r} ms; on {gpu_line}",
+              flush=True)
 
 
 def phase_ln_dense_vit(reports, gpu_line):
@@ -5316,7 +5537,8 @@ def main(argv) -> int:
                       "cold_ms", "library_cold_ms", "warm_ms",
                       "library_warm_ms", "host_ms", "launch_cold_ms",
                       "recompute_ms", "per_op_ms", "per_op_cold_ms",
-                      "cublas_floor_cold_ms", "stages", "device_ms"):
+                      "cublas_floor_cold_ms", "stages", "device_ms",
+                      "library_device_ms"):
             if extra in report:
                 entry[extra] = report[extra]
         kernels.append(entry)

@@ -1135,6 +1135,14 @@ def _hopper_launch(name, device):
     if name == "poolformer_block":
         args = _pool_inputs(2, 28, 28, 128, 512, torch.bfloat16, device, 11)
         return lambda: poolformer_block(*args)
+    if name == "pvt_sra":
+        x, kv, wq, bq, wp, bp = _sra_inputs(4, 3136, 49, 64, torch.bfloat16,
+                                            device, 11)
+        return lambda: pvt_sra(x, kv, wq, bq, wp, bp, 0.125)
+    if name == "ln_dense_bwd":
+        x, gamma, beta, w, _, gy = _ln_dense_inputs(394, 768, 2304, True,
+                                                    torch.bfloat16, device, 11)
+        return lambda: ln_dense_bwd(x, gamma, beta, w, gy, True, 1e-6)
     args = _convnext_inputs(3136, 128, 512, torch.bfloat16, device, seed=11)
     return lambda: convnext_mlp(*args, 1e-6)
 
@@ -1142,7 +1150,8 @@ def _hopper_launch(name, device):
 @pytest.mark.parametrize("name", [
     "fused_mha", "fused_mha_bwd", "flash_attention", "flash_attention_bwd",
     "flash_attention_relpos", "flash_attention_relpos_bwd", "convnext_mlp",
-    "swin_block", "poolformer_block", "window_mha", "window_mha_bwd"])
+    "swin_block", "poolformer_block", "window_mha", "window_mha_bwd",
+    "pvt_sra", "ln_dense_bwd"])
 def test_hopper_launchers_run_first_on_a_new_thread(card, name):
     """As the talking-head kernels: every launcher that encodes tensor maps
     binds the thread's context first (``hopper.cuh · encode_bf16_map``)."""
@@ -1619,6 +1628,59 @@ def test_pvt_sra_refuses_what_it_does_not_take(card):
         pvt_sra(x, kv, wq.cpu(), bq, wp, bp, 0.125)
     with pytest.raises(NotImplementedError):   # no backward
         pvt_sra(x.requires_grad_(), kv, wq, bq, wp, bp, 0.125)
+
+
+def _wider(t, extra, fill):
+    """A view of t's values in a tensor ``extra`` columns wider in its
+    middle dimension (rows past t's hold ``fill``): the same shape, a
+    longer batch stride."""
+    b, s, c = t.shape
+    big = torch.full((b, s + extra, c), fill, dtype=t.dtype, device=t.device)
+    big[:, :s].copy_(t)
+    return big[:, :s]
+
+
+def test_pvt_sra_takes_each_route(card):
+    """bf16 with C a multiple of 16 up to 64 and S up to 64 (pvt_v2_b2's and
+    pvt_v2_b0's stage 1, a ragged N, S = 1, kv a view with rows of NaN past
+    S) runs the TMA + wgmma body; S = 256, C = 512, C = 72 and f32 run the
+    first bodies (the profile names them). Each within its bar."""
+    cases = [((4, 3136, 49, 64), torch.bfloat16, False, "wgmma"),
+             ((2, 3136, 49, 32), torch.bfloat16, False, "wgmma"),
+             ((3, 77, 49, 64), torch.bfloat16, False, "wgmma"),
+             ((2, 33, 1, 16), torch.bfloat16, False, "wgmma"),
+             ((3, 200, 49, 64), torch.bfloat16, True, "wgmma"),
+             ((2, 200, 256, 64), torch.bfloat16, False, "bf16"),
+             ((1, 64, 7, 512), torch.bfloat16, False, "bf16"),
+             ((2, 50, 13, 72), torch.bfloat16, False, "bf16"),
+             ((3, 77, 49, 64), torch.float32, False, "f32")]
+    for (b, n, s, c), dtype, wide, body in cases:
+        x, kv, wq, bq, wp, bp = _sra_inputs(b, n, s, c, dtype, card, n + c)
+        if wide:
+            kv = _wider(kv, 15, float("nan"))
+        names, got = _profiled_names(
+            lambda: pvt_sra(x, kv, wq, bq, wp, bp, c ** -0.5),
+            [f"pvt_sra_{body}_kernel"])
+        assert f"pvt_sra_{body}_kernel" in names
+        assert body == "wgmma" or "wgmma" not in names
+        _held_by(got, pvt_sra_reference(x, kv[..., :c], kv[..., c:], wq, bq,
+                                         wp, bp, c ** -0.5),
+                 2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("b,n,s,c", [(300, 49, 49, 64), (300, 64, 1, 16)])
+def test_pvt_sra_walks_many_one_tile_images(card, b, n, s, c):
+    """One 64-row tile an image and three tiles on some of the blocks, so
+    that the two consumers take alternate images and release each other's
+    k and v buffers (tests/test_torch_pvt_sra_order.py walks these
+    barriers): the wgmma body ends and is held by the plain version."""
+    x, kv, wq, bq, wp, bp = _sra_inputs(b, n, s, c, torch.bfloat16, card, b)
+    names, got = _profiled_names(
+        lambda: pvt_sra(x, kv, wq, bq, wp, bp, c ** -0.5),
+        ["pvt_sra_wgmma_kernel"])
+    assert "pvt_sra_wgmma_kernel" in names
+    _held_by(got, pvt_sra_reference(x, kv[..., :c], kv[..., c:], wq, bq, wp,
+                                     bp, c ** -0.5), 2e-2)
 
 
 # (B, H, W, C, hidden): poolformer_s12's four stage shapes (two images), a
@@ -2278,6 +2340,38 @@ def test_ln_dense_forward_takes_each_route(card):
             assert gemm_route(xi, w, out, ln_depth=c) is route
             _held_by(ln_dense(xi, gamma, beta, w, b, eps=1e-6),
                      ln_dense_reference(xi, gamma, beta, w, b, 1e-6), 2e-2)
+
+
+def test_ln_dense_bwd_takes_each_route(card):
+    """ViT-B/16's LN1 -> qkv and LN2 -> fc1, ViT-L's C = 1024, C = 96 with
+    O = 40 and M = 1 run the TMA + wgmma backward; C = 100 with O = 36,
+    C = 3072, f32 and x off a 16-byte boundary run the first body (the
+    profile names their launches). Each within its bars."""
+    cases = [((394, 768, 2304), torch.bfloat16, False, "wgmma"),
+             ((394, 768, 3072), torch.bfloat16, False, "wgmma"),
+             ((197, 1024, 3072), torch.bfloat16, False, "wgmma"),
+             ((197, 96, 40), torch.bfloat16, False, "wgmma"),
+             ((1, 768, 256), torch.bfloat16, False, "wgmma"),
+             ((130, 100, 36), torch.bfloat16, False, "first"),
+             ((40, 3072, 64), torch.bfloat16, False, "first"),
+             ((394, 768, 2304), torch.float32, False, "first"),
+             ((394, 768, 2304), torch.bfloat16, True, "first")]
+    wgmma = ["ln_dense_dz_wgmma_kernel", "ln_dense_dx_rows_kernel",
+             "ln_dense_dw_wgmma_kernel"]
+    first = ["ln_dense_dx_kernel", "ln_dense_dw_kernel"]
+    for (m, c, o), dtype, shift, body in cases:
+        x, gamma, beta, w, _, gy = _ln_dense_inputs(m, c, o, True, dtype,
+                                                    card, m + o)
+        x = _offset(x) if shift else x
+        need = wgmma if body == "wgmma" else first
+        names, got = _profiled_names(
+            lambda: ln_dense_bwd(x, gamma, beta, w, gy, True, 1e-6), need)
+        assert all(key in names for key in need)
+        assert body == "wgmma" or "wgmma" not in names
+        want = ln_dense_bwd_reference(x, gamma, beta, w, gy, True, 1e-6)
+        fp32 = dtype == torch.float32
+        for i, (a, r) in enumerate(zip(got, want)):
+            _held_by(a, r, (1e-5 if i == 0 else 1e-4) if fp32 else 2e-2)
 
 
 def test_ln_dense_bwd_repeats_bit_for_bit(card):

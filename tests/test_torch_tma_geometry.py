@@ -22,6 +22,12 @@ call to the body that takes it. The window attention's maps
 (``window_maps``, ``window_bwd_maps``) must give each head of each window,
 its output path must write the output and the packed dqkv exactly, and
 ``window_route`` must send each call to the body that takes it.
+``pvt_sra``'s maps (``sra_maps``) must give each block's x tiles and each
+image's k and v, zeros past N, S and C, through which the four products
+give the function; ``ln_dense``'s backward maps (``ln_dense_bwd_maps``)
+must give every tile of dz = g w and of each slice's dW = g^T z, zeros
+past M, C, O and the last slice; ``sra_route`` and ``ln_dense_bwd_route``
+must send each call to the body that takes it.
 """
 
 import itertools
@@ -29,6 +35,9 @@ import itertools
 import pytest
 import torch
 
+import tfimm_tpu_torch
+from tfimm_tpu_torch.architectures import pvt as pvt_module
+from tfimm_tpu_torch.core import Context
 from tfimm_tpu_torch.ops.kernels.flash_attention import _rows
 from tfimm_tpu_torch.ops.kernels.fused_mha import (
     _heads,
@@ -39,12 +48,15 @@ from tfimm_tpu_torch.ops.kernels.poolformer_block import (
     poolformer_gemm_products,
 )
 from tfimm_tpu_torch.ops.kernels.swin_block import swin_gemm_products
+from tfimm_tpu_torch.ops.kernels.pvt_sra import pvt_sra_reference
 from tfimm_tpu_torch.ops.kernels.tma import (
     CAIT_KEYS,
     ELEM_BYTES,
     F32_BYTES,
     GEMM_ROWS,
     GEMM_WIDTHS,
+    LN_BWD_MAX_DIM,
+    LN_BWD_WIDTHS,
     LN_MAX_DEPTH,
     SWIZZLE_BYTES,
     TILE,
@@ -58,17 +70,26 @@ from tfimm_tpu_torch.ops.kernels.tma import (
     gemm_route,
     gemm_width,
     heads_map,
+    ln_dense_bwd_dw_costs,
+    ln_dense_bwd_maps,
+    ln_dense_bwd_plan,
+    ln_dense_bwd_route,
     matrix_map,
     packed_cait_maps,
     packed_gemm_maps,
     packed_fused_mha_maps,
     packed_heads_maps,
+    packed_ln_dense_bwd_maps,
     packed_operand_maps,
     packed_rows_maps,
+    packed_sra_maps,
     packed_window_bwd_maps,
     packed_window_maps,
     padded_rows,
     rows_map,
+    sra_grid,
+    sra_maps,
+    sra_route,
     window_bwd_maps,
     window_group,
     window_maps,
@@ -1206,3 +1227,315 @@ def test_window_route_limits():
     assert not window_route(49, 12, _window_qkv(2, 49, 96))
     assert not window_route(49, 80, _window_qkv(2, 49, 240))
     assert not window_route(49, 0, _window_qkv(2, 49, 96))
+
+
+# -- pvt_sra ------------------------------------------------------------------
+
+def _sra_operands(b, n, s, c, gen, extra=0, dtype=torch.float32):
+    """x (B, N, C) and kv (B, S, 2C), kv a view of a tensor ``extra`` rows
+    longer an image whose rows past S hold NaN."""
+    x = torch.randn(b, n, c, generator=gen).to(dtype)
+    kv = torch.full((b, s + extra, 2 * c), float("nan"), dtype=dtype)
+    kv[:, :s] = torch.randn(b, s, 2 * c, generator=gen).to(dtype)
+    return x, kv[:, :s]
+
+
+def _sra_block_tiles(b, n, sms):
+    """Each block's (image, first row) tiles, as the kernel splits the
+    B * ceil(N / 64) tiles in image order among ``sra_grid`` blocks."""
+    per_image = -(-n // TILE)
+    tiles, blocks = b * per_image, sra_grid(b, n, sms)
+    return [[divmod(t, per_image) for t in range(tiles * i // blocks,
+                                                  tiles * (i + 1) // blocks)]
+            for i in range(blocks)]
+
+
+@pytest.mark.parametrize("b,n,s,c,extra", [
+    (2, 3136, 49, 64, 0),     # pvt_v2_b2's stage 1
+    (2, 3136, 49, 32, 0),     # pvt_v2_b0's: the v box runs past 2C
+    (3, 77, 49, 64, 15),      # a ragged N; rows of NaN past S in memory
+    (2, 33, 1, 16, 7),        # S = 1, C = 16
+    (5, 130, 64, 48, 0),      # S = 64
+])
+def test_sra_boxes_give_the_function(b, n, s, c, extra):
+    """Through the maps' boxes, at the coordinates the kernel uses: every
+    tile of x is read once by one block (its block's tiles consecutive, in
+    image order), with zeros past N and past C; an image's k box (0, 0, b)
+    holds k in its first C columns and its v box (C, 0, b) v, zeros past S
+    (the NaN rows in memory never arrive) and past 2C; wq and wp one box
+    each, zeros past C. The four products over C / 16 and ceil(S / 16) k16
+    steps of those boxes, keys >= S left out of the softmax, give
+    ``pvt_sra_reference`` in f32 (1e-5 of max)."""
+    gen = torch.Generator().manual_seed(n + s + c)
+    x, kv = _sra_operands(b, n, s, c, gen, extra)
+    wq = torch.randn(c, c, generator=gen) / 8
+    wp = torch.randn(c, c, generator=gen) / 8
+    bq, bp = torch.randn(c, generator=gen), torch.randn(c, generator=gen)
+    scale = c ** -0.5
+    x_map, kv_map, wq_map, wp_map = sra_maps(b, n, s, c,
+                                             (kv.stride(0), kv.stride(1)))
+    for m in (x_map, kv_map, wq_map):
+        _check_rules(m)
+        assert m.box[0] * ELEM_BYTES == SWIZZLE_BYTES
+    wq_box = tma_load(wq.reshape(-1), wq_map, (0, 0))
+    wp_box = tma_load(wp.reshape(-1), wp_map, (0, 0))
+    assert torch.equal(wq_box, _padded(wq, TILE, TILE))
+    kv_flat = torch.as_strided(kv, (kv.untyped_storage().nbytes() // 4,), (1,),
+                               0)
+    out = torch.full((b, n, c), float("nan"))
+    seen = torch.zeros(b, -(-n // TILE), dtype=torch.int64)
+    for tiles in _sra_block_tiles(b, n, 132):
+        images = [img for img, _ in tiles]
+        assert images == sorted(images)
+        for img, r in tiles:
+            seen[img, r] += 1
+            r0 = r * TILE
+            x_box = tma_load(x.reshape(-1), x_map, (0, r0, img))[0]
+            assert torch.equal(x_box, _padded(x[img, r0:r0 + TILE], TILE,
+                                              TILE))
+            k_box = tma_load(kv_flat, kv_map, (0, 0, img))[0]
+            v_box = tma_load(kv_flat, kv_map, (c, 0, img))[0]
+            assert torch.equal(k_box[:, :c], _padded(kv[img, :, :c], TILE,
+                                                     c))
+            assert torch.equal(v_box, _padded(kv[img, :, c:], TILE, TILE))
+            kc, ks = 16 * (c // 16), 16 * -(-s // 16)
+            q = ((x_box[:, :kc] @ wq_box[:, :kc].t()
+                  + _padded(bq[None], 1, TILE)) * scale)
+            sc = q[:, :kc] @ k_box[:, :kc].t()
+            sc[:, s:] = float("-inf")
+            p = torch.softmax(sc, dim=-1)
+            o = p[:, :ks] @ v_box[:ks]
+            y = o[:, :kc] @ wp_box[:, :kc].t() + _padded(bp[None], 1, TILE)
+            rows = min(TILE, n - r0)
+            out[img, r0:r0 + rows] = y[:rows, :c]
+    assert bool((seen == 1).all())
+    want = pvt_sra_reference(x, kv[..., :c], kv[..., c:], wq, bq, wp, bp,
+                             scale)
+    assert torch.allclose(out, want, atol=1e-5 * want.abs().max().item(),
+                          rtol=0)
+
+
+def test_packed_sra_maps_are_the_maps_in_order():
+    """The four geometries, then the grid: one block an SM, one a tile
+    where there are fewer."""
+    packed = list(packed_sra_maps(128, 3136, 49, 64, (49 * 128, 128), 132))
+    maps = sra_maps(128, 3136, 49, 64, (49 * 128, 128))
+    assert packed[:-1] == [v for m in maps for v in m.pack()]
+    assert packed[-1] == 132
+    assert sra_grid(1, 64, 132) == 1 and sra_grid(2, 65, 132) == 4
+
+
+def _stage1_sra_calls(name, monkeypatch):
+    """The operands ``pvt_sra`` gets at stage 1 of the registered model
+    ``name`` in bf16 at 224 (one block a stage, switched on)."""
+    calls = []
+
+    def record(x, kv, wq, bq, wp, bp, scale):
+        calls.append((x, kv, wq, wp))
+        return pvt_sra_reference(x, kv[..., :x.shape[-1]],
+                                 kv[..., x.shape[-1]:], wq, bq, wp, bp, scale)
+
+    monkeypatch.setenv("TFIMM_TPU_FUSED_PVT_SRA", "1")
+    monkeypatch.setattr(pvt_module, "pvt_sra", record)
+    model = tfimm_tpu_torch.create_model(name, device="cpu",
+                                         dtype=torch.bfloat16,
+                                         nb_blocks=(1, 1, 1, 1))
+    with Context(training=False):
+        model.predict(torch.zeros(1, 224, 224, 3, dtype=torch.bfloat16))
+    return calls
+
+
+@pytest.mark.parametrize("name,c", [("pvt_v2_b2", 64), ("pvt_v2_b0", 32),
+                                    ("pvt_small", 64),
+                                    ("pvt_v2_b2_linear", 64)])
+def test_sra_route(monkeypatch, name, c):
+    """Stage 1 of pvt_v2_b2, pvt_v2_b0, pvt_small and pvt_v2_b2_linear in
+    bf16 at 224 (S = 49, after the linear variant's 7x7 pool too) takes the
+    route with the weights as the wrapper passes them; the same call in f32
+    does not."""
+    calls = _stage1_sra_calls(name, monkeypatch)
+    assert len(calls) == 1
+    x, kv, wq, wp = calls[0]
+    assert x.shape == (1, 3136, c) and kv.shape == (1, 49, 2 * c)
+    wq, wp = wq.to(x.dtype).contiguous(), wp.to(x.dtype).contiguous()
+    assert sra_route(x, kv, wq, wp, torch.empty_like(x))
+    f32 = [t.float() for t in (x, kv, wq, wp)]
+    assert not sra_route(*f32, torch.empty_like(f32[0]))
+
+
+def _bf16(*shape, offset=0):
+    flat = torch.zeros(int(torch.tensor(shape).prod()) + offset,
+                       dtype=torch.bfloat16)
+    return flat[offset:].view(*shape)
+
+
+def test_sra_route_limits():
+    """S = 256 (phase 19's), C = 512, C = 72 or 8 (no multiple of 16), an
+    operand one element off a 16-byte boundary, a strided x and kv rows
+    that are no whole 16 bytes apart leave the route; kv as a view of a
+    wider tensor with 16-byte strides stays on it."""
+    def call(b=2, n=100, s=49, c=64, x_off=0, kv_extra=0, kv_off=0):
+        x = _bf16(b, n, c, offset=x_off)
+        kv = _bf16(b, s, 2 * c + kv_extra, offset=kv_off)[..., :2 * c]
+        w = _bf16(c, c)
+        return sra_route(x, kv, w, w, _bf16(b, n, c))
+
+    assert call()
+    assert call(c=16) and call(c=48) and call(s=64) and call(s=1)
+    assert call(kv_extra=8) and call(x_off=8) and call(kv_off=8)
+    assert not call(s=256) and not call(s=65)
+    assert not call(c=512) and not call(c=72) and not call(c=8)
+    assert not call(x_off=1) and not call(kv_off=1) and not call(kv_extra=1)
+    x = _bf16(2, 100, 128)[..., ::2]
+    kv, w = _bf16(2, 49, 128), _bf16(64, 64)
+    assert not sra_route(x, kv, w, w, _bf16(2, 100, 64))
+    assert not sra_route(_bf16(2, 100, 64), kv, w.t(), w, _bf16(2, 100, 64))
+
+
+# -- ln_dense's backward ------------------------------------------------------
+
+LN_BWD_SHAPES = [(197, 768, 2304), (130, 96, 40), (1, 64, 8), (300, 136, 200)]
+
+
+@pytest.mark.parametrize("m,c,o", LN_BWD_SHAPES)
+def test_ln_dense_bwd_boxes_give_every_tile(m, c, o):
+    """At every tile width: per 128 x width tile of dz = g w and k step, the
+    A box (128 rows of g at (64 kt, m0)) and the width / 64 B boxes (64
+    columns of w at (n0 + 64 i, 64 kt)) hold the tile's operands with zeros
+    past M, C and O, and their products summed over the k steps give the
+    tile and nothing past M or C. The same for each slice of dW = g^T z:
+    two A boxes of 64 columns of g at (m0 + 64 wg, row) (g^T's rows) and
+    the B boxes of z, zeros past O, C and M, each slice's rows only; the
+    slices' partials sum to g^T z."""
+    gen = torch.Generator().manual_seed(m + c + o)
+    g = torch.randn(m, o, generator=gen)
+    w = torch.randn(o, c, generator=gen)
+    z = torch.randn(m, c, generator=gen)
+    dz_a, dz_b, dw_a, dw_b = ln_dense_bwd_maps(m, c, o)
+    for geometry in (dz_a, dz_b, dw_a, dw_b):
+        _check_rules(geometry)
+        assert geometry.box[0] * ELEM_BYTES == SWIZZLE_BYTES
+    assert [g_.box[1] for g_ in (dz_a, dz_b, dw_a, dw_b)] == [GEMM_ROWS, TILE,
+                                                              TILE, TILE]
+    for width in LN_BWD_WIDTHS:
+        dz = torch.zeros(m, c)
+        for m0, n0 in _gemm_tiles(m, c, width):
+            acc = torch.zeros(GEMM_ROWS, width)
+            for kt in range(-(-o // TILE)):
+                a = tma_load(g.reshape(-1), dz_a, (TILE * kt, m0))
+                bs = torch.cat([tma_load(w.reshape(-1), dz_b,
+                                         (n0 + TILE * i, TILE * kt))
+                                for i in range(width // TILE)], dim=1)
+                assert torch.equal(a, _padded(
+                    g[m0:m0 + GEMM_ROWS, TILE * kt:TILE * (kt + 1)],
+                    GEMM_ROWS, TILE))
+                assert torch.equal(bs, _padded(
+                    w[TILE * kt:TILE * (kt + 1), n0:n0 + width], TILE, width))
+                acc += a @ bs
+            rows, cols = min(GEMM_ROWS, m - m0), min(width, c - n0)
+            assert bool((acc[rows:] == 0).all())
+            assert bool((acc[:, cols:] == 0).all())
+            dz[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+        assert torch.allclose(dz, g @ w, atol=1e-4)
+        for splits in (1, 2, 3):
+            per_split = -(-(-(-m // TILE)) // splits) * TILE
+            splits = -(-m // per_split)
+            dw = torch.zeros(o, c)
+            for split in range(splits):
+                r_begin = split * per_split
+                steps = -(-min(m - r_begin, per_split) // TILE)
+                for m0, n0 in _gemm_tiles(o, c, width):
+                    acc = torch.zeros(GEMM_ROWS, width)
+                    for kt in range(steps):
+                        r = r_begin + TILE * kt
+                        a = torch.cat([tma_load(g.reshape(-1), dw_a,
+                                                (m0 + TILE * wg, r))
+                                       for wg in range(2)], dim=1)
+                        bs = torch.cat([tma_load(z.reshape(-1), dw_b,
+                                                 (n0 + TILE * i, r))
+                                        for i in range(width // TILE)], dim=1)
+                        assert torch.equal(a, _padded(
+                            g[r:r + TILE, m0:m0 + GEMM_ROWS], TILE, GEMM_ROWS))
+                        acc += a.t() @ bs
+                    rows, cols = min(GEMM_ROWS, o - m0), min(width, c - n0)
+                    dw[m0:m0 + rows, n0:n0 + cols] += acc[:rows, :cols]
+            assert torch.allclose(dw, g.t() @ z, atol=1e-3)
+
+
+def test_ln_dense_bwd_plan():
+    """ViT-B/16's dz at 192-column tiles (396 tiles: three whole rounds of
+    132 SMs); every plan: widths of the body, one block an SM at most,
+    slices of whole 64-row steps that cover M with none empty."""
+    assert ln_dense_bwd_plan(12608, 768, 2304, 132).dz_width == 192
+    assert ln_dense_bwd_plan(12608, 768, 3072, 132).dz_width == 192
+    for m, c, o in [(12608, 768, 2304), (12608, 768, 3072), (25216, 768, 3072),
+                    (197, 768, 2304), (130, 96, 40), (1, 768, 256),
+                    (394, 1024, 3072)]:
+        plan = ln_dense_bwd_plan(m, c, o, 132)
+        assert plan.dz_width in LN_BWD_WIDTHS and plan.dw_width in LN_BWD_WIDTHS
+        assert 1 <= plan.dz_blocks <= 132 and 1 <= plan.dw_blocks <= 132
+        assert plan.per_split % TILE == 0
+        assert plan.splits * plan.per_split >= m
+        assert (plan.splits - 1) * plan.per_split < m
+        packed = list(packed_ln_dense_bwd_maps(m, c, o, 132))
+        assert packed[:-6] == [v for g_ in ln_dense_bwd_maps(m, c, o)
+                               for v in g_.pack()]
+        assert packed[-6:] == [plan.dz_blocks, plan.dz_width, plan.dw_blocks,
+                               plan.dw_width, plan.splits, plan.per_split]
+
+
+@pytest.mark.parametrize("m,c,o", [(12608, 768, 2304), (12608, 768, 3072),
+                                   (197, 96, 40)])
+def test_ln_dense_bwd_dw_costs(m, c, o):
+    """The dW plans ranked cheapest first, each (width, slices) once; the
+    plan takes the first: at ViT-B/16's LN1 -> qkv two slices of 108
+    128 x 256 tiles, at LN2 -> fc1 four slices of 192-column tiles, the
+    fastest of the four plans each that the model ranked first on an H100
+    (scripts/perf/torch_ln_dense_bwd_plans.py)."""
+    costs = ln_dense_bwd_dw_costs(m, c, o, 132)
+    assert [k[0] for k in costs] == sorted(k[0] for k in costs)
+    assert len({k[1:3] for k in costs}) == len(costs)
+    plan = ln_dense_bwd_plan(m, c, o, 132)
+    assert costs[0][1:] == (plan.dw_width, plan.splits, plan.per_split)
+    if (m, c, o) == (12608, 768, 2304):
+        assert (plan.dw_width, plan.splits, plan.dw_blocks) == (256, 2, 108)
+    if (m, c, o) == (12608, 768, 3072):
+        assert (plan.dw_width, plan.splits) == (192, 4)
+
+
+def _ln_bwd_operands(m, c, o, dtype=torch.bfloat16, offset=0):
+    x = torch.zeros(m * c + offset, dtype=dtype)[offset:].view(m, c)
+    w, g = torch.zeros(o, c, dtype=dtype), torch.zeros(m, o, dtype=dtype)
+    return x, w, g, torch.empty_like(x)
+
+
+@pytest.mark.parametrize("m,c,o,dtype,offset,route", [
+    (12608, 768, 2304, torch.bfloat16, 0, True),    # ViT-B/16 LN1 -> qkv
+    (12608, 768, 3072, torch.bfloat16, 0, True),    # LN2 -> fc1
+    (197, 1024, 3072, torch.bfloat16, 0, True),     # ViT-L
+    (197, 96, 40, torch.bfloat16, 0, True),
+    (197, 768, 2304, torch.float32, 0, False),      # f32: the first body
+    (130, 100, 36, torch.bfloat16, 0, False),       # C, O no multiples of 8
+    (40, 3072, 64, torch.bfloat16, 0, False),       # C above the dx pass
+    (197, 768, 2304, torch.bfloat16, 1, False),     # x off 16 bytes
+    (197, 768, 2304, torch.bfloat16, 8, True),      # 16 bytes on
+])
+def test_ln_dense_bwd_route(m, c, o, dtype, offset, route):
+    """Which backward calls take the Hopper body."""
+    assert ln_dense_bwd_route(*_ln_bwd_operands(m, c, o, dtype, offset)) \
+        is route
+
+
+def test_ln_dense_bwd_route_limits():
+    """C = LN_BWD_MAX_DIM stays on the route, C above it, O = 36, a g or a
+    weight that is not contiguous, M = 0 and a 3-D x leave it."""
+    x, w, g, dx = _ln_bwd_operands(8, LN_BWD_MAX_DIM, 64)
+    assert ln_dense_bwd_route(x, w, g, dx)
+    assert not ln_dense_bwd_route(*_ln_bwd_operands(8, LN_BWD_MAX_DIM + 8,
+                                                    64))
+    assert not ln_dense_bwd_route(*_ln_bwd_operands(8, 64, 36))
+    x, w, g, dx = _ln_bwd_operands(8, 64, 64)
+    assert not ln_dense_bwd_route(x, w.t(), g, dx)
+    assert not ln_dense_bwd_route(x, w, g.t(), dx)
+    assert not ln_dense_bwd_route(*_ln_bwd_operands(0, 64, 64))
+    assert not ln_dense_bwd_route(x.view(2, 4, 64), w, g, dx)

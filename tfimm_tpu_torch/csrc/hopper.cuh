@@ -19,8 +19,9 @@
 //   shared memory.
 // - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile
 //   (64 rows of 128 bytes, 1024-byte aligned) and m64n8k16, m64n64k16,
-//   m64n128k16 and m64n256k16 bf16 -> f32 with A in shared memory (m64n64k16
-//   also transposed) or in registers;
+//   m64n128k16, m64n192k16 and m64n256k16 bf16 -> f32 with A in shared
+//   memory (also transposed) or in registers; B K-major or MN-major, the
+//   wide MN-major B over several 64-column boxes (sw128_desc_mn);
 //   fence, commit and wait; setmaxnreg to hand registers between the
 //   warpgroups of a warp-specialised block.
 //
@@ -315,6 +316,18 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
          (1ull << 62);
 }
 
+// The descriptor of an MN-major operand wider than one box: boxes of 64
+// columns (each a 128-byte-swizzled tile of 64-column rows) `lbo` bytes
+// apart, the leading byte offset (a multiple of 16); otherwise as
+// sw128_desc, whose leading byte offset one box leaves unused. A k16 step
+// is 16 rows of every box: add 128 (2048 bytes).
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile,
+                                                  uint32_t lbo) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFull) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -417,9 +430,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
 // operands and the same accumulator layout (64, 96 and 128 registers a
 // thread: column blocks
 // j = 0 .. N / 8 - 1). The B descriptor covers N rows of the K-major tile
-// (N / 8 groups of 8 rows, 1024 bytes apart).
+// (N / 8 groups of 8 rows, 1024 bytes apart), or N columns of an MN-major
+// one (TRANS_B = 1: N / 64 boxes of 64 columns, sw128_desc_mn). With A
+// from shared memory, TRANS_A = 1 reads A M-major (64 rows of the tile a
+// box's columns, as m64n64k16_ss does).
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
     uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -431,7 +447,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -444,7 +460,8 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 template <int TRANS_B>
@@ -475,7 +492,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96],
     uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -489,7 +506,7 @@ __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96],
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, %99;\n"
+      "}, %96, %97, p, 1, 1, %100, %99;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -507,7 +524,8 @@ __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96],
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 template <int TRANS_B>
@@ -545,7 +563,7 @@ __device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
     uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -561,7 +579,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -585,7 +603,8 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 template <int TRANS_B>
@@ -633,20 +652,20 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
 
 
 // d (+)= A B for one k16 step at the width of d (128, 192 or 256 columns).
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
-  wgmma_m64n128k16_ss<TRANS_B>(d, a, b, accumulate);
+  wgmma_m64n128k16_ss<TRANS_B, TRANS_A>(d, a, b, accumulate);
 }
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t a,
                                          uint64_t b, int accumulate) {
-  wgmma_m64n192k16_ss<TRANS_B>(d, a, b, accumulate);
+  wgmma_m64n192k16_ss<TRANS_B, TRANS_A>(d, a, b, accumulate);
 }
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a,
                                          uint64_t b, int accumulate) {
-  wgmma_m64n256k16_ss<TRANS_B>(d, a, b, accumulate);
+  wgmma_m64n256k16_ss<TRANS_B, TRANS_A>(d, a, b, accumulate);
 }
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,

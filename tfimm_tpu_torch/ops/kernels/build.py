@@ -213,6 +213,7 @@ def _declare(lib):
         ctypes.c_void_p,  # out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, S, C
         ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        geometry,  # bf16 on tma.sra_route: the x, kv, wq, wp maps and grid
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_pvt_sra.restype = ctypes.c_int
@@ -296,6 +297,8 @@ def _declare(lib):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, C, O
         ctypes.c_int, ctypes.c_int,  # dx block rows, dW row slices
         ctypes.c_float, ctypes.c_int,  # eps, dtype code
+        ctypes.c_void_p, ctypes.c_void_p,  # tma route: scratch z, f32 dz
+        geometry,  # bf16 on tma.ln_dense_bwd_route: the GEMMs' maps, plan
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tfimm_ln_dense_bwd.restype = ctypes.c_int

@@ -36,8 +36,12 @@ from tfimm_tpu_torch.ops.kernels.dispatch import (
     log_dispatch,
 )
 from tfimm_tpu_torch.ops.kernels.tma import (
+    LN_BWD_ROWS,
     gemm_route,
+    ln_dense_bwd_plan,
+    ln_dense_bwd_route,
     packed_gemm_maps,
+    packed_ln_dense_bwd_maps,
     sm_count,
 )
 
@@ -175,9 +179,13 @@ def ln_dense_bwd(x, gamma, beta, weight, g, has_bias: bool = True,
                  eps: float = 1e-6):
     """(dx, dgamma, dbeta, dW, db), as ``ln_dense_bwd_reference``. Runs the
     plain version when every input lies on the CPU and the backward kernels
-    otherwise: seven launches (row statistics; dx with the dgamma and dbeta
-    partials; their two sums; dW and db partials over row slices; their two
-    sums), counted as one."""
+    otherwise, counted as one launch: on ``tma.ln_dense_bwd_route`` (bf16)
+    four to seven (dz = g @ weight in f32; dx, z, the row statistics and
+    the dgamma and dbeta partials; their two sums; dW and db, or their
+    partials over slices of the rows and the partials' two sums; a
+    row-statistics launch first below C = 256), else seven (row
+    statistics; dx with the dgamma and dbeta partials; their two sums; dW
+    and db partials; their two sums)."""
     if _on_cpu(x, gamma, beta, weight, g):
         return ln_dense_bwd_reference(x, gamma, beta, weight, g, has_bias, eps)
     dt = x.dtype
@@ -193,22 +201,38 @@ def ln_dense_bwd(x, gamma, beta, weight, g, has_bias: bool = True,
         return (dx, *zeros,
                 torch.zeros(o, dtype=weight.dtype, device=dev) if has_bias
                 else None)
-    rows = dx_block_rows(c, x.element_size())
-    splits = _dw_splits(m, c, o,
-                        torch.cuda.get_device_properties(dev).multi_processor_count)
-    f32 = dict(dtype=torch.float32, device=dev)
-    mean, rstd = torch.empty((m,), **f32), torch.empty((m,), **f32)
-    part_gb = torch.empty((2, -(-m // rows), c), **f32)
-    dgb = torch.empty((2, c), **f32)
-    part_dw = torch.empty((splits, o, c), **f32)
-    part_db = torch.empty((splits, o), **f32)
+    w = weight.to(dt).contiguous()
+    sms = sm_count(dev.index)
+    route = ln_dense_bwd_route(x, w, g, dx)
+    if route:
+        maps = packed_ln_dense_bwd_maps(m, c, o, sms)
+        rows, splits = LN_BWD_ROWS, ln_dense_bwd_plan(m, c, o, sms).splits
+    else:
+        maps = None
+        rows = dx_block_rows(c, x.element_size())
+        splits = _dw_splits(m, c, o, sms)
+    # The scratch in one f32 allocation, its parts on 16-byte boundaries:
+    # mean, rstd, the dgamma / dbeta partials, the dW and db partials, and
+    # on the route dz (f32) and z (the dtype): fewer allocations, less host
+    # time a call. dgamma, dbeta and db get one of their own, since they
+    # outlive the call.
+    parts = [m, m, 2 * -(-m // rows) * c, splits * o * c, splits * o]
+    if route:
+        parts += [m * c, -(-m * c * x.element_size() // 4)]
+    offsets = [0]
+    for n in parts:
+        offsets.append(offsets[-1] + -(-n // 4) * 4)
+    scratch = torch.empty(offsets[-1], dtype=torch.float32, device=dev)
+    ptrs = [scratch.data_ptr() + 4 * off for off in offsets[:-1]]
+    mean, rstd, part_gb, part_dw, part_db = ptrs[:5]
+    dz, z = ptrs[5:] if route else (None, None)
+    sums = torch.empty(2 * c + o, dtype=torch.float32, device=dev)
+    dgb, db = sums[:2 * c].view(2, c), sums[2 * c:]
     dw = torch.empty((o, c), dtype=dt, device=dev)
-    db = torch.empty((o,), **f32)
     launch("ln_dense_bwd", kernel_library().tfimm_ln_dense_bwd, x,
-           gamma.float().contiguous(), beta.float().contiguous(),
-           weight.to(dt).contiguous(), g, mean, rstd, dx, part_gb, dgb,
-           part_dw, part_db, dw, db, m, c, o, rows, splits, float(eps),
-           _DTYPE_CODES[dt])
+           gamma.float().contiguous(), beta.float().contiguous(), w, g,
+           mean, rstd, dx, part_gb, dgb, part_dw, part_db, dw, db, m, c, o,
+           rows, splits, float(eps), _DTYPE_CODES[dt], z, dz, maps)
     return (dx, dgb[0].to(gamma.dtype), dgb[1].to(beta.dtype),
             dw.to(weight.dtype), db.to(weight.dtype) if has_bias else None)
 

@@ -20,7 +20,10 @@ On a CUDA tensor ``pvt_sra`` launches the hand-written kernel of
 ``tfimm_tpu_torch/csrc/pvt_sra.cu`` (see the note at its top for the design
 and what bounds it) and raises on what it does not take; on CPU tensors it
 runs ``pvt_sra_reference``. The kernel takes bf16 and f32, every C that is
-a multiple of 8 up to 512, S up to 256 and any B and N. It has no backward,
+a multiple of 8 up to 512, S up to 256 and any B and N; bf16 operands that
+``tma.py · sra_route`` takes (C a multiple of 16 up to 64, S up to 64,
+16-byte aligned: every registered PVT's stage 1) run its TMA + wgmma body,
+the rest its first bodies. It has no backward,
 as the Pallas kernel has none: on a CUDA tensor that autograd would need a
 gradient for, it raises, and the caller's gate keeps training away.
 """
@@ -32,6 +35,7 @@ from typing import Optional
 import torch
 
 from tfimm_tpu_torch.ops.kernels.dispatch import launch
+from tfimm_tpu_torch.ops.kernels.tma import packed_sra_maps, sm_count, sra_route
 
 __all__ = ["pvt_sra", "pvt_sra_reference"]
 
@@ -119,7 +123,12 @@ def pvt_sra(x, kv, wq, bq, wp, bp, scale: float) -> torch.Tensor:
     wq, wp = wq.to(dt).contiguous(), wp.to(dt).contiguous()
     bq = _bias(bq, c, x).float().contiguous()
     bp = _bias(bp, c, x).float().contiguous()
+    s = kv.shape[1]
+    maps = None
+    if sra_route(x, kv, wq, wp, out):
+        maps = packed_sra_maps(b, n, s, c, (kv.stride(0), kv.stride(1)),
+                               sm_count(x.device.index))
     launch("pvt_sra", kernel_library().tfimm_pvt_sra, x, kv, kv.stride(0),
-           kv.stride(1), wq, bq, wp, bp, out, b, n, kv.shape[1], c,
-           float(scale), _DTYPE_CODES[dt])
+           kv.stride(1), wq, bq, wp, bp, out, b, n, s, c, float(scale),
+           _DTYPE_CODES[dt], maps)
     return out

@@ -43,7 +43,12 @@ __all__ = ["TILE", "ELEM_BYTES", "F32_BYTES", "SWIZZLE_BYTES",
            "cait_maps", "cait_scratch_cols", "cait_scratch_map",
            "packed_cait_maps", "window_route", "window_map", "window_maps",
            "window_group", "packed_window_maps", "window_bwd_maps",
-           "packed_window_bwd_maps"]
+           "packed_window_bwd_maps", "SRA_MAX_DIM", "SRA_MAX_KEYS",
+           "sra_route", "sra_maps", "sra_grid", "packed_sra_maps",
+           "LN_BWD_ROWS", "LN_BWD_MAX_DIM", "LN_BWD_WIDTHS",
+           "ln_dense_bwd_route", "LnBwdPlan", "ln_dense_bwd_dw_costs",
+           "ln_dense_bwd_plan",
+           "ln_dense_bwd_maps", "packed_ln_dense_bwd_maps"]
 
 TILE = 64
 ELEM_BYTES = 2       # bf16: the attention maps and the GEMM's bf16 operands
@@ -446,3 +451,182 @@ def packed_window_bwd_maps(bw: int, n: int, nb_heads: int, d: int,
                            qkv_stride: Tuple[int, int]) -> ctypes.Array:
     """``window_bwd_maps`` of a bf16 backward, packed."""
     return geometry_array(*window_bwd_maps(bw, n, nb_heads, d, qkv_stride))
+
+
+# pvt_sra's Hopper body (csrc/pvt_sra.cu): 64-row tiles of x, one 64 x 64
+# tile each of k, v, wq and wp; a persistent block an SM walks a run of
+# consecutive tiles in image order.
+SRA_MAX_DIM = TILE
+SRA_MAX_KEYS = TILE
+
+
+def sra_route(x: torch.Tensor, kv: torch.Tensor, wq: torch.Tensor,
+              wp: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether ``pvt_sra``'s TMA + wgmma body takes these operands, else the
+    first bodies run: bf16; x (B, N, C) and out contiguous with C a multiple
+    of 16 up to SRA_MAX_DIM; kv (B, S, 2C) with S up to SRA_MAX_KEYS, its
+    rows dense and its batch and row strides whole 16 bytes; wq and wp
+    contiguous; every base on a 16-byte boundary. Every registered PVT and
+    PVTv2 takes it at its single-head stage 1 at 224 (C = 64, or 32 for
+    pvt_v2_b0; S = 49, after the 7x7 pool too)."""
+    if x.dim() != 3 or kv.dim() != 3:
+        return False
+    c, s = x.shape[2], kv.shape[1]
+    if not (0 < c <= SRA_MAX_DIM and c % 16 == 0 and 0 < s <= SRA_MAX_KEYS):
+        return False
+    operands = (x, kv, wq, wp, out)
+    return (all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+                for t in operands)
+            and all(t.is_contiguous() for t in (x, wq, wp, out))
+            and kv.stride(2) == 1
+            and all(st * ELEM_BYTES % 16 == 0 for st in kv.stride()[:2]))
+
+
+def sra_maps(b: int, n: int, s: int, c: int, kv_stride: Tuple[int, int]):
+    """(x, kv, wq, wp) of the Hopper body: x (B, N, C) contiguous as (C, N,
+    B), a (64, 64, 1) box at (0, r, b) the tile of rows r... of image b,
+    zeros past N and past C; kv (B, S, 2C) through its (batch, row) element
+    strides as (2C, S, B), a (64, 64, 1) box at (0, 0, b) image b's k and
+    at (C, 0, b) its v, zeros past S (and past 2C: at C = 32 the v box's
+    last 32 columns); wq and wp (C, C) as one 64 x 64 box each, zeros past
+    C. The kernel stores the output (x's layout) through x's geometry."""
+    e = ELEM_BYTES
+    box = (TILE, TILE, 1)
+    x = TensorMapGeometry(dims=(c, n, b), strides=(e * c, e * c * n), box=box)
+    kv = TensorMapGeometry(dims=(2 * c, s, b),
+                           strides=(e * kv_stride[1], e * kv_stride[0]),
+                           box=box)
+    w = matrix_map(c, c, TILE)
+    return x, kv, w, w
+
+
+def sra_grid(b: int, n: int, sms: int) -> int:
+    """Blocks of the Hopper body: one an SM, or one a tile where there are
+    fewer than SMs."""
+    return min(b * -(-n // TILE), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def packed_sra_maps(b: int, n: int, s: int, c: int,
+                    kv_stride: Tuple[int, int], sms: int) -> ctypes.Array:
+    """``sra_maps`` packed, then ``sra_grid``."""
+    values = [v for m in sra_maps(b, n, s, c, kv_stride) for v in m.pack()]
+    values.append(sra_grid(b, n, sms))
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+# ln_dense's backward on Hopper (csrc/ln_dense.cu · bwd_gemm and
+# ln_dense_dx_rows_kernel): the two products on 128 x width tiles, width one
+# of LN_BWD_WIDTHS; dx in blocks of LN_BWD_ROWS whole rows, C up to
+# LN_BWD_MAX_DIM (a warp a row, 256 columns a chunk, 4 chunks).
+LN_BWD_ROWS = 64
+LN_BWD_MAX_DIM = 1024
+LN_BWD_WIDTHS = (128, 192, 256)
+# The cost model of ln_dense_bwd_plan, in units of one 64-deep k step of a
+# one-column-wide tile: a k step of a width-w tile costs w + _STEP_COST (the
+# A box's load and the ring's round trip, whatever the width); an element
+# of the dW partials, written once and read once by the fixed-order sum,
+# costs _PART_COST (8 bytes at 3.35 TB/s, 2.4 ps, against 2.9 ns a unit).
+# Fitted on an H100 by scripts/perf/torch_ln_dense_bwd_plans.py: a 128 x 128
+# k step of dW took 0.56 us where a 128 x 256 one took about 0.85; without
+# _STEP_COST the model picked one slice of 128-column tiles at ViT-B/16's
+# LN1 -> qkv, 7% slower than two slices of 256-column ones.
+_STEP_COST = 64
+_PART_COST = 8e-4
+
+
+def ln_dense_bwd_route(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                       dx: torch.Tensor) -> bool:
+    """Whether ``ln_dense``'s backward takes its TMA + wgmma body on these
+    operands (x (M, C), the weight (O, C) in x's dtype, g (M, O), dx; the
+    wrapper allocates the scratch), else the first body runs: bf16, each a
+    non-empty contiguous matrix on a 16-byte boundary, C and O multiples of
+    8 (TMA's 16-byte rows), C up to LN_BWD_MAX_DIM. ViT-B/16's and ViT-L's
+    widths take it; f32, C = 100 or O = 36 and C = 3,072 do not."""
+    if x.dim() != 2 or w.dim() != 2:
+        return False
+    (m, c), o = x.shape, w.shape[0]
+    if not (m > 0 and 0 < c <= LN_BWD_MAX_DIM and c % 8 == 0
+            and o > 0 and o % 8 == 0):
+        return False
+    return all(t.dtype == torch.bfloat16 and t.dim() == 2
+               and t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (x, w, g, dx))
+
+
+class LnBwdPlan(NamedTuple):
+    """The tiles of the backward's two products on ``sms`` SMs: dz's
+    width and persistent blocks; dW's width, blocks, slices of M and rows
+    a slice (a multiple of 64)."""
+
+    dz_width: int
+    dz_blocks: int
+    dw_width: int
+    dw_blocks: int
+    splits: int
+    per_split: int
+
+
+def _rounds(tiles: int, sms: int) -> int:
+    return -(-tiles // sms)
+
+
+def ln_dense_bwd_dw_costs(m: int, c: int, o: int, sms: int) -> list:
+    """dW = g^T z, (O, C) over M in slices: every (cost, width, splits, rows
+    a slice) of the widths and slice counts (1-32), cheapest first, the
+    wider and then the fewer slices on a tie; the cost is rounds x (width
+    + ``_STEP_COST``) x k steps a slice plus the partials' traffic
+    (``_PART_COST`` an element of (splits, O, C) f32 written and read);
+    every slice at least one 64-row step and none empty. The first is the
+    plan's
+    (``scripts/perf/torch_ln_dense_bwd_plans.py`` times the next ones
+    against it)."""
+    steps = -(-m // TILE)
+    costs = set()
+    for width in LN_BWD_WIDTHS:
+        tiles = -(-o // GEMM_ROWS) * -(-c // width)
+        for s in range(1, min(32, steps) + 1):
+            per_split = -(-steps // s) * TILE
+            splits = -(-m // per_split)
+            costs.add((_rounds(tiles * splits, sms) * (width + _STEP_COST)
+                       * (per_split // TILE) + _PART_COST * splits * o * c,
+                       width, splits, per_split))
+    return sorted(costs, key=lambda k: (k[0], -k[1], k[2], -k[3]))
+
+
+@functools.lru_cache(maxsize=256)
+def ln_dense_bwd_plan(m: int, c: int, o: int, sms: int) -> LnBwdPlan:
+    """dz = g w, (M, C) over depth O: the width whose rounds of 128-row tiles
+    cost least (rounds x width), the wider on a tie; 192 at ViT-B/16's
+    C = 768 (396 tiles: three whole rounds of 132). dW: the first of
+    ``ln_dense_bwd_dw_costs``."""
+    m_tiles = -(-m // GEMM_ROWS)
+    dz_width = min(LN_BWD_WIDTHS, key=lambda w: (
+        _rounds(m_tiles * -(-c // w), sms) * w, -w))
+    _, dw_width, splits, per_split = ln_dense_bwd_dw_costs(m, c, o, sms)[0]
+    dw_tiles = -(-o // GEMM_ROWS) * -(-c // dw_width) * splits
+    return LnBwdPlan(dz_width, min(m_tiles * -(-c // dz_width), sms),
+                     dw_width, min(dw_tiles, sms), splits, per_split)
+
+
+def ln_dense_bwd_maps(m: int, c: int, o: int):
+    """(dz's a, dz's b, dW's a, dW's b): g (M, O) in (64-column, 128-row)
+    boxes, K-major A of dz = g w; w (O, C) in 64 x 64 boxes, an MN-major B
+    (a box at (n, k) is columns n... of rows k...); g again in 64 x 64
+    boxes, the M-major A of dW = g^T z (a box at (o, r) is g's columns
+    o... of rows r...); z (M, C) in 64 x 64 boxes, an MN-major B. Zeros
+    past every edge stand in for the tails of M, C, O and the last slice."""
+    return (matrix_map(m, o, GEMM_ROWS), matrix_map(o, c, TILE),
+            matrix_map(m, o, TILE), matrix_map(m, c, TILE))
+
+
+@functools.lru_cache(maxsize=256)
+def packed_ln_dense_bwd_maps(m: int, c: int, o: int, sms: int) -> ctypes.Array:
+    """``ln_dense_bwd_maps`` packed, then the ``ln_dense_bwd_plan`` (dz's
+    blocks and width, dW's blocks, width, slices and rows a slice), for
+    ``csrc/ln_dense.cu · kBwdPlan``."""
+    plan = ln_dense_bwd_plan(m, c, o, sms)
+    values = [v for g in ln_dense_bwd_maps(m, c, o) for v in g.pack()]
+    values += [plan.dz_blocks, plan.dz_width, plan.dw_blocks, plan.dw_width,
+               plan.splits, plan.per_split]
+    return (ctypes.c_int64 * len(values))(*values)

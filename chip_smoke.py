@@ -334,6 +334,38 @@ which ends the run with a non-zero exit code on failure:
    running statistics by the momentum rule, within 2e-2 of the update
    computed from the batch.
 
+34. ``fused_mha`` against its plain version at PiT-B's stage 1 (128 images,
+   N = 962, H = 4, d = 64) and PiT-S's (N = 730, H = 3, d = 48), in bf16
+   and in f32 with TF32 off, within 2e-2 and 1e-5; the body each shape
+   took (the profiler's kernel name); kernel, plain, bound and
+   ``F.scaled_dot_product_attention`` times, back to back and out of L2,
+   into ``fused_mha``'s ``shapes``.
+35. ResNet serving: ``resnet50``, ``seresnext50_32x4d`` and
+   ``ecaresnet50d`` in bf16 (``he_state_dict``'s seeded weights,
+   BatchNorm statistics set norm by norm from 32 seeded images in f32)
+   answer 5 requests of 128 uint8 224x224 images each through
+   ``model.predict``, with no kernel launch; logits finite and non-zero,
+   the first 16 images' within 5e-2 of the same weights in f32 on the
+   card; the rate of each model and a profile of one request split into
+   cuDNN convs, BatchNorm, cuBLAS GEMMs and the rest.
+36. ResNet-50 training: ``train.run`` trains it at batch 64 in bf16 mixed
+   precision with SGD (momentum 0.9, lr 0.025), L2 weight decay 1e-4,
+   label smoothing 0.1 and an EMA at decay 0.9, 6 steps: no launch,
+   finite losses; every BatchNorm's running mean moved and stayed finite;
+   the EMA holds the running statistics and differs from them; a
+   validation pass reads the EMA's (a hook on the stem's BatchNorm) and
+   scores 1.0 on the EMA's own predictions; one seeded step, bf16 against
+   f32: the loss within 2e-2, the head's weight and the last norm's bias
+   gradients within 1e-1 (the convs' and norm scales' printed); the rate
+   over steps 2-6 and a profile of one step.
+37. VGG-16 and ConvMixer-768/32 serving as phase 35; ConvMixer's bf16
+   request is held step by step (the stem, each of its 32 blocks and the
+   head against f32 on the bf16 step's own input, ``convmixer_stepwise``),
+   its end-to-end difference printed.
+38. PiT-B serving as phase 35: 13 ``fused_mha`` launches a request (3 + 6
+   + 4 blocks) and no other kernel; the f32 reference through the plain
+   attention (no launch).
+
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
 
@@ -342,7 +374,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-33) alone, for a quicker look at one
+runs phase 1 and the phases named (2-38) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -611,6 +643,26 @@ LN_DENSE_VIT_LAUNCHES = {"ln_dense": 24, "ln_dense_bwd": 24}
 API_IMAGES = 8
 EMBED_DIM = 128
 EMBED_LAUNCHES = {"convnext_mlp": 36}
+# PiT's attention (phase 34): fused_mha at the first stages of PiT-B
+# (31 x 31 tokens and a class token, 4 heads of 64) and PiT-S (27 x 27, 3
+# heads of 48) at bs128.
+PIT_MHA_SHAPES = {"pit_b_stage1": (128, 962, 4, 64),
+                  "pit_s_stage1": (128, 730, 3, 48)}
+# The conv nets (phases 35-38): ResNet-50, SE-ResNeXt-50 and ECA-ResNet-50d
+# serving; ResNet-50 training with its EMA; VGG-16 and ConvMixer-768/32
+# serving (no kernel on these paths); PiT-B serving (fused_mha in each of
+# its 3 + 6 + 4 blocks).
+RESNETS = ("resnet50", "seresnext50_32x4d", "ecaresnet50d")
+RESNET = "resnet50"
+RESNET_TRAIN_BATCH = 64
+RESNET_EMA_DECAY = 0.9
+VGG = "vgg16"
+CONVMIXER = "convmixer_768_32"
+PIT = "pit_b_224"
+PIT_LAUNCHES = {"fused_mha": 13}
+# cuDNN's conv kernels and layout transposes, by name.
+CONV_NET_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
+                      "winograd", "nchwtonhwc", "nhwctonchw")
 # The 50 MB L2 is evicted before each cold-timed call by a write this large.
 L2_FLUSH_BYTES = 512 * 2 ** 20
 # Tiny launches that open and close each short profile (profile_pad).
@@ -5284,14 +5336,454 @@ def phase_models_api(reports, gpu_line):
           f"pass on {n} images moved the BatchNorm's running statistics by the "
           f"momentum rule ok", flush=True)
 
+def mha_body(qkv, h, scale) -> str:
+    """The body ``fused_mha`` took on ``qkv``: its kernel's name in one
+    profiled call (``cold_device_events``, which retakes a profile that
+    lost the launch)."""
+    from tfimm_tpu_torch.ops.kernels.fused_mha import fused_mha
+
+    events = cold_device_events(lambda: fused_mha(qkv, h, scale), calls=1,
+                                need=[("fused_mha_fwd",)])
+    names = sorted({name for name, _ in events if "fused_mha_fwd" in name})
+    check(len(names) == 1, f"fused_mha launched {names}")
+    return names[0]
+
+
+def phase_pit_mha(report, gpu_line):
+    """Phase 34: ``fused_mha`` against its plain version at PiT-B's and
+    PiT-S's stage-1 shapes, bf16 and f32; the body each took; kernel,
+    plain, bound and SDPA times, back to back and out of L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.fused_mha import fused_mha, fused_mha_reference
+
+    shapes = report.setdefault("shapes", {})
+    for name, (b, n, h, d) in PIT_MHA_SHAPES.items():
+        scale = d ** -0.5
+        entry = {"shape": [b, n, h, d]}
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = TOL[str(dtype).split(".")[1]]
+            qkv = mha_input(b, n, h, d, dtype, seed=34)
+            out = fused_mha(qkv, h, scale)
+            ref = fused_mha_reference(qkv, h, scale)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = (torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+                  and bool(torch.isfinite(out).all()))
+            print(f"fused_mha {name} {str(dtype):15s} (B, N, H, d) = "
+                  f"{(b, n, h, d)}: max_abs_err={err!r} tol={tol} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"fused_mha disagrees with its plain version at {name} "
+                  f"({dtype}): {err}")
+            if dtype != torch.bfloat16:
+                continue
+            entry["max_abs_err"] = err
+            entry["body"] = mha_body(qkv, h, scale)
+            entry["ms"] = cuda_time_ms(lambda: fused_mha(qkv, h, scale))
+            entry["plain_ms"] = cuda_time_ms(
+                lambda: fused_mha_reference(qkv, h, scale), iters=3, repeats=3)
+            entry["bound_ms"], entry["bound_by"] = bound(
+                2 * b * n * 4 * h * d, 4 * b * h * n * n * d)
+            q, k, v = heads(qkv, h)
+
+            def sdpa_call():
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+            entry["library_ms"] = cuda_time_ms(sdpa_call)
+            entry["cold_ms"] = cold_ms(lambda: fused_mha(qkv, h, scale))
+            entry["library_cold_ms"] = cold_ms(sdpa_call)
+            print(f"fused_mha {name} bf16: body {entry['body']}; kernel "
+                  f"{entry['ms']!r} ms back to back, {entry['cold_ms']!r} out "
+                  f"of L2 ({entry['bound_ms'] / entry['cold_ms']!r} of the "
+                  f"bound {entry['bound_ms']!r} ms, {entry['bound_by']}); "
+                  f"plain {entry['plain_ms']!r}; SDPA {entry['library_ms']!r} "
+                  f"back to back, {entry['library_cold_ms']!r} out of L2 (the "
+                  f"kernel {entry['cold_ms'] / entry['library_cold_ms']!r}x); "
+                  f"on {gpu_line}", flush=True)
+        shapes[name] = entry
+
+
+def he_state_dict(model, seed: int) -> dict:
+    """Seeded f32 CPU weights for a conv net: every conv and Dense weight
+    normal with He's std sqrt(2 / fan in) (Dense sqrt(1 / fan in)), norm
+    weights near 1, but near 0.2 for the last norm of a residual branch
+    (ResNet's, which ``zero_init_last_bn`` starts at 0, and ConvMixer's
+    ``blocks.{j}.0.fn.2``: near 1, a bf16 rounding grows block by block,
+    to 8-11% of ResNet-50's logits and to their size at ConvMixer's 32
+    blocks), norm biases with std 0.5 (a
+    trained net's: at 0.02 a ConvMixer's pooled features, a mean of
+    normalised maps, would be a rounding residue and its bf16 logits off by
+    7% of f32's), the other biases and everything else with std 0.02;
+    BatchNorm's running statistics as they were."""
+    import torch
+
+    from tfimm_tpu_torch.ops.norm import Affine, BatchNorm, GroupNorm, LayerNorm
+
+    norms = {f"{name}.weight" for name, m in model.named_modules()
+             if isinstance(m, (LayerNorm, GroupNorm, BatchNorm, Affine))}
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, p in model.state_dict().items():
+        p = p.detach().float().cpu()
+        if "running_" in name:
+            sd[name] = p.clone()
+            continue
+        r = torch.randn(p.shape, generator=g)
+        fan_in = int(p[0].numel()) if p.dim() > 1 else 1
+        if name in norms:
+            branch_end = bool((p == 0).all()) or name.endswith(".fn.2.weight")
+            sd[name] = (0.2 if branch_end else 1.0) * (1.0 + 0.1 * r)
+        elif name[:-len("bias")] + "weight" in norms:
+            sd[name] = 0.5 * r
+        elif p.dim() >= 3:
+            sd[name] = r * math.sqrt(2.0 / fan_in)
+        elif p.dim() == 2 and name.endswith("weight"):
+            sd[name] = r * math.sqrt(1.0 / fan_in)
+        else:
+            sd[name] = 0.02 * r
+    return sd
+
+
+def calibrated_model(name, seed: int, images, device: str = "cuda"):
+    """``name`` in f32 on the card with ``he_state_dict`` weights, each
+    BatchNorm's running statistics set to the mean and variance of its
+    input over ``images`` in eval mode, the norms in order (each one after
+    those before it are set, as a trained net's statistics follow its
+    data). Returns the model (eval mode) and its state dict on the CPU."""
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.norm import BatchNorm
+
+    model = tfm.create_model(name, device=device, dtype=torch.float32, seed=0)
+    model.load_state_dict(he_state_dict(model, seed))
+    x = tfm.create_preprocessing(name, device=device)(images)
+    model.eval()
+    for bn in (m for m in model.modules() if isinstance(m, BatchNorm)):
+        seen = []
+        hook = bn.register_forward_pre_hook(
+            lambda m, inp: seen.append(inp[0].detach().float()))
+        with torch.no_grad():
+            model(x)
+        hook.remove()
+        flat = seen[0].reshape(-1, bn.dim)
+        bn.running_mean.copy_(flat.mean(dim=0))
+        bn.running_var.copy_(flat.var(dim=0))
+    return model, {k: v.detach().cpu().clone()
+                   for k, v in model.state_dict().items()}
+
+
+def conv_net_groups(names: dict) -> dict:
+    """A profile's device ms by kernel name (``device_split``) split into
+    cuDNN convs, BatchNorm, cuBLAS GEMMs (the 1x1 convs and the heads,
+    ``F.linear``), the port's kernels and the rest (elementwise, pools,
+    reductions)."""
+    groups = {}
+    for kname, ms in names.items():
+        low = kname.lower()
+        if any(k in low for k in ("fused_mha", "flash_fwd", "flash_bwd")):
+            group = "the port's kernels"
+        elif any(k in low for k in CONV_NET_CONV_KEYS):
+            group = "convs (cuDNN)"
+        elif "batch_norm" in low or "bn_" in low:
+            group = "BatchNorm"
+        elif any(k in low for k in ("gemm", "cutlass", "nvjet", "splitk")):
+            group = "GEMMs (cuBLAS)"
+        else:
+            group = "elementwise, pools, reductions, the rest"
+        groups[group] = groups.get(group, 0.0) + ms
+    return groups
+
+
+def convmixer_stepwise(model, model32, x16, x32) -> dict:
+    """Each step of a bf16 ConvMixer request (the stem, every block, the
+    head) against the same step of the f32 model fed the bf16 model's own
+    input to that step: max|diff| / max|f32| by step. End to end the two
+    part by more than 5e-2 on seeded weights: 32 blocks of ReLU and
+    BatchNorm magnify one bf16 rounding block by block, in the JAX package
+    as in the port (``scripts/perf/torch_bf16_drift.py``)."""
+    import torch
+
+    def rel(got, want):
+        return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+    with torch.inference_mode():
+        logits, feats = model(x16, return_features=True)
+        rels = {"stem": rel(feats["stem"], model32.stem["2"](
+            model32.act(model32.stem["0"](x32))))}
+        before = "stem"
+        for j, block in enumerate(model32.blocks):
+            rels[f"block_{j}"] = rel(feats[f"block_{j}"],
+                                     block(feats[before].float()))
+            before = f"block_{j}"
+        rels["head"] = rel(logits, model32.forward_head(
+            feats["features"].float()))
+    return rels
+
+
+def conv_net_serving(reports, gpu_line, path, runs, seed):
+    """Phases 35, 37 and 38: each (model, launches) of ``runs`` in bf16
+    with ``calibrated_model``'s weights answers REQUESTS requests of BATCH
+    uint8 224x224 images, each launching the kernels of ``launches`` and
+    nothing else; the logits of the first FAMILY_CHECK_IMAGES images within
+    5e-2 of the same weights in f32 on the card, through the plain
+    attention (no launch); the rate of each run and a profile of one
+    request split by ``conv_net_groups``."""
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    import tfimm_tpu_torch.ops.attention as attention
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    x = requests[0][:FAMILY_CHECK_IMAGES]
+    dispatch.reset_launch_counts()
+    path_counts = expected()
+    for name, launches in runs:
+        model32, sd = calibrated_model(name, seed, requests[-1][:32])
+        model = tfm.create_model(name, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+        model.load_state_dict(sd)
+        pp = tfm.create_preprocessing(name, dtype=torch.bfloat16,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        before = dict(dispatch.launch_counts)
+        seconds, logits = family_requests(model, pp, requests, launches,
+                                          batch=BATCH)
+        for k in path_counts:
+            path_counts[k] += dispatch.launch_counts[k] - before[k]
+        img_s = [BATCH / t for t in seconds[1:]]
+        request_ms = statistics.median(seconds[1:]) * 1e3
+        print(f"slice {name} bs{BATCH} bf16: request seconds {seconds!r}",
+              flush=True)
+        print(f"slice {name} bs{BATCH} bf16: {statistics.median(img_s)!r} "
+              f"img/s (median of requests 2-{REQUESTS}; range "
+              f"{min(img_s)!r}-{max(img_s)!r}), launches a request "
+              f"{launches or 'none'}; on {gpu_line}", flush=True)
+
+        # The f32 reference: the same weights and statistics; the attention
+        # (PiT) through its plain path, so that it launches nothing.
+        pp32 = tfm.create_preprocessing(name, device="cuda")
+        fused = attention.fused_mha_or_none
+        attention.fused_mha_or_none = lambda *args: None
+        try:
+            before = dict(dispatch.launch_counts)
+            with torch.inference_mode():
+                ref = model32(pp32(x))
+            check(dispatch.launch_counts == before,
+                  "the f32 reference launched a kernel")
+        finally:
+            attention.fused_mha_or_none = fused
+        got = logits[:FAMILY_CHECK_IMAGES].float()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        if name == CONVMIXER:
+            print(f"slice {name} logits: bf16 vs f32 on the card rel err "
+                  f"{rel!r} (not held: see convmixer_stepwise)", flush=True)
+            rels = convmixer_stepwise(model, model32, pp(x), pp32(x))
+            name_, rel = max(rels.items(), key=lambda kv: kv[1])
+            print(f"slice {name}: each step in bf16 vs f32 on the bf16 "
+                  f"step's input, largest rel err {rel!r} at {name_} (bar "
+                  f"5e-2); {rels!r}", flush=True)
+        else:
+            print(f"slice {name} logits: bf16 vs f32 on the card rel err "
+                  f"{rel!r} (bar 5e-2)", flush=True)
+        check(rel < 5e-2, f"{name} logits rel err {rel} >= 5e-2")
+        del model32, ref
+
+        img = requests[1]
+        for attempt in range(5):
+            wall_ms, _, names = device_split(lambda: model.predict(pp(img)),
+                                             steps=2)
+            if names:
+                break
+            print(f"profile {attempt + 1} of 5 kept no device event",
+                  flush=True)
+        check(bool(names), f"{name}: five profiles kept no device event")
+        groups = conv_net_groups(names)
+        busy_ms = sum(groups.values())
+        print(f"{name} request profile: device busy {busy_ms!r} ms per "
+              f"request; wall {wall_ms!r} ms under the profiler, "
+              f"{request_ms!r} ms without; device idle share "
+              f"{1.0 - busy_ms / request_ms!r}; on {gpu_line}", flush=True)
+        for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"{name} request profile: {group}: {ms!r} ms per request "
+                  f"({ms / busy_ms!r} of busy)", flush=True)
+        for kname, ms in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"{name} request profile kernel: {ms!r} ms {kname[:150]}",
+                  flush=True)
+        del model
+    for report_name, report in reports.items():
+        report["launches_by_path"][path] = path_counts[report_name]
+
+
+def resnet_train_config() -> dict:
+    """ResNet-50 at batch 64 with the ResNet recipe as far as train/ takes
+    it (SGD with momentum 0.9, lr 0.1 at batch 256 scaled to 0.025, L2
+    weight decay 1e-4, label smoothing 0.1), bf16 mixed precision, an EMA
+    of the weights and statistics at decay 0.9, TRAIN_STEPS epochs of one
+    step each on the same 64 synthetic images."""
+    data = {"batch_size": RESNET_TRAIN_BATCH,
+            "nb_samples": RESNET_TRAIN_BATCH, "input_size": (224, 224),
+            "nb_classes": 1000, "seed": 0}
+    return {
+        "trainer_class": "Trainer",
+        "trainer": {"validation_before_training": False,
+                    "display_loss_every_it": 1},
+        "problem_class": "ClassificationProblem",
+        "problem": {"model_class": "ModelFactory",
+                    "model": {"model_name": RESNET},
+                    "optimizer_class": "OptimizerFactory",
+                    "optimizer": {"optimizer": "sgd",
+                                  "lr_schedule_class": "LRConstFactory",
+                                  "lr_schedule": {
+                                      "lr": 0.1 * RESNET_TRAIN_BATCH / 256}},
+                    "weight_decay": 1e-4, "mixed_precision": True,
+                    "label_smoothing": 0.1, "ema_decay": RESNET_EMA_DECAY},
+        "train_dataset_class": "SyntheticDataset", "train_dataset": data,
+        "timekeeping_class": "Timekeeping",
+        "timekeeping": {"nb_epochs": TRAIN_STEPS,
+                        "batch_size": RESNET_TRAIN_BATCH,
+                        "nb_samples_per_epoch": RESNET_TRAIN_BATCH},
+        "device": "cuda",
+    }
+
+
+def phase_resnet_train(reports, gpu_line):
+    """Phase 36: ``train.run`` trains ResNet-50 at batch 64 in bf16 mixed
+    precision with an EMA. No launch; finite losses; the running
+    statistics moved and stayed finite; the EMA holds them; a validation
+    pass reads the averaged ones; a seeded bf16 step against f32; the rate
+    and a profile."""
+    import torch
+    from torch.func import functional_call
+
+    from tfimm_tpu_torch.ops.norm import BatchNorm
+    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
+
+    trainer, steps, counts = run_watched(resnet_train_config())
+    problem = trainer.problem
+    model = problem.model
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} ResNet training steps, "
+          f"expected {TRAIN_STEPS}")
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"resnet train step {it}: loss {loss!r}, {seconds!r} s, "
+              f"launches {rose}", flush=True)
+        check(rose == expected(), f"ResNet step {it} launched {rose}")
+        check(math.isfinite(loss), f"ResNet step {it}: loss {loss}")
+    check(counts == expected(), f"the ResNet run launched {counts}")
+    for name, report in reports.items():
+        report["launches_by_path"]["train_resnet"] = counts[name]
+    timed = [s for _, s, _ in steps[1:]]
+    step_s = sum(timed) / len(timed)
+    print(f"train {RESNET} bs{RESNET_TRAIN_BATCH} bf16 mixed precision sgd "
+          f"ema {RESNET_EMA_DECAY}: "
+          f"{RESNET_TRAIN_BATCH * len(timed) / sum(timed)!r} img/s "
+          f"({len(timed)} steps 2-{TRAIN_STEPS} in {sum(timed) * 1e3!r} ms; "
+          f"median step {statistics.median(timed) * 1e3!r} ms, slowest "
+          f"{max(timed) * 1e3!r} ms) on {gpu_line}", flush=True)
+
+    # The running statistics: moved from their start (0 and 1), finite, and
+    # averaged by the EMA, which no longer equals them.
+    live = model.state_dict()
+    bns = [n for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    means = [live[f"{n}.running_mean"] for n in bns]
+    variances = [live[f"{n}.running_var"] for n in bns]
+    check(all(bool(torch.isfinite(t).all()) for t in means + variances),
+          "non-finite running statistics")
+    moved = sum(bool(t.abs().max() > 0) for t in means)
+    print(f"resnet train: {moved} of {len(bns)} BatchNorms' running means "
+          f"moved from 0", flush=True)
+    check(moved == len(bns), f"only {moved} of {len(bns)} running means moved")
+    ema = problem.ema_params
+    stats = [f"{n}.running_{s}" for n in bns for s in ("mean", "var")]
+    check(set(stats) <= set(ema), "the EMA does not hold the statistics")
+    apart = max(((ema[k] - live[k]).abs().max() / live[k].abs().max()).item()
+                for k in stats)
+    print(f"resnet train: EMA statistics vs live, largest rel difference "
+          f"{apart!r}", flush=True)
+    check(apart > 1e-3, "the EMA statistics equal the live ones")
+
+    # Validation reads the EMA's weights and statistics: a hook on the stem's
+    # BatchNorm sees the EMA's running variance during the pass, and on
+    # labels taken from the EMA model's own predictions the accuracy is 1.
+    images, _ = next(iter(trainer.train_ds))
+    x = problem.preprocessing(torch.as_tensor(images, device="cuda"))
+    model.eval()
+    with torch.no_grad():
+        labels = functional_call(model, ema, (x,)).argmax(-1).cpu().numpy()
+        live_labels = model(x).argmax(-1).cpu().numpy()
+    seen = []
+    hook = model.bn1.register_forward_hook(
+        lambda m, inp, out: seen.append(m.running_var.detach().clone()))
+    try:
+        val = problem.validation([(images, labels)])["val/accuracy"]
+    finally:
+        hook.remove()
+    read_ema = len(seen) == 1 and torch.equal(seen[0], ema["bn1.running_var"])
+    print(f"resnet validation: accuracy {val!r} on the EMA's own labels (the "
+          f"live model's {float((live_labels == labels).mean())!r}); the "
+          f"stem BatchNorm read the EMA's statistics: {read_ema}", flush=True)
+    check(read_ema and not torch.equal(seen[0], live["bn1.running_var"]),
+          "validation did not read the EMA's running statistics")
+    check(val == 1.0, f"validation accuracy {val} on the EMA's own labels")
+
+    # One seeded step's loss and gradients: bf16 against f32 (cuDNN in both,
+    # TF32 off), in training mode (batch statistics).
+    model.load_state_dict(he_state_dict(model, seed=36))
+    model.train()
+    labels = torch.as_tensor(next(iter(trainer.train_ds))[1], device="cuda")
+    # The head's weight and the last norm's bias are held. The convs' and
+    # the norm scales' gradients are printed, not held: a conv's output
+    # feeds a training BatchNorm, which makes its cotangent orthogonal to
+    # that output, so the weight's gradient is a small difference of large
+    # sums, which bf16 moves by 16-140% in the port and in the JAX package
+    # alike (scripts/perf/torch_bf16_drift.py).
+    last = f"layer4.{len(model.layer4) - 1}"
+    names = ("fc.weight", f"{last}.bn3.bias")
+    shown = ("conv1.weight", f"{last}.conv3.weight", f"{last}.bn3.weight")
+
+    def loss_and_grads(inputs):
+        model.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(inputs).float(), labels)
+        loss.backward()
+        params = dict(model.named_parameters())
+        return loss.item(), {n: params[n].grad.float()
+                             for n in names + shown}
+
+    x32 = problem.preprocessing(torch.as_tensor(images, device="cuda"))
+    loss_k, grads_k = loss_and_grads(x32.to(torch.bfloat16))
+    loss_r, grads_r = loss_and_grads(x32)
+    rel = abs(loss_k - loss_r) / abs(loss_r)
+    print(f"resnet train loss: bf16 {loss_k!r} vs f32 {loss_r!r}, rel err "
+          f"{rel!r} (bar 2e-2)", flush=True)
+    check(rel < 2e-2, f"ResNet loss rel err {rel} >= 2e-2")
+    for name in names + shown:
+        ref = grads_r[name]
+        rel = ((grads_k[name] - ref).abs().max() / ref.abs().max()).item()
+        held = name in names
+        print(f"resnet train grad {name}: max|diff| / max|ref| {rel!r} "
+              f"({'bar 1e-1' if held else 'not held'})", flush=True)
+        if held:
+            check(rel < 1e-1, f"{name} gradient rel err {rel} >= 1e-1")
+            check(ref.abs().max().item() > 0,
+                  f"{name}: zero reference gradient")
+
+    batch = next(iter(trainer.train_ds))
+    profile_idle(f"{RESNET} train step", lambda: problem.train_step(batch, 0),
+                 step_s * 1e3, steps=1)
+
 
 def main(argv) -> int:
-    all_phases = list(range(2, 34))
+    all_phases = list(range(2, 39))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 33",
+            print("chip_smoke: --phases takes numbers from 2 to 38",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -5513,6 +6005,15 @@ def main(argv) -> int:
             31: lambda: phase_ln_dense_kernel(reports, gpu_line),
             32: lambda: phase_ln_dense_vit(reports, gpu_line),
             33: lambda: phase_models_api(reports, gpu_line),
+            34: lambda: phase_pit_mha(reports["fused_mha"], gpu_line),
+            35: lambda: conv_net_serving(reports, gpu_line, "serve_resnet",
+                                         [(n, {}) for n in RESNETS], seed=35),
+            36: lambda: phase_resnet_train(reports, gpu_line),
+            37: lambda: conv_net_serving(
+                reports, gpu_line, "serve_vgg_convmixer",
+                [(VGG, {}), (CONVMIXER, {})], seed=37),
+            38: lambda: conv_net_serving(reports, gpu_line, "serve_pit",
+                                         [(PIT, PIT_LAUNCHES)], seed=38),
         }
         for number in phases:
             run_phase[number]()

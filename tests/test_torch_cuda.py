@@ -2468,3 +2468,59 @@ def test_float16_models_run_their_plain_paths(card, monkeypatch, name,
     assert dispatch.launch_counts == before
     assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
     _held_by(got, want, 5e-2)
+
+
+# -- the conv nets' ops (ResNet, VGG, ConvMixer, PiT) -------------------------
+# Conv2d's cuDNN route on the card against the same conv on the CPU (f32
+# with TF32 off 1e-5 * max, bf16 2e-2): ResNet-50's 7x7 stem, a 3x3, a
+# ResNeXt 32-group 3x3 at stride 2, ConvMixer's depthwise 7x7 SAME, PiT's
+# pooling conv (groups = C_in, 2 C_in outputs), an asymmetric SAME pad and
+# a strided 1x1; the NHWC result contiguous, so the next layer copies
+# nothing.
+CONV_CASES = [(3, 64, 7, 2, 3, 1, 224), (64, 64, 3, 1, 1, 1, 56),
+              (256, 256, 3, 2, 1, 32, 28), (96, 96, 7, 1, "same", 96, 32),
+              (64, 128, 3, 2, 1, 64, 31), (16, 32, 3, 2, "same", 1, 14),
+              (64, 256, 1, 2, 0, 1, 28)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("cin,cout,k,s,pad,groups,side", CONV_CASES)
+def test_conv2d_on_the_card_matches_the_cpu(card, cin, cout, k, s, pad,
+                                            groups, side, dtype, tol):
+    from tfimm_tpu_torch.ops.conv import Conv2d
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = Conv2d(cin, cout, k, stride=s, padding=pad, groups=groups,
+                      generator=torch.Generator().manual_seed(cin + k))
+        assert not conv.patchify
+        x = torch.randn(2, side, side, cin,
+                        generator=torch.Generator().manual_seed(side))
+        want = conv.to(dtype)(x.to(dtype)).float()
+        got = conv.to(card)(x.to(card, dtype))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert got.is_contiguous() and got.dtype == dtype
+    assert (got.float().cpu() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b,n,h,d", [(8, 962, 4, 64), (8, 730, 3, 48),
+                                     (8, 257, 8, 64), (8, 65, 12, 48)])
+def test_fused_mha_at_the_pit_shapes(card, b, n, h, d, dtype, tol):
+    """PiT-B's and PiT-S's stages (batch cut to 8): the kernel against its
+    plain version, and its backward (PiT training) likewise."""
+    g = torch.Generator(device=card).manual_seed(n + h)
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=card).to(dtype)
+    out = fused_mha(qkv, h, d ** -0.5)
+    ref = fused_mha_reference(qkv, h, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    go = torch.randn(b, n, h * d, generator=g, device=card).to(dtype)
+    dqkv = fused_mha_bwd(qkv, go, h, d ** -0.5)
+    dref = fused_mha_bwd_reference(qkv, go, h, d ** -0.5).float()
+    bar = (2e-2 if dtype == torch.bfloat16 else 1e-4) * dref.abs().max()
+    assert (dqkv.float() - dref).abs().max() <= bar

@@ -28,6 +28,7 @@ from tfimm_tpu_torch.ops import (
     norm_layer_factory,
 )
 from tfimm_tpu_torch.ops.kernels.dispatch import capture_dispatches
+from tfimm_tpu_torch.ops.norm import Affine
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
 from tfimm_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -70,8 +71,11 @@ def test_layer_norm_one_pass_variance():
     tl = _load(norm_layer_factory("layer_norm_eps_1e-6")(48), p)
     _close(tl(torch.from_numpy(x)).detach(), jl(p, jnp.asarray(x)))
     assert isinstance(tl, LayerNorm) and tl.eps == 1e-6
-    with pytest.raises(NotImplementedError):
-        norm_layer_factory("affine")
+    # The rest of the JAX factory's names came with ResNet (Affine, the
+    # identity); an unknown name raises, as in the JAX factory.
+    assert isinstance(norm_layer_factory("affine")(48), Affine)
+    with pytest.raises(ValueError):
+        norm_layer_factory("no_such_norm")
 
 
 def test_gelu_policy(monkeypatch):

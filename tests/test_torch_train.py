@@ -317,19 +317,30 @@ def _l2_model(family):
     "poolformer": ("poolformer_s12", dict(input_size=(64, 64),
                                           embed_dim=(16, 32), nb_blocks=(1, 1),
                                           nb_classes=7)),
+    "resnet": ("ecaresnet50d", dict(input_size=(32, 32), nb_blocks=(1, 1, 1, 1),
+                                    nb_channels=(8, 8, 16, 16), nb_classes=7)),
+    "vgg": ("vgg11_bn", dict(input_size=(32, 32), layers=(8, "M", 16, "M"),
+                             nb_features=16, nb_classes=7)),
+    "convmixer": ("convmixer_768_32", dict(input_size=(28, 28), embed_dim=16,
+                                           depth=1, kernel_size=3,
+                                           nb_classes=7)),
+    "pit": ("pit_ti_224", dict(input_size=(48, 48), embed_dim=(16, 32, 64),
+                               nb_blocks=(1, 1, 1), nb_heads=(1, 2, 4),
+                               nb_classes=7)),
     }[family]
 
 
-@pytest.mark.parametrize("family", ["cait", "convnext", "poolformer", "pvt",
-                                    "pvt_v2", "sam", "swin", "vit"])
+@pytest.mark.parametrize("family", ["cait", "convmixer", "convnext", "pit",
+                                    "poolformer", "pvt", "pvt_v2", "resnet",
+                                    "sam", "swin", "vgg", "vit"])
 def test_l2_covers_the_jax_kernel_leaves(family):
     """The L2 penalty covers exactly the JAX package's ``kernel`` leaves
     (Dense, Conv2d and the depthwise convs of ConvNeXt and PVTv2; CaiT's
-    proj_l and proj_w; SAM's transposed convs) and not the LayerNorm's or
-    GroupNorm's ``weight``, nor SAM's
-    embedding tables, position embedding and rel-pos tables: the same set
-    of parameters and the same sum of squares on the same seeded weights,
-    within 1e-6."""
+    proj_l and proj_w; SAM's transposed convs; ECA's 1-D conv, grouped
+    convs) and not the LayerNorm's, GroupNorm's or BatchNorm's
+    ``weight``, nor SAM's embedding tables, position embedding and rel-pos
+    tables: the same set of parameters and the same sum of squares on the
+    same seeded weights, within 1e-6."""
     name, cfg = _l2_model(family)
     params = _seeded(tfimm_tpu.create_model(name, **cfg).params, 11)
     tm = tfimm_tpu_torch.create_model(name, device="cpu", **cfg)

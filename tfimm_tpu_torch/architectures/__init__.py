@@ -8,3 +8,7 @@ from tfimm_tpu_torch.architectures.segment_anything import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.pvt import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.pvt_v2 import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.poolformer import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.resnet import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.vgg import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.convmixer import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.pit import *  # noqa: F401,F403

@@ -3,6 +3,10 @@ from tfimm_tpu_torch.ops.attention import (  # noqa: F401
     scaled_dot_product_attention,
 )
 from tfimm_tpu_torch.ops.basic import Dense, act_layer_factory  # noqa: F401
+from tfimm_tpu_torch.ops.classifier import (  # noqa: F401
+    ClassifierHead,
+    global_pool_2d,
+)
 from tfimm_tpu_torch.ops.conv import Conv2d, DepthwiseConv2d  # noqa: F401
 from tfimm_tpu_torch.ops.embed import (  # noqa: F401
     PatchEmbeddings,
@@ -15,4 +19,19 @@ from tfimm_tpu_torch.ops.kernels.ln_dense import (  # noqa: F401
     ln_dense_or_none,
 )
 from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP  # noqa: F401
-from tfimm_tpu_torch.ops.norm import LayerNorm, norm_layer_factory  # noqa: F401
+from tfimm_tpu_torch.ops.norm import (  # noqa: F401
+    Affine,
+    BatchNorm,
+    LayerNorm,
+    norm_layer_factory,
+)
+from tfimm_tpu_torch.ops.pool import (  # noqa: F401
+    BlurPool2d,
+    avg_pool_2d,
+    max_pool_2d,
+)
+from tfimm_tpu_torch.ops.se import (  # noqa: F401
+    EcaModule,
+    SEModule,
+    attn_layer_factory,
+)

@@ -1,19 +1,22 @@
 """Convolutions on NHWC input; the parts of tfimm_tpu/ops/conv.py that the
 ported families use.
 
-``Conv2d`` cuts the image into patches and multiplies them with the
-flattened OIHW weight, which is exactly the convolution; the product goes
-through ``F.linear``, so it never meets cuDNN's default TF32 convolutions.
-By default its stride equals its kernel and it pads nothing (ViT's patch
-embedding, ConvNeXt's stem and downsampling, 1x1 convs): the patches are a
-reshape of the image. With another stride or a zero padding (SAM's 3x3
-neck conv) they are gathered with ``unfold``.
+``Conv2d`` takes the JAX layer's stride, dilation, groups and padding
+modes. Where its stride equals its kernel and it pads nothing, dilates
+nothing and has one group (ViT's patch embedding, ConvNeXt's stem and
+downsampling, 1x1 convs), the patches are a reshape of the image: they are
+multiplied with the flattened OIHW weight through ``F.linear``, which is
+exactly the convolution and never meets cuDNN's default TF32 convolutions.
+Every other conv (ResNet's, VGG's, the grouped ones, SAM's 3x3 neck conv)
+is ``F.conv2d`` on the channels-last view of the NHWC tensor, as the JAX
+package leaves it to XLA; the NHWC view of the result is returned, so
+neither side is copied. In f32 on the card its precision follows
+``torch.backends.cudnn.allow_tf32``.
 
 ``DepthwiseConv2d`` is ConvNeXt's 7x7 depthwise conv, computed by
-``F.conv2d`` (the JAX package leaves it to XLA too). It runs on the
-channels-last view of the NHWC tensor and returns the NHWC view of the
-result, so neither side is copied; in f32 on the card its precision follows
-``torch.backends.cudnn.allow_tf32``.
+``F.conv2d`` the same way.
+
+``Conv1d`` is ECA's 1-D conv across channels (``ops/se.py``).
 
 ``ConvTranspose2d`` is SAM's mask-decoder upscaling, ``F.conv_transpose2d``
 on the channels-first view (the JAX package's ``ConvTranspose2d`` in
@@ -23,45 +26,73 @@ on the channels-first view (the JAX package's ``ConvTranspose2d`` in
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.basic import trunc_normal_
+from tfimm_tpu_torch.utils.etc import to_2tuple
 
-__all__ = ["Conv2d", "DepthwiseConv2d", "ConvTranspose2d"]
+__all__ = ["Conv2d", "DepthwiseConv2d", "Conv1d", "ConvTranspose2d",
+           "same_pads"]
+
+
+def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
+    """XLA's "SAME" padding of one axis: (before, after), the larger after."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
 
 
 class Conv2d(nn.Module):
-    """Square ``kernel_size`` x ``kernel_size`` patches. Parameters:
-    ``weight`` (out, in, k, k) and ``bias`` (out,), or no bias with
+    """2-D convolution of (B, H, W, C) maps. Parameters: ``weight`` (out,
+    in / groups, kh, kw) and ``bias`` (out,), or no bias with
     ``use_bias=False``.
 
-    (B, H, W, C) -> (B, (H + 2p - k) // s + 1, (W + 2p - k) // s + 1, out)
-    for stride s (default k) and zero padding p on every side (default 0);
-    trailing rows and columns that do not fill a patch are dropped, as by a
-    valid convolution. ``zero_bias`` starts the bias at zero (ConvNeXt's
-    stem and downsampling).
+    ``stride`` defaults to the kernel size and ``padding`` to 0 (the
+    patchify convs); ``padding`` is an int or a pair (zeros on both sides
+    of H and W), ``"valid"`` (none), ``"symmetric"`` (``d * (k - 1) // 2``
+    on both sides, timm's) or ``"same"`` (XLA's SAME, the larger pad
+    after). ``zero_bias`` starts the bias at zero (ConvNeXt's stem and
+    downsampling); ``weight_std`` draws the weight from a truncated normal,
+    else it is PyTorch's uniform in +-1/sqrt(fan in).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, *, stride: Optional[int] = None,
-                 padding: int = 0, use_bias: bool = True,
-                 weight_std: Optional[float] = None, zero_bias: bool = False,
+                 kernel_size: Union[int, Tuple[int, int]], *,
+                 stride: Optional[Union[int, Tuple[int, int]]] = None,
+                 padding: Union[str, int, Tuple[int, int]] = 0,
+                 dilation: Union[int, Tuple[int, int]] = 1, groups: int = 1,
+                 use_bias: bool = True, weight_std: Optional[float] = None,
+                 zero_bias: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"channels {in_channels} -> {out_channels} not "
+                             f"divisible by {groups} groups")
         self.in_channels = in_channels
         self.out_channels = out_channels
-        self.kernel_size = kernel_size
-        self.stride = kernel_size if stride is None else stride
+        self.kernel_size = to_2tuple(kernel_size)
+        self.stride = to_2tuple(self.kernel_size if stride is None else stride)
+        self.dilation = to_2tuple(dilation)
+        self.groups = groups
+        if padding == "symmetric":
+            padding = tuple(d * (k - 1) // 2
+                            for k, d in zip(self.kernel_size, self.dilation))
+        elif padding == "valid":
+            padding = 0
+        elif padding != "same":
+            padding = to_2tuple(padding)
+            padding = tuple(int(p) for p in padding)
         self.padding = padding
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, *self.kernel_size))
         self.bias = (nn.Parameter(torch.empty(out_channels)) if use_bias
                      else None)
-        bound = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        fan_in = in_channels // groups * self.kernel_size[0] * self.kernel_size[1]
+        bound = 1.0 / math.sqrt(fan_in)
         with torch.no_grad():
             if weight_std is not None:
                 trunc_normal_(self.weight, weight_std, generator)
@@ -72,24 +103,36 @@ class Conv2d(nn.Module):
                     self.bias.zero_()
                 else:
                     self.bias.uniform_(-bound, bound, generator=generator)
+        self.patchify = (self.stride == self.kernel_size
+                         and self.padding in (0, (0, 0))
+                         and self.dilation == (1, 1) and groups == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s, p = self.kernel_size, self.stride, self.padding
-        if s == k and p == 0:
-            b, h, w, c = x.shape
-            gh, gw = h // k, w // k
-            x = x[:, :gh * k, :gw * k]
-            patches = (x.reshape(b, gh, k, gw, k, c)
-                       .permute(0, 1, 3, 5, 2, 4)      # (B, gh, gw, C, kh, kw)
-                       .reshape(b, gh, gw, c * k * k))
-        else:
-            if p:
-                x = F.pad(x, (0, 0, p, p, p, p))
-            patches = x.unfold(1, k, s).unfold(2, k, s)  # (B, gh, gw, C, kh, kw)
-            patches = patches.reshape(*patches.shape[:3], -1)
-        weight = self.weight.to(x.dtype).reshape(self.out_channels, -1)
+        weight = self.weight.to(x.dtype)
         bias = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.linear(patches, weight, bias)
+        if self.patchify:
+            (kh, kw), (b, h, w, c) = self.kernel_size, x.shape
+            gh, gw = h // kh, w // kw
+            x = x[:, :gh * kh, :gw * kw]
+            patches = (x.reshape(b, gh, kh, gw, kw, c)
+                       .permute(0, 1, 3, 5, 2, 4)      # (B, gh, gw, C, kh, kw)
+                       .reshape(b, gh, gw, c * kh * kw))
+            return F.linear(patches, weight.reshape(self.out_channels, -1),
+                            bias)
+        x = x.permute(0, 3, 1, 2)
+        padding = self.padding
+        if padding == "same":
+            pads = [same_pads(size, d * (k - 1) + 1, s) for size, k, d, s in
+                    zip(x.shape[2:], self.kernel_size, self.dilation,
+                        self.stride)]
+            if all(lo == hi for lo, hi in pads):
+                padding = tuple(lo for lo, _ in pads)
+            else:
+                x = F.pad(x, (*pads[1], *pads[0]))
+                padding = 0
+        y = F.conv2d(x, weight, bias, self.stride, padding, self.dilation,
+                     self.groups)
+        return y.permute(0, 2, 3, 1).contiguous()
 
 
 class DepthwiseConv2d(nn.Module):
@@ -114,6 +157,27 @@ class DepthwiseConv2d(nn.Module):
                      self.bias.to(x.dtype), padding=self.padding,
                      groups=self.channels)
         return y.permute(0, 2, 3, 1)
+
+
+class Conv1d(nn.Module):
+    """1-D conv of (B, in, L) input, zero padding ``padding`` on both
+    sides, no bias: ECA's conv across channels. Parameter: ``weight``
+    (out, in, k), the JAX layer's (k, in, out) kernel transposed, uniform
+    in +-1/sqrt(in k) at init."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 *, padding: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.padding = padding
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size))
+        bound = 1.0 / math.sqrt(in_channels * kernel_size)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.weight.to(x.dtype), padding=self.padding)
 
 
 class ConvTranspose2d(nn.Module):

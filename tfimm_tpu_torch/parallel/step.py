@@ -1,10 +1,16 @@
-"""Training step and loss; mirror of tfimm_tpu/parallel/step.py.
+"""Training and eval steps and the loss; mirror of tfimm_tpu/parallel/step.py.
 
 ``make_train_step`` returns one eager step: forward in training mode,
 softmax cross-entropy in float32 (plus optional L2 weight decay), backward,
 optimizer update. The JAX package compiles the same step with ``jax.jit``
 and can shard it over a device mesh; meshes, parameter shardings and
 rematerialisation are not ported yet (ROADMAP.md, queue A, item 14).
+
+BatchNorm's running statistics need no ``merge_state_updates``: the layer
+writes them in place during the training forward, and the JAX step
+overwrites the same leaves with the same values after the optimizer's
+update (which leaves them as they were: their gradient is zero, and the
+L2 penalty covers only ``kernel`` leaves).
 """
 
 from __future__ import annotations
@@ -16,9 +22,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tfimm_tpu_torch.ops.basic import Dense
-from tfimm_tpu_torch.ops.conv import Conv2d, ConvTranspose2d, DepthwiseConv2d
+from tfimm_tpu_torch.ops.conv import (
+    Conv1d,
+    Conv2d,
+    ConvTranspose2d,
+    DepthwiseConv2d,
+)
 
-__all__ = ["cross_entropy_loss", "make_train_step", "l2_weights"]
+__all__ = ["cross_entropy_loss", "make_train_step", "make_eval_step",
+           "l2_weights"]
 
 _NO_MESH = "device meshes and sharded steps are not ported yet (ROADMAP.md, queue A, item 14)"
 
@@ -41,14 +53,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # The port's modules whose JAX counterparts hold a ``kernel`` leaf.
-_KERNEL_MODULES = (Dense, Conv2d, DepthwiseConv2d, ConvTranspose2d)
+_KERNEL_MODULES = (Dense, Conv2d, DepthwiseConv2d, ConvTranspose2d, Conv1d)
 
 
 def l2_weights(model: nn.Module) -> List[torch.Tensor]:
     """The weights the L2 penalty covers: the JAX package's ``kernel``
-    leaves, i.e. the weights of Dense, Conv2d, DepthwiseConv2d and
-    ConvTranspose2d (SAM) layers (CaiT's head mixes ``proj_l`` and
-    ``proj_w`` are Dense). Norm
+    leaves, i.e. the weights of Dense, Conv2d, DepthwiseConv2d,
+    ConvTranspose2d (SAM) and Conv1d (ECA) layers (CaiT's head mixes
+    ``proj_l`` and ``proj_w`` are Dense). Norm
     parameters, biases, layer scales, tokens and position embeddings are
     left out (LayerNorm's parameter is also called ``weight``)."""
     return [m.weight for m in model.modules()
@@ -97,5 +109,20 @@ def make_train_step(
             hard = labels.argmax(-1) if labels.dim() == preds.dim() + 1 else labels
             accuracy = (preds == hard).float().mean()
         return {"loss": loss.detach(), "accuracy": accuracy}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, mesh=None):
+    """Build an eval step: ``step(images) -> logits``, the model in eval
+    mode (BatchNorm normalises with its running statistics) under
+    ``torch.no_grad``."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+
+    def step(images):
+        model.eval()
+        with torch.no_grad():
+            return model(images)
 
     return step

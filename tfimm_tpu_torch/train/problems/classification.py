@@ -4,7 +4,9 @@ The step: preprocess in float32, cast to bf16 when ``mixed_precision`` (the
 parameters and the optimizer state stay float32; ``Dense`` and ``Conv2d``
 cast their weights to the input dtype), forward in training mode, float32
 softmax cross-entropy (or the binary loss) plus optional L2 weight decay,
-backward, optimizer update, and the optional EMA of the parameters. No loss
+backward, optimizer update, and the optional EMA of the parameters and of
+the persistent floating buffers (BatchNorm's running statistics, which the
+JAX package keeps as parameter leaves and averages with the rest). No loss
 scaling is needed for bf16.
 
 Mixup and cutmix (``train/transforms.py``) blend the raw images in f32
@@ -131,9 +133,16 @@ class ClassificationProblem(ProblemBase):
             _Preprocessed(self.model, self.preprocessing, compute_dtype),
             self.optimizer, loss_fn=loss_fn, weight_decay=cfg.weight_decay)
 
+    def _averaged(self):
+        """What the EMA averages: the parameters and the persistent
+        floating buffers, by state-dict name."""
+        return {name: t for name, t in
+                self.model.state_dict(keep_vars=True).items()
+                if t.is_floating_point()}
+
     def _param_copy(self):
-        return {name: p.detach().clone()
-                for name, p in self.model.named_parameters()}
+        return {name: t.detach().clone()
+                for name, t in self._averaged().items()}
 
     # -- ProblemBase ------------------------------------------------------------
     def train_step(self, data, it: int):
@@ -149,15 +158,16 @@ class ClassificationProblem(ProblemBase):
         if self.ema_params is not None:
             d = self.cfg.ema_decay
             with torch.no_grad():
-                for name, p in self.model.named_parameters():
-                    self.ema_params[name].mul_(d).add_(p, alpha=1.0 - d)
+                for name, t in self._averaged().items():
+                    self.ema_params[name].mul_(d).add_(t, alpha=1.0 - d)
         loss = float(metrics["loss"])
         logs = {"train/loss": loss,
                 "train/accuracy": float(metrics["accuracy"])}
         return loss, logs
 
     def validation(self, dataset):
-        # Validate the EMA weights when enabled (they are what gets deployed).
+        # Validate the EMA weights when enabled (they are what gets
+        # deployed), BatchNorm's running statistics with them.
         self.model.eval()
         correct, total = 0, 0
         with torch.no_grad():

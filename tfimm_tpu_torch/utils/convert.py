@@ -6,8 +6,10 @@ timm's module paths, so a flattened JAX path maps to a state-dict key by a
 leaf rename, plus a layout transpose for ``kernel`` leaves:
 
     kernel -> weight    2-D (in, out) -> (out, in); 4-D HWIO -> OIHW
-                        (a depthwise (kh, kw, 1, C) -> (C, 1, kh, kw));
-                        3-D WIO -> OIW; SAM's transposed convs
+                        (a grouped (kh, kw, in / groups, out) -> (out,
+                        in / groups, kh, kw), a depthwise (kh, kw, 1, C)
+                        -> (C, 1, kh, kw)); 3-D WIO -> OIW (ECA's
+                        (k, 1, 1) -> (1, 1, k)); SAM's transposed convs
                         (``output_upscaling``, (kh, kw, I, O) in PyTorch's
                         tap order) -> (I, O, kh, kw), with no flip
     scale  -> weight
@@ -16,7 +18,8 @@ leaf rename, plus a layout transpose for ``kernel`` leaves:
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts, so this
 module needs no JAX. ``jax_from_state_dict`` goes the other way, naming
-each leaf by the module that holds it.
+each leaf by the module that holds it. A timm state dict's
+``num_batches_tracked`` has no JAX leaf: ``BatchNorm`` drops it on load.
 """
 
 from __future__ import annotations
@@ -73,17 +76,24 @@ def _jax_leaf(module, name: str):
     ``name``: the inverse of ``state_dict_from_jax``'s rules, decided by the
     module's type."""
     from tfimm_tpu_torch.ops.basic import Dense
-    from tfimm_tpu_torch.ops.conv import Conv2d, ConvTranspose2d, DepthwiseConv2d
-    from tfimm_tpu_torch.ops.norm import BatchNorm, GroupNorm, LayerNorm
+    from tfimm_tpu_torch.ops.conv import (
+        Conv1d,
+        Conv2d,
+        ConvTranspose2d,
+        DepthwiseConv2d,
+    )
+    from tfimm_tpu_torch.ops.norm import Affine, BatchNorm, GroupNorm, LayerNorm
 
     if name == "weight":
         if isinstance(module, Dense):
             return "kernel", (1, 0)
         if isinstance(module, (Conv2d, DepthwiseConv2d)):
             return "kernel", (2, 3, 1, 0)   # OIHW -> HWIO
+        if isinstance(module, Conv1d):
+            return "kernel", _KERNEL_TRANSPOSES[3]   # OIW -> WIO
         if isinstance(module, ConvTranspose2d):
             return "kernel", _CONV_TRANSPOSE_KERNEL   # (I, O, kh, kw) -> (kh, kw, I, O)
-        if isinstance(module, (LayerNorm, GroupNorm, BatchNorm)):
+        if isinstance(module, (LayerNorm, GroupNorm, BatchNorm, Affine)):
             return "scale", None
     if isinstance(module, BatchNorm) and name in ("running_mean", "running_var"):
         return name[len("running_"):], None

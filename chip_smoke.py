@@ -347,7 +347,8 @@ which ends the run with a non-zero exit code on failure:
    ``model.predict``, with no kernel launch; logits finite and non-zero,
    the first 16 images' within 5e-2 of the same weights in f32 on the
    card; the rate of each model and a profile of one request split into
-   cuDNN convs, BatchNorm, cuBLAS GEMMs and the rest.
+   cuDNN convs, BatchNorm, cuBLAS GEMMs, swish and sigmoid, means, copies
+   and the rest.
 36. ResNet-50 training: ``train.run`` trains it at batch 64 in bf16 mixed
    precision with SGD (momentum 0.9, lr 0.025), L2 weight decay 1e-4,
    label smoothing 0.1 and an EMA at decay 0.9, 6 steps: no launch,
@@ -360,11 +361,21 @@ which ends the run with a non-zero exit code on failure:
    over steps 2-6 and a profile of one step.
 37. VGG-16 and ConvMixer-768/32 serving as phase 35; ConvMixer's bf16
    request is held step by step (the stem, each of its 32 blocks and the
-   head against f32 on the bf16 step's own input, ``convmixer_stepwise``),
+   head against f32 on the bf16 step's own input, ``stepwise``),
    its end-to-end difference printed.
 38. PiT-B serving as phase 35: 13 ``fused_mha`` launches a request (3 + 6
    + 4 blocks) and no other kernel; the f32 reference through the plain
    attention (no launch).
+39. EfficientNet serving as phase 35, each at its own input size:
+   ``efficientnet_b0`` (224), ``efficientnet_b4`` (380),
+   ``efficientnet_v2_s`` (300) and ``mobilenet_v2_100`` (224); the last
+   norm of each residual branch seeded near 0.2 (``branch_ends``); no
+   kernel launch. B0, B4 and MobileNetV2 are held step by step as
+   ConvMixer (``STEPWISE``), V2-S end to end.
+40. The Mixer family serving as phase 35 at 224x224: ``mixer_b16_224``,
+   ``resmlp_big_24_224``, ``gmlp_s16_224`` and ``gmixer_24_224`` with
+   ``seeded_state_dict``'s weights (std 0.02, norms and layer scales near
+   1; no BatchNorm); no kernel launch.
 
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
@@ -374,7 +385,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-38) alone, for a quicker look at one
+runs phase 1 and the phases named (2-40) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -660,6 +671,22 @@ VGG = "vgg16"
 CONVMIXER = "convmixer_768_32"
 PIT = "pit_b_224"
 PIT_LAUNCHES = {"fused_mha": 13}
+# The EfficientNet family (phase 39), each at its own input size:
+# EfficientNet-B0 at 224 (TF SAME, batch_norm_tf, MBConv with SE and
+# swish), B4 at 380 (32 blocks), V2-S at 300 (ConvBnAct, EdgeResidual) and
+# MobileNetV2 at 224 (symmetric padding, ReLU6); the Mixer family (phase
+# 40) at 224: MLP-Mixer-B/16, ResMLP-B24/8 (784 tokens), gMLP-S/16 and
+# gMixer-24. No kernel on these paths.
+EFFICIENTNETS = ("efficientnet_b0", "efficientnet_b4", "efficientnet_v2_s",
+                 "mobilenet_v2_100")
+MIXERS = ("mixer_b16_224", "resmlp_big_24_224", "gmlp_s16_224",
+          "gmixer_24_224")
+# Held step by step (``stepwise``), their end-to-end bf16 drift printed: on
+# the CPU at 96-128 px B0, B4 and MobileNetV2 part from f32 by 3.3-5.8% end
+# to end, as in the JAX package (3.3-6.0%), V2-S by 2.8%
+# (``scripts/perf/torch_bf16_drift.py efficientnet``).
+STEPWISE = (CONVMIXER, "efficientnet_b0", "efficientnet_b4",
+            "mobilenet_v2_100")
 # cuDNN's conv kernels and layout transposes, by name.
 CONV_NET_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
                       "winograd", "nchwtonhwc", "nhwctonchw")
@@ -1006,24 +1033,25 @@ def phase_backward_kernel(report, gpu_line):
 
 def seeded_state_dict(model, seed: int, std: float = 0.02):
     """Every parameter drawn from a seeded normal, in f32 on the CPU: the
-    LayerNorm and GroupNorm weights and the layer scales (ConvNeXt's and
-    CaiT's gammas, PoolFormer's layer_scale_1 and _2) around 1,
+    LayerNorm, GroupNorm and Affine weights and the layer scales
+    (ConvNeXt's and CaiT's gammas, PoolFormer's layer_scale_1 and _2,
+    ResMLP's ls1 and ls2) around 1,
     Swin's relative-position bias tables and CaiT's (H, H) head mixes with
     std 0.3, the rest with std ``std``. The heads, which start at zero, then
     give non-zero logits, and the branches of a ConvNeXt or CaiT block do
     not vanish, as they would at gamma's init value of 1e-5 or 1e-6."""
     import torch
 
-    from tfimm_tpu_torch.ops.norm import GroupNorm, LayerNorm
+    from tfimm_tpu_torch.ops.norm import Affine, GroupNorm, LayerNorm
 
     near_one = {f"{name}.weight" for name, module in model.named_modules()
-                if isinstance(module, (LayerNorm, GroupNorm))}
+                if isinstance(module, (LayerNorm, GroupNorm, Affine))}
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, p in model.state_dict().items():
         r = torch.randn(p.shape, generator=g)
         if name in near_one or name.rsplit(".", 1)[-1].startswith(
-                ("gamma", "layer_scale")):
+                ("gamma", "layer_scale", "ls1", "ls2")):
             sd[name] = 1.0 + 0.1 * r
         elif name.endswith(("relative_position_bias_table", "proj_l.weight",
                             "proj_w.weight")):
@@ -5411,7 +5439,8 @@ def he_state_dict(model, seed: int) -> dict:
     (ResNet's, which ``zero_init_last_bn`` starts at 0, and ConvMixer's
     ``blocks.{j}.0.fn.2``: near 1, a bf16 rounding grows block by block,
     to 8-11% of ResNet-50's logits and to their size at ConvMixer's 32
-    blocks), norm biases with std 0.5 (a
+    blocks; EfficientNet's blocks with a skip likewise, ``branch_ends``),
+    norm biases with std 0.5 (a
     trained net's: at 0.02 a ConvMixer's pooled features, a mean of
     normalised maps, would be a rounding residue and its bf16 logits off by
     7% of f32's), the other biases and everything else with std 0.02;
@@ -5422,6 +5451,7 @@ def he_state_dict(model, seed: int) -> dict:
 
     norms = {f"{name}.weight" for name, m in model.named_modules()
              if isinstance(m, (LayerNorm, GroupNorm, BatchNorm, Affine))}
+    ends = branch_ends(model)
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, p in model.state_dict().items():
@@ -5432,7 +5462,8 @@ def he_state_dict(model, seed: int) -> dict:
         r = torch.randn(p.shape, generator=g)
         fan_in = int(p[0].numel()) if p.dim() > 1 else 1
         if name in norms:
-            branch_end = bool((p == 0).all()) or name.endswith(".fn.2.weight")
+            branch_end = (bool((p == 0).all()) or name in ends
+                          or name.endswith(".fn.2.weight"))
             sd[name] = (0.2 if branch_end else 1.0) * (1.0 + 0.1 * r)
         elif name[:-len("bias")] + "weight" in norms:
             sd[name] = 0.5 * r
@@ -5445,12 +5476,28 @@ def he_state_dict(model, seed: int) -> dict:
     return sd
 
 
+def branch_ends(model) -> set:
+    """The weights of the last norm of each residual branch of an
+    EfficientNet-family model: ``bn3`` of an MBConv, ``bn2`` of a fused
+    MBConv or a depthwise-separable block, ``bn1`` of a ConvBnAct, in the
+    blocks that add their input back."""
+    from tfimm_tpu_torch.architectures import efficientnet_blocks as eb
+
+    last = {eb.InvertedResidual: "bn3", eb.EdgeResidual: "bn2",
+            eb.DepthwiseSeparableConv: "bn2", eb.ConvBnAct: "bn1"}
+    return {f"{name}.{last[type(m)]}.weight"
+            for name, m in model.named_modules()
+            if type(m) in last and m.skip}
+
+
 def calibrated_model(name, seed: int, images, device: str = "cuda"):
     """``name`` in f32 on the card with ``he_state_dict`` weights, each
     BatchNorm's running statistics set to the mean and variance of its
-    input over ``images`` in eval mode, the norms in order (each one after
-    those before it are set, as a trained net's statistics follow its
-    data). Returns the model (eval mode) and its state dict on the CPU."""
+    input over ``images`` in eval mode, the norms in the order they run
+    (each one after those before it are set, as a trained net's statistics
+    follow its data): in one forward pass, each norm's statistics set by a
+    hook just before it normalises. Returns the model (eval mode) and its
+    state dict on the CPU."""
     import torch
 
     import tfimm_tpu_torch as tfm
@@ -5460,25 +5507,48 @@ def calibrated_model(name, seed: int, images, device: str = "cuda"):
     model.load_state_dict(he_state_dict(model, seed))
     x = tfm.create_preprocessing(name, device=device)(images)
     model.eval()
-    for bn in (m for m in model.modules() if isinstance(m, BatchNorm)):
-        seen = []
-        hook = bn.register_forward_pre_hook(
-            lambda m, inp: seen.append(inp[0].detach().float()))
-        with torch.no_grad():
-            model(x)
-        hook.remove()
-        flat = seen[0].reshape(-1, bn.dim)
+
+    def calibrate(bn, inp):
+        flat = inp[0].detach().float().reshape(-1, bn.dim)
         bn.running_mean.copy_(flat.mean(dim=0))
         bn.running_var.copy_(flat.var(dim=0))
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for hook in hooks:
+            hook.remove()
     return model, {k: v.detach().cpu().clone()
                    for k, v in model.state_dict().items()}
 
 
+def seeded_model(name, seed: int, images, device: str = "cuda"):
+    """``name`` in f32 on the card with ``seeded_state_dict`` weights (std
+    0.02, norms and layer scales near 1), the Mixer family's: no BatchNorm
+    to calibrate, ``images`` unused. Returns the model (eval mode) and its
+    state dict on the CPU."""
+    import torch
+
+    import tfimm_tpu_torch as tfm
+
+    model = tfm.create_model(name, device=device, dtype=torch.float32, seed=0)
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd)
+    return model.eval(), sd
+
+
 def conv_net_groups(names: dict) -> dict:
     """A profile's device ms by kernel name (``device_split``) split into
-    cuDNN convs, BatchNorm, cuBLAS GEMMs (the 1x1 convs and the heads,
-    ``F.linear``), the port's kernels and the rest (elementwise, pools,
-    reductions)."""
+    cuDNN convs, BatchNorm, cuBLAS GEMMs (the 1x1 convs, the Dense layers
+    and the heads, ``F.linear``), the port's kernels, swish and sigmoid
+    (the EfficientNets' activations and SE gates, gMixer's GLU), means
+    (SE's squeeze, LayerNorm's statistics, the pooled heads), copies (TF
+    SAME's ``F.pad`` and its fill, the Mixers' token transposes, casts)
+    and the rest (other elementwise passes, LayerNorm's among them,
+    pools)."""
     groups = {}
     for kname, ms in names.items():
         low = kname.lower()
@@ -5490,46 +5560,68 @@ def conv_net_groups(names: dict) -> dict:
             group = "BatchNorm"
         elif any(k in low for k in ("gemm", "cutlass", "nvjet", "splitk")):
             group = "GEMMs (cuBLAS)"
+        elif "silu" in low or "sigmoid" in low:
+            group = "swish, sigmoid"
+        elif "reduce_kernel" in low and "mean" in low:
+            group = "means"
+        elif any(k in low for k in ("copy", "pad", "fill")):
+            group = "copies (pads, transposes, casts)"
         else:
             group = "elementwise, pools, reductions, the rest"
         groups[group] = groups.get(group, 0.0) + ms
     return groups
 
 
-def convmixer_stepwise(model, model32, x16, x32) -> dict:
-    """Each step of a bf16 ConvMixer request (the stem, every block, the
-    head) against the same step of the f32 model fed the bf16 model's own
-    input to that step: max|diff| / max|f32| by step. End to end the two
-    part by more than 5e-2 on seeded weights: 32 blocks of ReLU and
-    BatchNorm magnify one bf16 rounding block by block, in the JAX package
-    as in the port (``scripts/perf/torch_bf16_drift.py``)."""
+def stepwise(model, model32, x16, x32) -> dict:
+    """Each step of a bf16 request of a ConvMixer or an EfficientNet (the
+    stem, every block, the head) against the same step of the f32 model
+    fed the bf16 model's own input to that step: max|diff| / max|f32| by
+    step. End to end the two part by more than 5e-2 on seeded weights:
+    ConvMixer's 32 blocks of ReLU and BatchNorm magnify one bf16 rounding
+    block by block, and so do the EfficientNets' blocks (most at the
+    blocks that open a stage, which have no skip), in the JAX package as in
+    the port (``scripts/perf/torch_bf16_drift.py``)."""
     import torch
+
+    from tfimm_tpu_torch.architectures.convmixer import ConvMixer
 
     def rel(got, want):
         return ((got.float() - want).abs().max() / want.abs().max()).item()
 
+    m = model32
+    if isinstance(m, ConvMixer):
+        stem = lambda x: m.stem["2"](m.act(m.stem["0"](x)))  # noqa: E731
+        blocks = [(f"block_{j}", b) for j, b in enumerate(m.blocks)]
+        head_input = "features"
+        head = m.forward_head
+    else:   # EfficientNet
+        stem = lambda x: m.act(m.bn1(m.conv_stem(x)))  # noqa: E731
+        blocks = list(zip(m.block_names, (b for st in m.blocks for b in st)))
+        head_input = m.block_names[-1]
+        head = lambda x: m.forward_head(  # noqa: E731
+            m.act(m.bn2(m.conv_head(x))))
     with torch.inference_mode():
         logits, feats = model(x16, return_features=True)
-        rels = {"stem": rel(feats["stem"], model32.stem["2"](
-            model32.act(model32.stem["0"](x32))))}
+        rels = {"stem": rel(feats["stem"], stem(x32))}
         before = "stem"
-        for j, block in enumerate(model32.blocks):
-            rels[f"block_{j}"] = rel(feats[f"block_{j}"],
-                                     block(feats[before].float()))
-            before = f"block_{j}"
-        rels["head"] = rel(logits, model32.forward_head(
-            feats["features"].float()))
+        for name, block in blocks:
+            rels[name] = rel(feats[name], block(feats[before].float()))
+            before = name
+        rels["head"] = rel(logits, head(feats[head_input].float()))
     return rels
 
 
-def conv_net_serving(reports, gpu_line, path, runs, seed):
-    """Phases 35, 37 and 38: each (model, launches) of ``runs`` in bf16
-    with ``calibrated_model``'s weights answers REQUESTS requests of BATCH
-    uint8 224x224 images, each launching the kernels of ``launches`` and
-    nothing else; the logits of the first FAMILY_CHECK_IMAGES images within
-    5e-2 of the same weights in f32 on the card, through the plain
-    attention (no launch); the rate of each run and a profile of one
-    request split by ``conv_net_groups``."""
+def conv_net_serving(reports, gpu_line, path, runs, seed,
+                     weights=calibrated_model):
+    """Phases 35 and 37-40: each (model, launches) of ``runs`` in bf16
+    with the weights of ``weights`` (``calibrated_model``, or
+    ``seeded_model`` for the Mixers) answers REQUESTS requests of BATCH
+    uint8 images at the model's own ``input_size`` (224x224 but for
+    EfficientNet-B4's 380 and V2-S's 300), each launching the kernels of
+    ``launches`` and nothing else; the logits of the first
+    FAMILY_CHECK_IMAGES images within 5e-2 of the same weights in f32 on
+    the card, through the plain attention (no launch); the rate of each
+    run and a profile of one request split by ``conv_net_groups``."""
     import torch
 
     import tfimm_tpu_torch as tfm
@@ -5537,14 +5629,25 @@ def conv_net_serving(reports, gpu_line, path, runs, seed):
     from tfimm_tpu_torch.ops.kernels import dispatch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
-                              device="cuda", dtype=torch.uint8)
-                for _ in range(REQUESTS)]
-    x = requests[0][:FAMILY_CHECK_IMAGES]
+    by_size = {}
+
+    def requests_at(size):
+        """REQUESTS requests of uint8 images of ``size``, drawn in order of
+        first use."""
+        if size not in by_size:
+            by_size[size] = [torch.randint(0, 256, (BATCH, *size, 3),
+                                           generator=g, device="cuda",
+                                           dtype=torch.uint8)
+                             for _ in range(REQUESTS)]
+        return by_size[size]
+
     dispatch.reset_launch_counts()
     path_counts = expected()
     for name, launches in runs:
-        model32, sd = calibrated_model(name, seed, requests[-1][:32])
+        size = tuple(tfm.model_config(name).input_size)
+        requests = requests_at(size)
+        x = requests[0][:FAMILY_CHECK_IMAGES]
+        model32, sd = weights(name, seed, requests[-1][:32])
         model = tfm.create_model(name, device="cuda", dtype=torch.bfloat16,
                                  seed=0)
         model.load_state_dict(sd)
@@ -5558,9 +5661,10 @@ def conv_net_serving(reports, gpu_line, path, runs, seed):
             path_counts[k] += dispatch.launch_counts[k] - before[k]
         img_s = [BATCH / t for t in seconds[1:]]
         request_ms = statistics.median(seconds[1:]) * 1e3
-        print(f"slice {name} bs{BATCH} bf16: request seconds {seconds!r}",
-              flush=True)
-        print(f"slice {name} bs{BATCH} bf16: {statistics.median(img_s)!r} "
+        print(f"slice {name} bs{BATCH} bf16 {size[0]}x{size[1]}: request "
+              f"seconds {seconds!r}", flush=True)
+        print(f"slice {name} bs{BATCH} bf16 {size[0]}x{size[1]}: "
+              f"{statistics.median(img_s)!r} "
               f"img/s (median of requests 2-{REQUESTS}; range "
               f"{min(img_s)!r}-{max(img_s)!r}), launches a request "
               f"{launches or 'none'}; on {gpu_line}", flush=True)
@@ -5580,17 +5684,18 @@ def conv_net_serving(reports, gpu_line, path, runs, seed):
             attention.fused_mha_or_none = fused
         got = logits[:FAMILY_CHECK_IMAGES].float()
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        if name == CONVMIXER:
+        if name in STEPWISE:
             print(f"slice {name} logits: bf16 vs f32 on the card rel err "
-                  f"{rel!r} (not held: see convmixer_stepwise)", flush=True)
-            rels = convmixer_stepwise(model, model32, pp(x), pp32(x))
+                  f"{rel!r} (not held: see stepwise); on {gpu_line}",
+                  flush=True)
+            rels = stepwise(model, model32, pp(x), pp32(x))
             name_, rel = max(rels.items(), key=lambda kv: kv[1])
             print(f"slice {name}: each step in bf16 vs f32 on the bf16 "
                   f"step's input, largest rel err {rel!r} at {name_} (bar "
                   f"5e-2); {rels!r}", flush=True)
         else:
             print(f"slice {name} logits: bf16 vs f32 on the card rel err "
-                  f"{rel!r} (bar 5e-2)", flush=True)
+                  f"{rel!r} (bar 5e-2); on {gpu_line}", flush=True)
         check(rel < 5e-2, f"{name} logits rel err {rel} >= 5e-2")
         del model32, ref
 
@@ -5611,7 +5716,7 @@ def conv_net_serving(reports, gpu_line, path, runs, seed):
               f"{1.0 - busy_ms / request_ms!r}; on {gpu_line}", flush=True)
         for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"{name} request profile: {group}: {ms!r} ms per request "
-                  f"({ms / busy_ms!r} of busy)", flush=True)
+                  f"({ms / busy_ms!r} of busy); on {gpu_line}", flush=True)
         for kname, ms in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{name} request profile kernel: {ms!r} ms {kname[:150]}",
                   flush=True)
@@ -5778,12 +5883,12 @@ def phase_resnet_train(reports, gpu_line):
 
 
 def main(argv) -> int:
-    all_phases = list(range(2, 39))
+    all_phases = list(range(2, 41))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 38",
+            print("chip_smoke: --phases takes numbers from 2 to 40",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -6014,6 +6119,12 @@ def main(argv) -> int:
                 [(VGG, {}), (CONVMIXER, {})], seed=37),
             38: lambda: conv_net_serving(reports, gpu_line, "serve_pit",
                                          [(PIT, PIT_LAUNCHES)], seed=38),
+            39: lambda: conv_net_serving(
+                reports, gpu_line, "serve_efficientnet",
+                [(n, {}) for n in EFFICIENTNETS], seed=39),
+            40: lambda: conv_net_serving(
+                reports, gpu_line, "serve_mixer", [(n, {}) for n in MIXERS],
+                seed=40, weights=seeded_model),
         }
         for number in phases:
             run_phase[number]()

@@ -21,7 +21,14 @@ Logits. ConvMixer-768/32's depth at width 64, with ``chip_smoke.py``'s
 seeded weights and calibrated BatchNorm statistics (``calibrated_model``
 on 16 seeded images): max|bf16 - f32| / max|f32| of the logits of 8 other
 images in each package, and the port's f32 against the JAX package's.
-One JSON line. About two minutes in all.
+One JSON line. Then the EfficientNets of ``chip_smoke.py``'s phase 39 at
+their full widths and depths on smaller images (B0 and MobileNetV2 at
+96x96, B4 and V2-S at 128x128), calibrated on 32 images, 16 others held:
+the same three numbers, one JSON line each. About six minutes in all.
+
+    JAX_PLATFORMS=cpu python scripts/perf/torch_bf16_drift.py efficientnet
+
+runs the EfficientNets alone.
 """
 
 import json
@@ -59,25 +66,31 @@ def rel(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def convmixer_logits():
-    name, narrow = "convmixer_768_32", dict(embed_dim=64)
+def calibrated_logits(name, overrides, seed, calibrate, hold):
+    """One JSON line: the logits' bf16 drift in the port and in the JAX
+    package for ``name`` with config ``overrides``, its BatchNorm
+    statistics set from ``calibrate`` seeded images and ``hold`` others
+    held, and the port's f32 against the JAX package's."""
+    size = overrides.get("input_size", (224, 224))
     create = tfimm_tpu_torch.create_model
-    tfimm_tpu_torch.create_model = lambda n, **kw: create(n, **narrow, **kw)
+    tfimm_tpu_torch.create_model = lambda n, **kw: create(n, **overrides, **kw)
     try:
         g = torch.Generator().manual_seed(1)
-        images = torch.randint(0, 256, (24, 224, 224, 3), generator=g,
-                               dtype=torch.uint8)
-        model32, sd = chip_smoke.calibrated_model(name, 37, images[:16],
+        images = torch.randint(0, 256, (calibrate + hold, *size, 3),
+                               generator=g, dtype=torch.uint8)
+        model32, sd = chip_smoke.calibrated_model(name, seed,
+                                                  images[:calibrate],
                                                   device="cpu")
     finally:
         tfimm_tpu_torch.create_model = create
-    model16 = create(name, device="cpu", dtype=torch.bfloat16, **narrow)
+    model16 = create(name, device="cpu", dtype=torch.bfloat16, **overrides)
     model16.load_state_dict(sd)
-    x = tfimm_tpu_torch.create_preprocessing(name, device="cpu")(images[16:])
+    x = tfimm_tpu_torch.create_preprocessing(name, device="cpu")(
+        images[calibrate:])
     with torch.inference_mode():
         port32 = model32(x).numpy()
         port16 = model16(x.bfloat16()).float().numpy()
-    cfg = dataclasses.replace(jax_registry.model_config(name), **narrow)
+    cfg = dataclasses.replace(jax_registry.model_config(name), **overrides)
     jm = jax_registry.model_class(name)(cfg)
     params = jax.tree_util.tree_map(
         jnp.asarray, unflatten_params(jax_from_state_dict(model32)))
@@ -86,10 +99,22 @@ def convmixer_logits():
     jax16 = np.asarray(apply(
         jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), params),
         jnp.asarray(x.numpy(), jnp.bfloat16)), np.float32)
-    print(json.dumps({"model": f"{name} at width 64", "what": "logits",
+    print(json.dumps({"model": name, "overrides": overrides,
+                      "what": "logits",
                       "port_bf16_vs_f32": rel(port16, port32),
                       "jax_bf16_vs_f32": rel(jax16, jax32),
-                      "port_f32_vs_jax_f32": rel(port32, jax32)}))
+                      "port_f32_vs_jax_f32": rel(port32, jax32)}),
+          flush=True)
+
+
+def convmixer_logits():
+    calibrated_logits("convmixer_768_32", dict(embed_dim=64), 37, 16, 8)
+
+
+def efficientnet_logits():
+    for name, side in (("efficientnet_b0", 96), ("efficientnet_b4", 128),
+                       ("efficientnet_v2_s", 128), ("mobilenet_v2_100", 96)):
+        calibrated_logits(name, dict(input_size=(side, side)), 39, 32, 16)
 
 
 def resnet_gradients():
@@ -138,5 +163,7 @@ def resnet_gradients():
 
 if __name__ == "__main__":
     torch.set_num_threads(8)
-    resnet_gradients()
-    convmixer_logits()
+    if sys.argv[1:] != ["efficientnet"]:
+        resnet_gradients()
+        convmixer_logits()
+    efficientnet_logits()

@@ -2470,17 +2470,19 @@ def test_float16_models_run_their_plain_paths(card, monkeypatch, name,
     _held_by(got, want, 5e-2)
 
 
-# -- the conv nets' ops (ResNet, VGG, ConvMixer, PiT) -------------------------
+# -- the conv nets' ops (ResNet, VGG, ConvMixer, PiT, EfficientNet) -----------
 # Conv2d's cuDNN route on the card against the same conv on the CPU (f32
 # with TF32 off 1e-5 * max, bf16 2e-2): ResNet-50's 7x7 stem, a 3x3, a
 # ResNeXt 32-group 3x3 at stride 2, ConvMixer's depthwise 7x7 SAME, PiT's
-# pooling conv (groups = C_in, 2 C_in outputs), an asymmetric SAME pad and
-# a strided 1x1; the NHWC result contiguous, so the next layer copies
-# nothing.
+# pooling conv (groups = C_in, 2 C_in outputs), an asymmetric SAME pad,
+# a strided 1x1 and EfficientNet's stride-2 depthwise convs under TF SAME
+# (k = 3 and 5 on even maps: pads (0, 1), through F.pad); the NHWC result
+# contiguous, so the next layer copies nothing.
 CONV_CASES = [(3, 64, 7, 2, 3, 1, 224), (64, 64, 3, 1, 1, 1, 56),
               (256, 256, 3, 2, 1, 32, 28), (96, 96, 7, 1, "same", 96, 32),
               (64, 128, 3, 2, 1, 64, 31), (16, 32, 3, 2, "same", 1, 14),
-              (64, 256, 1, 2, 0, 1, 28)]
+              (64, 256, 1, 2, 0, 1, 28), (144, 144, 3, 2, "same", 144, 56),
+              (240, 240, 5, 2, "same", 240, 28)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),

@@ -327,20 +327,28 @@ def _l2_model(family):
     "pit": ("pit_ti_224", dict(input_size=(48, 48), embed_dim=(16, 32, 64),
                                nb_blocks=(1, 1, 1), nb_heads=(1, 2, 4),
                                nb_classes=7)),
+    "efficientnet": ("efficientnet_v2_s", dict(
+        input_size=(32, 32), stem_size=8, nb_features=64,
+        channel_multiplier=0.25, depth_multiplier=0.25, nb_classes=7)),
+    "mlp_mixer": ("gmlp_s16_224", dict(input_size=(32, 32), patch_size=8,
+                                       embed_dim=16, nb_blocks=2,
+                                       mlp_ratio=(2.0, 2.0), nb_classes=7)),
     }[family]
 
 
-@pytest.mark.parametrize("family", ["cait", "convmixer", "convnext", "pit",
+@pytest.mark.parametrize("family", ["cait", "convmixer", "convnext",
+                                    "efficientnet", "mlp_mixer", "pit",
                                     "poolformer", "pvt", "pvt_v2", "resnet",
                                     "sam", "swin", "vgg", "vit"])
 def test_l2_covers_the_jax_kernel_leaves(family):
     """The L2 penalty covers exactly the JAX package's ``kernel`` leaves
     (Dense, Conv2d and the depthwise convs of ConvNeXt and PVTv2; CaiT's
     proj_l and proj_w; SAM's transposed convs; ECA's 1-D conv, grouped
-    convs) and not the LayerNorm's, GroupNorm's or BatchNorm's
-    ``weight``, nor SAM's embedding tables, position embedding and rel-pos
-    tables: the same set of parameters and the same sum of squares on the
-    same seeded weights, within 1e-6."""
+    convs; EfficientNet's depthwise and SE convs; gMLP's token proj) and
+    not the LayerNorm's, GroupNorm's or BatchNorm's ``weight``, nor SAM's
+    embedding tables, position embedding and rel-pos tables: the same set
+    of parameters and the same sum of squares on the same seeded weights,
+    within 1e-6."""
     name, cfg = _l2_model(family)
     params = _seeded(tfimm_tpu.create_model(name, **cfg).params, 11)
     tm = tfimm_tpu_torch.create_model(name, device="cpu", **cfg)

@@ -12,3 +12,5 @@ from tfimm_tpu_torch.architectures.resnet import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.vgg import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.convmixer import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.pit import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.efficientnet import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.mlp_mixer import *  # noqa: F401,F403

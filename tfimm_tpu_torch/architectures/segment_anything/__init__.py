@@ -1,6 +1,6 @@
 """Segment Anything (SAM); mirror of
 tfimm_tpu/architectures/segment_anything/__init__.py. The automatic mask
-generator (``amg.py``) is not ported yet (ROADMAP.md, queue A, item 2)."""
+generator (``amg.py``) is not ported yet (ROADMAP.md, queue A, item 7)."""
 
 __all__ = ["SegmentAnythingModel", "SegmentAnythingModelConfig",
            "ImageResizer", "SAMPredictor"]

@@ -18,7 +18,13 @@ from tfimm_tpu_torch.ops.kernels.ln_dense import (  # noqa: F401
     ln_dense_diff,
     ln_dense_or_none,
 )
-from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP  # noqa: F401
+from tfimm_tpu_torch.ops.mlp import (  # noqa: F401
+    MLP,
+    ConvMLP,
+    GatedMLP,
+    GluMLP,
+    SpatialGatingUnit,
+)
 from tfimm_tpu_torch.ops.norm import (  # noqa: F401
     Affine,
     BatchNorm,

@@ -76,7 +76,8 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 # Only what the ported families use; the other names of the JAX factory
 # come with the families that need them.
 _ACTS = {"gelu": _gelu, "relu": F.relu, "linear": lambda x: x,
-         "sigmoid": torch.sigmoid}
+         "sigmoid": torch.sigmoid, "swish": F.silu, "silu": F.silu,
+         "relu6": F.relu6}   # min(relu(x), 6) in one pass
 
 
 def act_layer_factory(act_layer: str) -> Callable:

@@ -14,7 +14,8 @@ neither side is copied. In f32 on the card its precision follows
 ``torch.backends.cudnn.allow_tf32``.
 
 ``DepthwiseConv2d`` is ConvNeXt's 7x7 depthwise conv, computed by
-``F.conv2d`` the same way.
+``F.conv2d`` the same way. EfficientNet's depthwise convs (stride 1 or 2,
+no bias, either padding) are ``Conv2d`` with ``groups`` = channels.
 
 ``Conv1d`` is ECA's 1-D conv across channels (``ops/se.py``).
 
@@ -57,7 +58,9 @@ class Conv2d(nn.Module):
     on both sides, timm's) or ``"same"`` (XLA's SAME, the larger pad
     after). ``zero_bias`` starts the bias at zero (ConvNeXt's stem and
     downsampling); ``weight_std`` draws the weight from a truncated normal,
-    else it is PyTorch's uniform in +-1/sqrt(fan in).
+    ``fanout_init`` from EfficientNet's normal with std sqrt(2 / fan out),
+    fan out = kh * kw * out / groups (the JAX ``FanoutInitializer``), else
+    it is PyTorch's uniform in +-1/sqrt(fan in).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -66,7 +69,7 @@ class Conv2d(nn.Module):
                  padding: Union[str, int, Tuple[int, int]] = 0,
                  dilation: Union[int, Tuple[int, int]] = 1, groups: int = 1,
                  use_bias: bool = True, weight_std: Optional[float] = None,
-                 zero_bias: bool = False,
+                 zero_bias: bool = False, fanout_init: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if in_channels % groups or out_channels % groups:
@@ -83,6 +86,14 @@ class Conv2d(nn.Module):
                             for k, d in zip(self.kernel_size, self.dilation))
         elif padding == "valid":
             padding = 0
+        elif padding == "same" and self.stride == (1, 1):
+            # At stride 1 SAME pads d * (k - 1) whatever the map's size:
+            # resolved here where it splits evenly (a 1x1 conv then takes
+            # the reshape route below).
+            totals = [d * (k - 1) for k, d in zip(self.kernel_size,
+                                                  self.dilation)]
+            if all(t % 2 == 0 for t in totals):
+                padding = tuple(t // 2 for t in totals)
         elif padding != "same":
             padding = to_2tuple(padding)
             padding = tuple(int(p) for p in padding)
@@ -96,6 +107,11 @@ class Conv2d(nn.Module):
         with torch.no_grad():
             if weight_std is not None:
                 trunc_normal_(self.weight, weight_std, generator)
+            elif fanout_init:
+                fan_out = (self.kernel_size[0] * self.kernel_size[1]
+                           * out_channels // groups)
+                self.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                                    generator=generator)
             else:
                 self.weight.uniform_(-bound, bound, generator=generator)
             if self.bias is not None:

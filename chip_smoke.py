@@ -376,6 +376,30 @@ which ends the run with a non-zero exit code on failure:
    ``resmlp_big_24_224``, ``gmlp_s16_224`` and ``gmixer_24_224`` with
    ``seeded_state_dict``'s weights (std 0.02, norms and layer scales near
    1; no BatchNorm); no kernel launch.
+41. BiT serving as phase 35 at 448x448: ``resnetv2_50x1_bitm`` at bs128
+   and ``resnetv2_101x3_bitm`` at bs32 (``he_state_dict``'s weights;
+   GroupNorm needs no calibration); no kernel launch; the logits within
+   5e-2 of f32 end to end (on the CPU at 96-128 px both packages part by
+   2% there: ``scripts/perf/torch_bf16_drift.py resnetv2``). The profile
+   of a request also splits out GroupNorm's passes and the weight
+   standardisation (``range_split``).
+42. The hybrid ViTs serving as phase 38 at their input sizes:
+   ``vit_base_r50_s16_384`` at bs64, ``vit_small_r26_s32_384`` at bs128
+   and ``vit_tiny_r_s16_p8_224`` (the stem alone) at bs128, 12
+   ``fused_mha`` launches a request, each on the bf16 TMA + wgmma body
+   (the profile names it), the f32 reference through the plain attention
+   (no launch), the split as phase 41. Then ``fused_mha`` at
+   ViT-B/16-R50's (64, 577, 12, 64) as phase 34, into ``shapes``.
+43. Training through ``train.run`` with phase 4's recipe for 6 steps:
+   ``vit_base_r50_s16_384`` at 384x384 bs32 (12 + 12 launches a step),
+   ``pit_b_224`` at bs64 (13 + 13) and ``pit_s_224`` at bs64 (12 + 12, d =
+   48); finite losses; a seeded step on 8 images, bf16 through the kernels
+   against f32 through the plain attention: the loss within 2e-2, the
+   held gradients within 1e-1; the rate over steps 2-6 and a profile of a
+   step. Then ``fused_mha_bwd`` at (32, 577, 12, 64), (64, 962, 4, 64)
+   and (64, 730, 3, 48) against its plain version, its bodies, its device
+   time out of L2 beside its bound and SDPA's backward's device time,
+   both from profiles, into ``shapes``.
 
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
@@ -385,7 +409,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-40) alone, for a quicker look at one
+runs phase 1 and the phases named (2-43) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -687,6 +711,39 @@ MIXERS = ("mixer_b16_224", "resmlp_big_24_224", "gmlp_s16_224",
 # (``scripts/perf/torch_bf16_drift.py efficientnet``).
 STEPWISE = (CONVMIXER, "efficientnet_b0", "efficientnet_b4",
             "mobilenet_v2_100")
+# BiT (phase 41): BiT-M R50x1 and R101x3 (6,144 channels at the last
+# stage) at their 448x448, each at its batch; no kernel on this path.
+BITS = {"resnetv2_50x1_bitm": 128, "resnetv2_101x3_bitm": 32}
+# The hybrid ViTs (phase 42) at their input sizes and batches: ViT-B/16-R50
+# at 384 (N = 577), R26-S/32 at 384 (N = 145) and Ti/16 on the stem alone
+# at 224 (N = 50); 12 fused_mha a request. Then fused_mha at ViT-B/16-R50's
+# shape, timed as phase 34 times PiT's.
+HYBRIDS = {"vit_base_r50_s16_384": 64, "vit_small_r26_s32_384": 128,
+           "vit_tiny_r_s16_p8_224": 128}
+HYBRID_LAUNCHES = {"fused_mha": 12}
+HYBRID_MHA_SHAPES = {"vit_base_r50_s16_384": (64, 577, 12, 64)}
+# The body every bf16 fused_mha of these paths must take (d <= 64).
+MHA_BF16_BODY = "fused_mha_fwd_bf16_kernel<1>"
+# Training through run() (phase 43): (model, batch, launches a step, the
+# gradients held within 1e-1 of f32, those printed). The hybrid's stem conv
+# feeds a GroupNorm, which makes its cotangent orthogonal to its output, as
+# a BatchNorm does to ResNet-50's convs (phase 36): printed, not held.
+MHA_TRAIN_RUNS = [
+    ("vit_base_r50_s16_384", 32, {"fused_mha": 12, "fused_mha_bwd": 12},
+     ("blocks.0.attn.qkv.weight", "head.weight"),
+     ("patch_embed.backbone.stem.conv.weight",)),
+    ("pit_b_224", 64, {"fused_mha": 13, "fused_mha_bwd": 13},
+     ("transformers.0.blocks.0.attn.qkv.weight", "patch_embed.conv.weight",
+      "head.weight"), ()),
+    ("pit_s_224", 64, {"fused_mha": 12, "fused_mha_bwd": 12},
+     ("transformers.0.blocks.0.attn.qkv.weight", "patch_embed.conv.weight",
+      "head.weight"), ())]
+TRAIN_CHECK_IMAGES = 8
+# fused_mha_bwd at the training shapes of phase 43: ViT-B/16-R50's blocks
+# at bs32, PiT-B's and PiT-S's first stages at bs64.
+MHA_BWD_SHAPES = {"vit_base_r50_s16_384": (32, 577, 12, 64),
+                  "pit_b_stage1": (64, 962, 4, 64),
+                  "pit_s_stage1": (64, 730, 3, 48)}
 # cuDNN's conv kernels and layout transposes, by name.
 CONV_NET_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
                       "winograd", "nchwtonhwc", "nhwctonchw")
@@ -5377,17 +5434,18 @@ def mha_body(qkv, h, scale) -> str:
     return names[0]
 
 
-def phase_pit_mha(report, gpu_line):
-    """Phase 34: ``fused_mha`` against its plain version at PiT-B's and
-    PiT-S's stage-1 shapes, bf16 and f32; the body each took; kernel,
-    plain, bound and SDPA times, back to back and out of L2."""
+def phase_pit_mha(report, gpu_line, cases=None):
+    """Phase 34 (and 42 at the hybrid's shape, ``cases``): ``fused_mha``
+    against its plain version at PiT-B's and PiT-S's stage-1 shapes, bf16
+    and f32; the body each took; kernel, plain, bound and SDPA times, back
+    to back and out of L2."""
     import torch
     import torch.nn.functional as F
 
     from tfimm_tpu_torch.ops.kernels.fused_mha import fused_mha, fused_mha_reference
 
     shapes = report.setdefault("shapes", {})
-    for name, (b, n, h, d) in PIT_MHA_SHAPES.items():
+    for name, (b, n, h, d) in (cases or PIT_MHA_SHAPES).items():
         scale = d ** -0.5
         entry = {"shape": [b, n, h, d]}
         for dtype in (torch.bfloat16, torch.float32):
@@ -5408,6 +5466,8 @@ def phase_pit_mha(report, gpu_line):
                 continue
             entry["max_abs_err"] = err
             entry["body"] = mha_body(qkv, h, scale)
+            check(MHA_BF16_BODY in entry["body"],
+                  f"fused_mha at {name} ran {entry['body']}")
             entry["ms"] = cuda_time_ms(lambda: fused_mha(qkv, h, scale))
             entry["plain_ms"] = cuda_time_ms(
                 lambda: fused_mha_reference(qkv, h, scale), iters=3, repeats=3)
@@ -5612,16 +5672,20 @@ def stepwise(model, model32, x16, x32) -> dict:
 
 
 def conv_net_serving(reports, gpu_line, path, runs, seed,
-                     weights=calibrated_model):
-    """Phases 35 and 37-40: each (model, launches) of ``runs`` in bf16
+                     weights=calibrated_model, batches=None, ranges=()):
+    """Phases 35 and 37-42: each (model, launches) of ``runs`` in bf16
     with the weights of ``weights`` (``calibrated_model``, or
     ``seeded_model`` for the Mixers) answers REQUESTS requests of BATCH
-    uint8 images at the model's own ``input_size`` (224x224 but for
-    EfficientNet-B4's 380 and V2-S's 300), each launching the kernels of
+    uint8 images (or the model's batch in ``batches``) at the model's own
+    ``input_size`` (224x224 but for EfficientNet-B4's 380, V2-S's 300 and
+    the 384 and 448 of BiT and the hybrids), each launching the kernels of
     ``launches`` and nothing else; the logits of the first
     FAMILY_CHECK_IMAGES images within 5e-2 of the same weights in f32 on
     the card, through the plain attention (no launch); the rate of each
-    run and a profile of one request split by ``conv_net_groups``."""
+    run and a profile of one request split by ``conv_net_groups``, with
+    the modules of ``ranges`` split out (``range_split``). Where the
+    requests launch ``fused_mha``, the profile names its body, which must
+    be the bf16 TMA + wgmma one."""
     import torch
 
     import tfimm_tpu_torch as tfm
@@ -5631,21 +5695,22 @@ def conv_net_serving(reports, gpu_line, path, runs, seed,
     g = torch.Generator(device="cuda").manual_seed(seed)
     by_size = {}
 
-    def requests_at(size):
-        """REQUESTS requests of uint8 images of ``size``, drawn in order of
-        first use."""
-        if size not in by_size:
-            by_size[size] = [torch.randint(0, 256, (BATCH, *size, 3),
-                                           generator=g, device="cuda",
-                                           dtype=torch.uint8)
-                             for _ in range(REQUESTS)]
-        return by_size[size]
+    def requests_at(size, batch):
+        """REQUESTS requests of ``batch`` uint8 images of ``size``, drawn in
+        order of first use."""
+        if (size, batch) not in by_size:
+            by_size[size, batch] = [
+                torch.randint(0, 256, (batch, *size, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+        return by_size[size, batch]
 
     dispatch.reset_launch_counts()
     path_counts = expected()
     for name, launches in runs:
         size = tuple(tfm.model_config(name).input_size)
-        requests = requests_at(size)
+        batch = (batches or {}).get(name, BATCH)
+        requests = requests_at(size, batch)
         x = requests[0][:FAMILY_CHECK_IMAGES]
         model32, sd = weights(name, seed, requests[-1][:32])
         model = tfm.create_model(name, device="cuda", dtype=torch.bfloat16,
@@ -5656,14 +5721,14 @@ def conv_net_serving(reports, gpu_line, path, runs, seed,
         torch.cuda.synchronize()
         before = dict(dispatch.launch_counts)
         seconds, logits = family_requests(model, pp, requests, launches,
-                                          batch=BATCH)
+                                          batch=batch)
         for k in path_counts:
             path_counts[k] += dispatch.launch_counts[k] - before[k]
-        img_s = [BATCH / t for t in seconds[1:]]
+        img_s = [batch / t for t in seconds[1:]]
         request_ms = statistics.median(seconds[1:]) * 1e3
-        print(f"slice {name} bs{BATCH} bf16 {size[0]}x{size[1]}: request "
+        print(f"slice {name} bs{batch} bf16 {size[0]}x{size[1]}: request "
               f"seconds {seconds!r}", flush=True)
-        print(f"slice {name} bs{BATCH} bf16 {size[0]}x{size[1]}: "
+        print(f"slice {name} bs{batch} bf16 {size[0]}x{size[1]}: "
               f"{statistics.median(img_s)!r} "
               f"img/s (median of requests 2-{REQUESTS}; range "
               f"{min(img_s)!r}-{max(img_s)!r}), launches a request "
@@ -5710,6 +5775,15 @@ def conv_net_serving(reports, gpu_line, path, runs, seed,
         check(bool(names), f"{name}: five profiles kept no device event")
         groups = conv_net_groups(names)
         busy_ms = sum(groups.values())
+        if "fused_mha" in launches:
+            bodies = sorted({n for n in names if "fused_mha_fwd" in n})
+            print(f"{name} request profile: fused_mha body {bodies}",
+                  flush=True)
+            check(len(bodies) == 1 and MHA_BF16_BODY in bodies[0],
+                  f"{name}: fused_mha ran {bodies}, not {MHA_BF16_BODY}")
+        if ranges:
+            groups = range_split(lambda: model.predict(pp(img)), ranges)
+            busy_ms = sum(groups.values())
         print(f"{name} request profile: device busy {busy_ms!r} ms per "
               f"request; wall {wall_ms!r} ms under the profiler, "
               f"{request_ms!r} ms without; device idle share "
@@ -5882,13 +5956,268 @@ def phase_resnet_train(reports, gpu_line):
                  step_s * 1e3, steps=1)
 
 
+def module_ranges() -> list:
+    """The modules ``range_split`` splits out of a BiT or hybrid request:
+    GroupNorm's passes and the weight standardisation of each StdConv2d."""
+    from tfimm_tpu_torch.ops.conv import StdConv2d
+    from tfimm_tpu_torch.ops.norm import GroupNorm
+
+    return [(GroupNorm, "forward", "GroupNorm"),
+            (StdConv2d, "_kernel", "weight standardisation")]
+
+
+def range_split(fn, ranges, steps: int = 2, tries: int = 5) -> dict:
+    """A ``torch.profiler`` split of one call of ``fn`` (the mean of
+    ``steps``, after one call unprofiled): the device ms of the kernels
+    that ran inside each module call of ``ranges`` ((class, method, label):
+    for the profile's length each call of the method runs in a
+    ``record_function(label)`` range, whose span the profile keeps on the
+    device's timeline too; a kernel belongs to the label whose device span
+    holds its start, the stream being serial), then the other kernels by
+    ``conv_net_groups``. The groups sum to the device's busy time. A
+    profile that kept no device event, or no span of a label, is taken
+    again, up to ``tries`` in all; then the phase fails."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    labels = {label for _, _, label in ranges}
+    saved = []
+    for cls, method, label in ranges:
+        orig = getattr(cls, method)
+
+        def ranged(self, *args, _orig=orig, _label=label, **kwargs):
+            with record_function(_label):
+                return _orig(self, *args, **kwargs)
+
+        saved.append((cls, method, orig))
+        setattr(cls, method, ranged)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(1, tries + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    fn()
+                torch.cuda.synchronize()
+            device = [evt for evt in prof.events() if evt.device_type == cuda]
+            kernels = [evt for evt in device
+                       if not getattr(evt, "is_user_annotation", False)]
+            spans = sorted((evt.time_range.start, evt.time_range.end, evt.name)
+                           for evt in device if evt.name in labels
+                           and getattr(evt, "is_user_annotation", False))
+            if kernels and {name for _, _, name in spans} == labels:
+                break
+            print(f"profile {attempt} of {tries} kept {len(kernels)} device "
+                  f"events and the spans of "
+                  f"{sorted({name for _, _, name in spans})}", flush=True)
+        else:
+            raise SmokeFailure(f"{tries} profiles in a row kept no device "
+                               f"event or no span of one of {sorted(labels)}")
+    finally:
+        for cls, method, orig in saved:
+            setattr(cls, method, orig)
+    starts = [start for start, _, _ in spans]
+    split, rest = dict.fromkeys(sorted(labels), 0.0), {}
+    for evt in kernels:
+        start = evt.time_range.start
+        ms = evt.time_range.elapsed_us() / 1e3 / steps
+        at = bisect.bisect_right(starts, start) - 1
+        if at >= 0 and start < spans[at][1]:
+            split[spans[at][2]] += ms
+        else:
+            rest[evt.name] = rest.get(evt.name, 0.0) + ms
+    return {**split, **conv_net_groups(rest)}
+
+
+def mha_train_config(name, batch) -> dict:
+    """``name`` at its own input size and ``batch``, phase 4's recipe (bf16
+    mixed precision, AdamW at lr 1e-4), TRAIN_STEPS epochs of one step each
+    on the same ``batch`` synthetic images."""
+    import tfimm_tpu_torch as tfm
+
+    config = train_config()
+    size = tuple(tfm.model_config(name).input_size)
+    config["train_dataset"] = dict(config["train_dataset"], batch_size=batch,
+                                   nb_samples=batch, input_size=size)
+    config["problem"]["model"] = {"model_name": name}
+    config["timekeeping"] = {"nb_epochs": TRAIN_STEPS, "batch_size": batch,
+                             "nb_samples_per_epoch": batch}
+    return config
+
+
+def mha_bwd_times(report, gpu_line):
+    """``fused_mha_bwd`` at MHA_BWD_SHAPES: against its plain version in
+    bf16, the body it took, and its device time out of L2 beside its bound,
+    its plain version's time and the device time of SDPA's backward alone
+    (both from profiles, so that no host time of autograd counts; the
+    kernel's CUDA-event time out of L2 too), into ``fused_mha_bwd``'s
+    ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch.ops.kernels.fused_mha import (
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+    )
+
+    shapes = report.setdefault("shapes", {})
+    for i, (name, (b, n, h, d)) in enumerate(MHA_BWD_SHAPES.items()):
+        scale = d ** -0.5
+        qkv = mha_input(b, n, h, d, torch.bfloat16, seed=430 + i)
+        gen = torch.Generator(device="cuda").manual_seed(440 + i)
+        g = torch.randn(b, n, h * d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got = fused_mha_bwd(qkv, g, h, scale).float()
+        ref = fused_mha_bwd_reference(qkv, g, h, scale).float()
+        err = (got - ref).abs().max().item()
+        bar = BWD_TOL["bfloat16"] * ref.abs().max().item()
+        ok = err <= bar and bool(torch.isfinite(got).all())
+        print(f"fused_mha_bwd {name} bf16 (B, N, H, d) = {(b, n, h, d)}: "
+              f"max_abs_err={err!r} bar={bar!r} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"fused_mha_bwd disagrees with its plain version at {name}: "
+              f"{err} > {bar}")
+        del got, ref
+        kernel = cold_call_kernels(lambda: fused_mha_bwd(qkv, g, h, scale),
+                                   need=[("fused_mha_bwd_dq",),
+                                         ("fused_mha_bwd_dkv",)])
+        bodies = sorted(k for k in kernel if "fused_mha_bwd" in k)
+        check(len(bodies) == 2 and all("bf16_kernel<1>" in k for k in bodies),
+              f"fused_mha_bwd at {name} ran {bodies}")
+        q, k, v = [t.requires_grad_() for t in heads(qkv, h)]
+        out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        gh = g.reshape(b, n, h, d).transpose(1, 2).contiguous()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (q, k, v), gh, retain_graph=True)
+
+        library = cold_call_kernels(sdpa_bwd)
+        entry = {"shape": [b, n, h, d], "max_abs_err": err,
+                 "bodies": [k[:60] for k in bodies],
+                 "device_ms": sum(kernel.values()),
+                 "cold_ms": cold_ms(lambda: fused_mha_bwd(qkv, g, h, scale)),
+                 "plain_ms": cuda_time_ms(
+                     lambda: fused_mha_bwd_reference(qkv, g, h, scale),
+                     iters=3, repeats=3),
+                 "library_device_ms": sum(library.values())}
+        entry["bound_ms"], entry["bound_by"] = bound(
+            2 * b * n * 7 * h * d, 10 * b * h * n * n * d)
+        print(f"fused_mha_bwd {name}: bodies {entry['bodies']}; device "
+              f"{entry['device_ms']!r} ms out of L2 (profiler; CUDA events "
+              f"{entry['cold_ms']!r}), {entry['bound_ms'] / entry['device_ms']!r}"
+              f" of the bound {entry['bound_ms']!r} ms ({entry['bound_by']}); "
+              f"plain {entry['plain_ms']!r} ms; SDPA's backward {entry['library_device_ms']!r} ms device out "
+              f"of L2 (the kernel "
+              f"{entry['device_ms'] / entry['library_device_ms']!r}x; "
+              f"{sorted(n_[:50] for n_ in library)}); on {gpu_line}",
+              flush=True)
+        shapes[name] = entry
+        del q, k, v, out, qkv, g
+
+
+def phase_mha_train(reports, gpu_line):
+    """Phase 43: ``train.run`` trains ViT-B/16-R50 at 384x384, PiT-B and
+    PiT-S in bf16 mixed precision, each step launching ``fused_mha`` and
+    its backward once a block; finite losses; a seeded step on
+    TRAIN_CHECK_IMAGES images against f32 through the plain attention; the
+    rate over steps 2-6 and a profile of one step. Then ``fused_mha_bwd``
+    at their shapes (``mha_bwd_times``)."""
+    import torch
+
+    import tfimm_tpu_torch.ops.attention as attention
+    from tfimm_tpu_torch.parallel.step import cross_entropy_loss
+
+    for name, report in reports.items():
+        for path in ("train_vit_hybrid", "train_pit"):
+            report["launches_by_path"].setdefault(path, 0)
+    for name, batch, launches, held, shown in MHA_TRAIN_RUNS:
+        path = "train_pit" if name.startswith("pit") else "train_vit_hybrid"
+        trainer, steps, counts = run_watched(mha_train_config(name, batch))
+        problem = trainer.problem
+        check(len(steps) == TRAIN_STEPS, f"{len(steps)} {name} steps")
+        for it, (loss, seconds, rose) in enumerate(steps):
+            print(f"{name} train step {it}: loss {loss!r}, {seconds!r} s, "
+                  f"launches {rose}", flush=True)
+            check(rose == expected(**launches),
+                  f"{name} step {it} launched {rose}, expected {launches}")
+            check(math.isfinite(loss), f"{name} step {it}: loss {loss}")
+        for kname, report in reports.items():
+            report["launches_by_path"][path] += counts[kname]
+        timed = [s for _, s, _ in steps[1:]]
+        step_s = sum(timed) / len(timed)
+        size = problem.model.cfg.input_size
+        print(f"train {name} {size[0]}x{size[1]} bs{batch} bf16 mixed "
+              f"precision adamw: {batch * len(timed) / sum(timed)!r} img/s "
+              f"({len(timed)} steps 2-{TRAIN_STEPS} in {sum(timed) * 1e3!r} "
+              f"ms; median step {statistics.median(timed) * 1e3!r} ms, "
+              f"slowest {max(timed) * 1e3!r} ms) on {gpu_line}", flush=True)
+
+        # One seeded step: bf16 through the kernels against f32 through the
+        # plain attention (fused_mha_or_none declined: its gate does not
+        # look at autograd), which must launch nothing.
+        model, pp = problem.model, problem.preprocessing
+        model.load_state_dict(seeded_state_dict(model, seed=43))
+        model.train()
+        images, labels = next(iter(trainer.train_ds))
+        images = torch.as_tensor(images[:TRAIN_CHECK_IMAGES], device="cuda")
+        labels = torch.as_tensor(labels[:TRAIN_CHECK_IMAGES], device="cuda")
+
+        def loss_and_grads(x):
+            model.zero_grad(set_to_none=True)
+            loss = cross_entropy_loss(model(x).float(), labels)
+            loss.backward()
+            params = dict(model.named_parameters())
+            return loss.item(), {n: params[n].grad.float()
+                                 for n in held + shown}
+
+        (loss_k, grads_k), rose = launches_of(
+            lambda: loss_and_grads(pp(images).to(torch.bfloat16)))
+        check(rose == expected(**launches), f"the bf16 {name} step launched "
+              f"{rose}")
+        fused = attention.fused_mha_or_none
+        attention.fused_mha_or_none = lambda *args: None
+        try:
+            (loss_r, grads_r), rose = launches_of(
+                lambda: loss_and_grads(pp(images)))
+        finally:
+            attention.fused_mha_or_none = fused
+        check(rose == expected(), f"the f32 {name} reference launched {rose}")
+        rel = abs(loss_k - loss_r) / abs(loss_r)
+        print(f"{name} train loss: bf16 kernel path {loss_k!r} vs f32 plain "
+              f"path {loss_r!r}, rel err {rel!r} (bar 2e-2)", flush=True)
+        check(rel < 2e-2, f"{name} loss rel err {rel} >= 2e-2")
+        for pname in held + shown:
+            ref = grads_r[pname]
+            rel = ((grads_k[pname] - ref).abs().max()
+                   / ref.abs().max()).item()
+            print(f"{name} train grad {pname}: max|diff| / max|ref| {rel!r} "
+                  f"({'bar 1e-1' if pname in held else 'not held'})",
+                  flush=True)
+            if pname in held:
+                check(rel < 1e-1, f"{name} {pname} gradient rel err {rel}")
+                check(ref.abs().max().item() > 0,
+                      f"{name} {pname}: zero reference gradient")
+        del grads_k, grads_r
+        batch_ = next(iter(trainer.train_ds))
+        profile_idle(f"{name} train step",
+                     lambda: problem.train_step(batch_, 0), step_s * 1e3,
+                     steps=1)
+        del trainer, problem, model
+        torch.cuda.empty_cache()
+    mha_bwd_times(reports["fused_mha_bwd"], gpu_line)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 41))
+    all_phases = list(range(2, 44))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 40",
+            print("chip_smoke: --phases takes numbers from 2 to 43",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -6125,6 +6454,17 @@ def main(argv) -> int:
             40: lambda: conv_net_serving(
                 reports, gpu_line, "serve_mixer", [(n, {}) for n in MIXERS],
                 seed=40, weights=seeded_model),
+            41: lambda: conv_net_serving(
+                reports, gpu_line, "serve_bit", [(n, {}) for n in BITS],
+                seed=41, batches=BITS, ranges=module_ranges()),
+            42: lambda: (
+                conv_net_serving(
+                    reports, gpu_line, "serve_vit_hybrid",
+                    [(n, HYBRID_LAUNCHES) for n in HYBRIDS], seed=42,
+                    batches=HYBRIDS, ranges=module_ranges()),
+                phase_pit_mha(reports["fused_mha"], gpu_line,
+                              HYBRID_MHA_SHAPES)),
+            43: lambda: phase_mha_train(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()

@@ -28,7 +28,16 @@ the same three numbers, one JSON line each. About six minutes in all.
 
     JAX_PLATFORMS=cpu python scripts/perf/torch_bf16_drift.py efficientnet
 
-runs the EfficientNets alone.
+runs the EfficientNets alone, and
+
+    JAX_PLATFORMS=cpu python scripts/perf/torch_bf16_drift.py resnetv2 vit_hybrid
+
+the logits of BiT-M R50x1 (``resnetv2_50x1_bitm``, 128x128), R101x3
+(``resnetv2_101x3_bitm``, 96x96) and ViT-B/16-R50
+(``vit_base_r50_s16_384``, 128x128), ``chip_smoke.py``'s phases 41 and 42,
+at their full widths and depths on small images, with ``he_state_dict``'s
+seeded weights (GroupNorm needs no calibration), 8 images held: the same
+three numbers, one JSON line each (one to three minutes each).
 """
 
 import json
@@ -161,9 +170,26 @@ def resnet_gradients():
                 "port_f32_vs_jax_f32": rel(t32[name], j32[name])}))
 
 
+def resnetv2_logits():
+    calibrated_logits("resnetv2_50x1_bitm", dict(input_size=(128, 128)), 41,
+                      1, 8)
+    calibrated_logits("resnetv2_101x3_bitm", dict(input_size=(96, 96)), 41,
+                      1, 8)
+
+
+def vit_hybrid_logits():
+    calibrated_logits("vit_base_r50_s16_384", dict(input_size=(128, 128)), 42,
+                      1, 8)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(8)
-    if sys.argv[1:] != ["efficientnet"]:
+    parts = {"efficientnet": efficientnet_logits, "resnetv2": resnetv2_logits,
+             "vit_hybrid": vit_hybrid_logits}
+    if sys.argv[1:]:
+        for part in sys.argv[1:]:
+            parts[part]()
+    else:
         resnet_gradients()
         convmixer_logits()
-    efficientnet_logits()
+        efficientnet_logits()

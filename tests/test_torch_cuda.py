@@ -2526,3 +2526,68 @@ def test_fused_mha_at_the_pit_shapes(card, b, n, h, d, dtype, tol):
     dref = fused_mha_bwd_reference(qkv, go, h, d ** -0.5).float()
     bar = (2e-2 if dtype == torch.bfloat16 else 1e-4) * dref.abs().max()
     assert (dqkv.float() - dref).abs().max() <= bar
+
+
+# -- BiT and the hybrid ViTs (ResNetV2's StdConv2d, fused_mha at N = 577) -----
+# StdConv2d on the card against the same conv on the CPU (f32 with TF32 off
+# 1e-5 * max, bf16 2e-2): the weight standardised at each call in f32, then
+# the F.linear route (1x1 at stride 1: the bottlenecks' conv1 and conv3) or
+# cuDNN's (the 7x7 stems under both paddings, a strided 3x3 and 1x1 under
+# SAME, an odd map's uneven SAME pads).
+STD_CONV_CASES = [(64, 256, 1, 1, "same", 24), (256, 64, 1, 1, "symmetric", 23),
+                  (3, 64, 7, 2, "symmetric", 64), (3, 64, 7, 2, "same", 63),
+                  (128, 128, 3, 2, "same", 24), (128, 128, 3, 1, "same", 13),
+                  (256, 512, 1, 2, "same", 24)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("cin,cout,k,s,pad,side", STD_CONV_CASES)
+def test_std_conv2d_on_the_card_matches_the_cpu(card, cin, cout, k, s, pad,
+                                                side, dtype, tol):
+    from tfimm_tpu_torch.ops.conv import StdConv2d
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        conv = StdConv2d(cin, cout, k, stride=s, padding=pad, use_bias=False,
+                         generator=torch.Generator().manual_seed(cin + k))
+        assert conv.patchify == (k == 1 and s == 1)
+        x = torch.randn(2, side, side, cin,
+                        generator=torch.Generator().manual_seed(side))
+        want = conv.to(dtype)(x.to(dtype)).float()
+        got = conv.to(card)(x.to(card, dtype))
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    assert got.dtype == dtype
+    assert (got.float().cpu() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_fused_mha_at_the_hybrid_shape(card, dtype, tol):
+    """ViT-B/16-R50's blocks at 384x384 (N = 577, H = 12, d = 64; batch cut
+    to 8): the forward and the backward against their plain versions; in
+    bf16 on the TMA + wgmma bodies, in f32 on the FMA bodies (the profile
+    names them)."""
+    b, n, h, d = 8, 577, 12, 64
+    g = torch.Generator(device=card).manual_seed(577)
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=card).to(dtype)
+    go = torch.randn(b, n, h * d, generator=g, device=card).to(dtype)
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    fwd = [f"fused_mha_fwd_{kind}_kernel"]
+    bwd = [f"fused_mha_bwd_dq_{kind}_kernel", f"fused_mha_bwd_dkv_{kind}_kernel"]
+    names, out = _profiled_names(lambda: fused_mha(qkv, h, d ** -0.5), fwd)
+    assert all(key in names for key in fwd), names
+    ref = fused_mha_reference(qkv, h, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    names, dqkv = _profiled_names(lambda: fused_mha_bwd(qkv, go, h, d ** -0.5),
+                                  bwd)
+    assert all(key in names for key in bwd), names
+    dref = fused_mha_bwd_reference(qkv, go, h, d ** -0.5).float()
+    bar = (2e-2 if dtype == torch.bfloat16 else 1e-4) * dref.abs().max()
+    assert (dqkv.float() - dref).abs().max() <= bar

@@ -216,7 +216,7 @@ def test_load_refuses_an_unknown_class(tmp_path):
     tm = tfimm_tpu_torch.create_model("vit_tiny_patch16_224", device="cpu")
     tfimm_tpu_torch.save_model(tm, str(tmp_path))
     payload = json.loads((tmp_path / "config.json").read_text())
-    payload["class_name"] = "ResNetV2"   # a JAX family the port lacks
+    payload["class_name"] = "LoRAConvNeXt"   # a JAX class the port lacks
     (tmp_path / "config.json").write_text(json.dumps(payload))
     with pytest.raises(ValueError):
         tfimm_tpu_torch.load_model(str(tmp_path), device="cpu")

@@ -160,3 +160,14 @@ def test_state_dict_follows_timm():
     assert tuple(sd["cls_token"].shape) == (1, 2, 48)
     # The pool's grouped conv: one group an input channel, two outputs each.
     assert tuple(sd["transformers.1.pool.conv.weight"].shape) == (96, 1, 3, 3)
+
+
+def test_run_trains_pit_step_for_step_with_jax(monkeypatch):
+    """PiT-S (not distilled) through ``run()`` in both packages, three SGD
+    steps at heads of d = 48: the blocks through fused_mha and its backward
+    (their plain versions here), the pooling convs under autograd."""
+    from tests.test_torch_vit_hybrid import run_step_for_step
+
+    _, kw = _PITS["distilled_d48"]
+    seen = run_step_for_step(monkeypatch, "pit_s_224", kw, seed=9)
+    assert seen == {"fused_mha"}

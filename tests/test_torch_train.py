@@ -333,18 +333,28 @@ def _l2_model(family):
     "mlp_mixer": ("gmlp_s16_224", dict(input_size=(32, 32), patch_size=8,
                                        embed_dim=16, nb_blocks=2,
                                        mlp_ratio=(2.0, 2.0), nb_classes=7)),
+    "resnetv2": ("resnetv2_50x1_bitm", dict(input_size=(32, 32),
+                                            nb_blocks=(1, 1),
+                                            nb_channels=(128, 256),
+                                            nb_classes=7)),
+    "vit_hybrid": ("vit_small_r26_s32_224", dict(input_size=(32, 32),
+                                                 patch_nb_blocks=(1, 1),
+                                                 embed_dim=32, nb_blocks=1,
+                                                 nb_heads=2, nb_classes=7)),
     }[family]
 
 
 @pytest.mark.parametrize("family", ["cait", "convmixer", "convnext",
                                     "efficientnet", "mlp_mixer", "pit",
                                     "poolformer", "pvt", "pvt_v2", "resnet",
-                                    "sam", "swin", "vgg", "vit"])
+                                    "resnetv2", "sam", "swin", "vgg", "vit",
+                                    "vit_hybrid"])
 def test_l2_covers_the_jax_kernel_leaves(family):
     """The L2 penalty covers exactly the JAX package's ``kernel`` leaves
     (Dense, Conv2d and the depthwise convs of ConvNeXt and PVTv2; CaiT's
     proj_l and proj_w; SAM's transposed convs; ECA's 1-D conv, grouped
-    convs; EfficientNet's depthwise and SE convs; gMLP's token proj) and
+    convs; EfficientNet's depthwise and SE convs; gMLP's token proj; the
+    raw weights of BiT's and the hybrids' standardised convs) and
     not the LayerNorm's, GroupNorm's or BatchNorm's ``weight``, nor SAM's
     embedding tables, position embedding and rel-pos tables: the same set
     of parameters and the same sum of squares on the same seeded weights,
@@ -889,7 +899,9 @@ def test_a_cuda_device_without_a_card_raises(small_vit, monkeypatch):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, tfimm_tpu_torch.train, tfimm_tpu_torch.parallel.step, "
-            "tfimm_tpu_torch.utils.profile; "
+            "tfimm_tpu_torch.utils.profile, "
+            "tfimm_tpu_torch.architectures.resnetv2, "
+            "tfimm_tpu_torch.architectures.vit_hybrid; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'orbax', 'tfimm_tpu', 'yaml')]; "
             "print(bad); sys.exit(1 if bad else 0)")

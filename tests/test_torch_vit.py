@@ -131,10 +131,10 @@ def test_golden_hf_vit():
 
 
 def test_registry_matches_jax():
-    # Every variant of the JAX package's vit module; the vit_hybrid module's
-    # variants (also named vit_*) wait for the vit_hybrid port.
+    # Every variant of the JAX package's vit module (the vit_hybrid
+    # module's, also named vit_*, are held by test_torch_vit_hybrid.py).
     for pattern in ("vit_*", "deit_*"):
-        assert (tfimm_tpu_torch.list_models(pattern)
+        assert (tfimm_tpu_torch.list_models(pattern, module="vit")
                 == tfimm_tpu.list_models(pattern, module="vit")), pattern
     assert len(tfimm_tpu_torch.list_models(module="vit")) == 36
 

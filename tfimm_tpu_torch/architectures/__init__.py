@@ -14,3 +14,5 @@ from tfimm_tpu_torch.architectures.convmixer import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.pit import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.efficientnet import *  # noqa: F401,F403
 from tfimm_tpu_torch.architectures.mlp_mixer import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.resnetv2 import *  # noqa: F401,F403
+from tfimm_tpu_torch.architectures.vit_hybrid import *  # noqa: F401,F403

@@ -4,8 +4,9 @@ Class/dist tokens, learned position embeddings, optional representation
 (pre-logits) layer and distilled dual heads. Parameter names are timm's
 (``blocks.0.attn.qkv.weight`` ...), so timm checkpoints load with
 ``load_state_dict``. With ``interpolate_input`` another input size resizes
-the position table bicubically at each call, as the JAX package does; the
-hybrid patch embedding is not ported yet.
+the position table bicubically at each call, as the JAX package does.
+With ``patch_layer="hybrid_embeddings"`` a ResNetV2 stem (or stem and
+stages) feeds the patch projection (``vit_hybrid.py``).
 
 Papers: ViT https://arxiv.org/abs/2010.11929, DeiT https://arxiv.org/abs/2012.12877.
 """
@@ -44,6 +45,7 @@ class ViTConfig(ModelConfig):
     in_channels: int = 3
     input_size: Tuple[int, int] = (224, 224)
     patch_layer: str = "patch_embeddings"
+    patch_nb_blocks: tuple = ()
     patch_size: int = 16
     embed_dim: int = 768
     nb_blocks: int = 12
@@ -74,8 +76,14 @@ class ViTConfig(ModelConfig):
 
     @property
     def grid_size(self) -> Tuple[int, int]:
-        return (self.input_size[0] // self.patch_size,
+        grid = (self.input_size[0] // self.patch_size,
                 self.input_size[1] // self.patch_size)
+        if self.patch_layer == "hybrid_embeddings":
+            # The backbone's stem divides by 4, each stage after the first
+            # by 2 more.
+            stride = 2 ** (2 + max(len(self.patch_nb_blocks) - 1, 0))
+            grid = (grid[0] // stride, grid[1] // stride)
+        return grid
 
     @property
     def nb_patches(self) -> int:
@@ -123,20 +131,25 @@ class ViT(Model):
     def __init__(self, cfg: ViTConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg)
-        if cfg.patch_layer == "hybrid_embeddings":
-            raise NotImplementedError(
-                "patch_layer='hybrid_embeddings' waits for the vit_hybrid port "
-                "(ROADMAP.md, queue A, item 8)")
-        if cfg.patch_layer != "patch_embeddings":
-            raise ValueError(f"Unknown patch layer: {cfg.patch_layer}.")
         if cfg.representation_size and cfg.distilled:
             raise ValueError("Cannot combine distillation and representation "
                              "layer.")
         g = generator
         self.nb_features = cfg.representation_size or cfg.embed_dim
-        self.patch_embed = PatchEmbeddings(cfg.patch_size, cfg.embed_dim,
-                                           in_channels=cfg.in_channels,
-                                           generator=g)
+        if cfg.patch_layer == "patch_embeddings":
+            self.patch_embed = PatchEmbeddings(cfg.patch_size, cfg.embed_dim,
+                                               in_channels=cfg.in_channels,
+                                               generator=g)
+        elif cfg.patch_layer == "hybrid_embeddings":
+            from tfimm_tpu_torch.architectures.vit_hybrid import HybridEmbeddings
+
+            self.patch_embed = HybridEmbeddings(
+                in_channels=cfg.in_channels, input_size=cfg.input_size,
+                nb_blocks=cfg.patch_nb_blocks, patch_size=cfg.patch_size,
+                embed_dim=cfg.embed_dim, drop_path_rate=cfg.drop_path_rate,
+                generator=g)
+        else:
+            raise ValueError(f"Unknown patch layer: {cfg.patch_layer}.")
         d = cfg.embed_dim
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embed = nn.Parameter(

@@ -7,7 +7,11 @@ from tfimm_tpu_torch.ops.classifier import (  # noqa: F401
     ClassifierHead,
     global_pool_2d,
 )
-from tfimm_tpu_torch.ops.conv import Conv2d, DepthwiseConv2d  # noqa: F401
+from tfimm_tpu_torch.ops.conv import (  # noqa: F401
+    Conv2d,
+    DepthwiseConv2d,
+    StdConv2d,
+)
 from tfimm_tpu_torch.ops.embed import (  # noqa: F401
     PatchEmbeddings,
     interpolate_pos_embeddings,

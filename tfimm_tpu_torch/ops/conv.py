@@ -17,6 +17,10 @@ neither side is copied. In f32 on the card its precision follows
 ``F.conv2d`` the same way. EfficientNet's depthwise convs (stride 1 or 2,
 no bias, either padding) are ``Conv2d`` with ``groups`` = channels.
 
+``StdConv2d`` is BiT's weight-standardised ``Conv2d`` (ResNetV2 and the
+hybrid ViTs' backbones): the same routes, on a weight standardised at every
+call.
+
 ``Conv1d`` is ECA's 1-D conv across channels (``ops/se.py``).
 
 ``ConvTranspose2d`` is SAM's mask-decoder upscaling, ``F.conv_transpose2d``
@@ -36,8 +40,8 @@ import torch.nn.functional as F
 from tfimm_tpu_torch.ops.basic import trunc_normal_
 from tfimm_tpu_torch.utils.etc import to_2tuple
 
-__all__ = ["Conv2d", "DepthwiseConv2d", "Conv1d", "ConvTranspose2d",
-           "same_pads"]
+__all__ = ["Conv2d", "StdConv2d", "DepthwiseConv2d", "Conv1d",
+           "ConvTranspose2d", "same_pads"]
 
 
 def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
@@ -123,8 +127,12 @@ class Conv2d(nn.Module):
                          and self.padding in (0, (0, 0))
                          and self.dilation == (1, 1) and groups == 1)
 
+    def _kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight the conv multiplies by, in ``dtype``."""
+        return self.weight.to(dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = self.weight.to(x.dtype)
+        weight = self._kernel(x.dtype)
         bias = self.bias.to(x.dtype) if self.bias is not None else None
         if self.patchify:
             (kh, kw), (b, h, w, c) = self.kernel_size, x.shape
@@ -149,6 +157,25 @@ class Conv2d(nn.Module):
         y = F.conv2d(x, weight, bias, self.stride, padding, self.dilation,
                      self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
+
+
+class StdConv2d(Conv2d):
+    """Weight-standardised ``Conv2d`` (BiT; the JAX layer's ``StdConv2d``):
+    at every call each output channel's weight, over its (in / groups, kh,
+    kw) taps, becomes ``(w - mean) * rsqrt(var + eps)`` in float32, with the
+    population variance, then x's dtype. Under autograd the gradient flows
+    through the standardisation to the raw ``weight``, which is what the
+    optimizer and the L2 penalty see (the JAX ``kernel`` leaf)."""
+
+    def __init__(self, *args, eps: float = 1e-8, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.eps = eps
+
+    def _kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        w = self.weight.float()
+        var, mean = torch.var_mean(w, dim=(1, 2, 3), keepdim=True,
+                                   correction=0)
+        return ((w - mean) * torch.rsqrt(var + self.eps)).to(dtype)
 
 
 class DepthwiseConv2d(nn.Module):

@@ -400,6 +400,32 @@ which ends the run with a non-zero exit code on failure:
    and (64, 730, 3, 48) against its plain version, its bodies, its device
    time out of L2 beside its bound and SDPA's backward's device time,
    both from profiles, into ``shapes``.
+44. SAM-B's automatic mask generator in bf16 (``sam_state_dict``'s
+   weights): ``SAMAutomaticMaskGenerator(model).generate`` with the default
+   knobs (32x32 points in batches of 64, thresholds 0.88 / 0.95) on a
+   seeded 768x1024 uint8 image, and with permissive ones (no thresholds,
+   16x16 points, one crop layer: 5 crops, uncompressed RLE). Every crop's
+   ``set_image`` must launch ``flash_attention_relpos`` 12 times and
+   nothing else, every decode batch nothing; the default records pass
+   their thresholds, the permissive ones keep the invariants of
+   tests/models/test_amg.py (area, bbox, crop box, point) and include the
+   full-image crop. The wall time of each ``generate``, a profile of one
+   decode batch and of a whole ``generate`` (busy against wall). Then the
+   same weights in f32 with TF32 off, 8x8 points on a 384x512 image, on the
+   card and on the CPU (no launch there): the same records in the same
+   order, bboxes within 1 px, scores within 1e-3, masks at IoU >= 0.99.
+45. LoRA-ConvNeXt-B (rank 4, alpha 4) in bf16 with seeded weights (B at
+   std 0.5, gammas near 1): 5 requests of 128 uint8 images through
+   ``predict`` with ``TFIMM_TPU_FUSED_CONVNEXT`` pinned to 0 (36
+   ``convnext_mlp`` launches a request, fed the merged weights) and to 1
+   (36 ``convnext_block``); the logits within 2e-2 of
+   ``convert_to_regular_model``'s through the same kernels and within 5e-2
+   of the same LoRA weights in f32 on the card through the eager path (no
+   launch); the base ConvNeXt-B without the update misses that bar by 10x.
+   Then three AdamW steps of LoRA fine-tuning through ``lora_optimizer``
+   (f32 parameters, a bs64 batch in bf16): finite losses, no launch, every
+   frozen tensor unchanged, every trainable one (the factors, the head)
+   moved; the step times.
 
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
@@ -409,7 +435,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-43) alone, for a quicker look at one
+runs phase 1 and the phases named (2-45) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -744,6 +770,30 @@ TRAIN_CHECK_IMAGES = 8
 MHA_BWD_SHAPES = {"vit_base_r50_s16_384": (32, 577, 12, 64),
                   "pit_b_stage1": (64, 962, 4, 64),
                   "pit_s_stage1": (64, 730, 3, 48)}
+# SAM-B's automatic mask generator (phase 44): the default knobs on a
+# 768x1024 image, the permissive ones (every mask kept but the crop-edge
+# ones, 16x16 points, one crop layer: 5 crops), and the f32 card-vs-CPU
+# check at 8x8 points on a 384x512 image.
+AMG_IMAGE = (768, 1024)
+AMG_PERMISSIVE = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                      points_per_side=16, crop_n_layers=1,
+                      output_mode="uncompressed_rle")
+AMG_CHECK_IMAGE = (384, 512)
+AMG_CHECK = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                 points_per_side=8, crop_n_layers=0)
+AMG_CHECK_TOL = {"bbox_px": 1.0, "score": 1e-3, "mask_iou": 0.99}
+# LoRA-ConvNeXt-B (phase 45): rank 4, alpha 4; B drawn at this std, so
+# that the update (about W's own size) moves the logits far past the bar.
+LORA_RANK = 4
+LORA_ALPHA = 4.0
+LORA_B_STD = 0.5
+LORA_RUNS = [("0", {"convnext_mlp": 36}, "serve_lora_convnext"),
+             ("1", {"convnext_block": 36}, "serve_lora_convnext_fused")]
+LORA_MERGED_TOL = 2e-2
+LORA_F32_TOL = 5e-2
+LORA_CONTROL_FACTOR = 10.0
+LORA_TRAIN_BATCH = 64
+LORA_TRAIN_STEPS = 3
 # cuDNN's conv kernels and layout transposes, by name.
 CONV_NET_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
                       "winograd", "nchwtonhwc", "nhwctonchw")
@@ -6211,13 +6261,389 @@ def phase_mha_train(reports, gpu_line):
     mha_bwd_times(reports["fused_mha_bwd"], gpu_line)
 
 
+def watch_amg(gen):
+    """Wrap ``gen``'s predictor's ``set_image`` and ``gen._process_points``
+    so that each call's launch counts are logged: returns {"set": [...],
+    "decode": [...]}, one dict of launches a call."""
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    log = {"set": [], "decode": []}
+
+    def watched(fn, key):
+        def call(*args, **kwargs):
+            before = dict(dispatch.launch_counts)
+            out = fn(*args, **kwargs)
+            log[key].append({k: dispatch.launch_counts[k] - before[k]
+                             for k in before})
+            return out
+        return call
+
+    gen.predictor.set_image = watched(gen.predictor.set_image, "set")
+    gen._process_points = watched(gen._process_points, "decode")
+    return log
+
+
+def check_amg_records(records, image_hw, crop_n_layers, overlap):
+    """The invariants of tests/models/test_amg.py::test_generate_end_to_end
+    on uncompressed-RLE records: the area is the RLE's; the bbox bounds the
+    decoded segmentation exactly; the crop box is one of
+    ``generate_crop_boxes``'; the point lies inside the image."""
+    import numpy as np
+
+    from tfimm_tpu_torch.architectures.segment_anything.amg import (
+        area_from_rle,
+        generate_crop_boxes,
+        rle_to_mask,
+    )
+
+    h, w = image_hw
+    boxes, _ = generate_crop_boxes(image_hw, crop_n_layers, overlap)
+    crops = {(float(x0), float(y0), float(x1 - x0), float(y1 - y0))
+             for x0, y0, x1, y1 in boxes}
+    for rec in records:
+        rle = rec["segmentation"]
+        check(rle["size"] == [h, w], f"RLE size {rle['size']}")
+        seg = rle_to_mask(rle)
+        check(rec["area"] == area_from_rle(rle) == int(seg.sum()),
+              f"area {rec['area']} against the RLE's")
+        x, y, bw, bh = rec["bbox"]
+        if seg.any():
+            ys, xs = np.nonzero(seg)
+            check((x, y, bw, bh) == (xs.min(), ys.min(),
+                                     xs.max() + 1 - xs.min(),
+                                     ys.max() + 1 - ys.min()),
+                  f"bbox {rec['bbox']} does not bound its segmentation")
+        else:
+            check((bw, bh) == (0.0, 0.0), f"empty mask with bbox {rec['bbox']}")
+        check(tuple(rec["crop_box"]) in crops, f"crop box {rec['crop_box']}")
+        (px, py), = rec["point_coords"]
+        check(0 <= px <= w and 0 <= py <= h, f"point {(px, py)} off the image")
+        check(0.0 <= rec["stability_score"] <= 1.0
+              and math.isfinite(rec["predicted_iou"]),
+              f"scores {rec['predicted_iou']}, {rec['stability_score']}")
+
+
+def phase_sam_amg(reports, gpu_line):
+    """Phase 44: SAM-B's automatic mask generator in bf16 on the card."""
+    import numpy as np
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.architectures.segment_anything import (
+        SAMAutomaticMaskGenerator,
+    )
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    model = tfm.create_model(SAM, device="cuda", dtype=torch.bfloat16, seed=0)
+    sd = sam_state_dict(model, seed=44)
+    model.load_state_dict(sd)
+    rng = np.random.default_rng(44)
+    image = rng.integers(0, 256, (*AMG_IMAGE, 3), dtype=np.uint8)
+    per_crop = SAM_LAUNCHES["flash_attention_relpos"]
+
+    gen = SAMAutomaticMaskGenerator(model)
+    gen.predictor.set_image(image)   # warm-up: cuBLAS handles, allocator
+    gen.predictor.clear_image()
+    permissive = SAMAutomaticMaskGenerator(model, **AMG_PERMISSIVE)
+    logs = [watch_amg(gen), watch_amg(permissive)]
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = gen.generate(image)
+    torch.cuda.synchronize()
+    default_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loose = permissive.generate(image)
+    torch.cuda.synchronize()
+    permissive_s = time.perf_counter() - t0
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_sam_amg"] = dispatch.launch_counts[name]
+    for log, crops, what in ((logs[0], 1, "default"),
+                             (logs[1], 5, "permissive")):
+        check(len(log["set"]) == crops, f"{what}: {len(log['set'])} crops, "
+              f"expected {crops}")
+        for launches in log["set"]:
+            check(launches == expected(**SAM_LAUNCHES), f"{what}: a crop's "
+                  f"set_image launched {launches}, expected {SAM_LAUNCHES} "
+                  f"and nothing else")
+        for launches in log["decode"]:
+            check(launches == expected(), f"{what}: a decode batch launched "
+                  f"{launches}")
+    check(dispatch.launch_counts["flash_attention_relpos"] == 6 * per_crop,
+          f"{dispatch.launch_counts['flash_attention_relpos']} launches in "
+          f"the two runs, expected {6 * per_crop}")
+    print(f"{SAM} bf16 automatic masks, default knobs, {AMG_IMAGE[0]}x"
+          f"{AMG_IMAGE[1]} image: generate {default_s!r} s, {len(records)} "
+          f"records, {len(logs[0]['decode'])} decode batches, "
+          f"{per_crop} launches a crop; on {gpu_line}", flush=True)
+    for rec in records:
+        seg = rec["segmentation"]
+        check(seg.shape == AMG_IMAGE and seg.dtype == bool
+              and rec["area"] == int(seg.sum()), "a default record's mask")
+        check(rec["predicted_iou"] > 0.88 and rec["stability_score"] >= 0.95,
+              f"a record below the thresholds: {rec['predicted_iou']}, "
+              f"{rec['stability_score']}")
+    check(len(loose) > 0, "the permissive generator returned no record")
+    check_amg_records(loose, AMG_IMAGE, 1, permissive.crop_overlap_ratio)
+    full = [0.0, 0.0, float(AMG_IMAGE[1]), float(AMG_IMAGE[0])]
+    check(any(r["crop_box"] == full for r in loose),
+          "no record from the full-image crop")
+    print(f"{SAM} bf16 automatic masks, permissive knobs {AMG_PERMISSIVE}: "
+          f"generate {permissive_s!r} s, {len(loose)} records from "
+          f"{len({tuple(r['crop_box']) for r in loose})} of 5 crops, "
+          f"{len(logs[1]['decode'])} decode batches", flush=True)
+
+    # Where a generate's time goes: one decode batch, and a whole generate.
+    gen.predictor.set_image(image)
+    points = gen.point_grids[0][:gen.points_per_batch] * np.array(
+        [AMG_IMAGE[1], AMG_IMAGE[0]], np.float32)
+    scaled = torch.as_tensor(gen.predictor.resizer.scale_points(
+        points.astype(np.float32)), device="cuda")
+    wall_ms, groups, names = device_split(
+        lambda: gen._process_points(scaled, AMG_IMAGE), steps=3)
+    busy_ms = sum(groups.values())
+    print(f"{SAM} decode batch of {gen.points_per_batch} points (3 masks "
+          f"each, {AMG_IMAGE[0]}x{AMG_IMAGE[1]}): device busy {busy_ms!r} "
+          f"ms, wall {wall_ms!r} ms under the profiler; device idle share "
+          f"{1.0 - busy_ms / wall_ms!r}", flush=True)
+    for kname, ms in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"{SAM} decode batch profile kernel: {ms!r} ms {kname[:150]}",
+              flush=True)
+    gen.predictor.clear_image()
+    wall_ms, groups, _ = device_split(lambda: gen.generate(image), steps=1)
+    busy_ms = sum(groups.values())
+    print(f"{SAM} default generate profile: device busy {busy_ms!r} ms, wall "
+          f"{wall_ms!r} ms under the profiler, {default_s * 1e3!r} ms "
+          f"without; device idle share {1.0 - busy_ms / (default_s * 1e3)!r}",
+          flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{SAM} default generate profile: {group}: {ms!r} ms",
+              flush=True)
+    del gen, permissive, model
+
+    # f32, TF32 off: the card (the kernel's f32 body) against the CPU (the
+    # plain version, no launch): one decode batch of every grid point mask
+    # by mask, then generate's records one by one.
+    check_image = rng.integers(0, 256, (*AMG_CHECK_IMAGE, 3), dtype=np.uint8)
+    runs, batches = {}, {}
+    for device in ("cuda", "cpu"):
+        model32 = tfm.create_model(SAM, device=device, dtype=torch.float32,
+                                   seed=0)
+        model32.load_state_dict(sd)
+        gen32 = SAMAutomaticMaskGenerator(model32, **AMG_CHECK)
+        before = dict(dispatch.launch_counts)
+        gen32.predictor.set_image(check_image)
+        points = gen32.point_grids[0] * np.array(
+            [AMG_CHECK_IMAGE[1], AMG_CHECK_IMAGE[0]], np.float32)
+        scaled = torch.as_tensor(gen32.predictor.resizer.scale_points(
+            points.astype(np.float32)), device=device)
+        batches[device] = [t.cpu() for t in gen32._process_points(
+            scaled, AMG_CHECK_IMAGE)]
+        gen32.predictor.clear_image()
+        runs[device] = gen32.generate(check_image)
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        want = expected(flash_attention_relpos=2 * per_crop) \
+            if device == "cuda" else expected()
+        check(rose == want, f"the f32 {device} run launched {rose}")
+        del model32, gen32
+    (m_card, iou_card, stab_card, box_card), (m_cpu, iou_cpu, stab_cpu,
+                                              box_cpu) = (batches["cuda"],
+                                                          batches["cpu"])
+    union = (m_card | m_cpu).sum(dim=(1, 2))
+    mask_iou = torch.where(union > 0, (m_card & m_cpu).sum(dim=(1, 2))
+                           / union.clamp(min=1), 1.0)   # two empty masks: 1
+    batch_worst = {
+        "bbox_px": (box_card - box_cpu).abs().max().item(),
+        "score": max((iou_card.float() - iou_cpu.float()).abs().max().item(),
+                     (stab_card - stab_cpu).abs().max().item()),
+        "mask_iou": mask_iou.min().item()}
+    print(f"{SAM} f32 decode batch, card vs CPU, {len(m_card)} masks of "
+          f"{len(points)} points: worst bbox {batch_worst['bbox_px']!r} px, "
+          f"worst score {batch_worst['score']!r}, worst mask IoU "
+          f"{batch_worst['mask_iou']!r} (bars {AMG_CHECK_TOL})", flush=True)
+    check(batch_worst["bbox_px"] <= AMG_CHECK_TOL["bbox_px"]
+          and batch_worst["score"] <= AMG_CHECK_TOL["score"]
+          and batch_worst["mask_iou"] >= AMG_CHECK_TOL["mask_iou"],
+          f"f32 card vs CPU decode batch out of its bars: {batch_worst}")
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(len(card) == len(cpu) > 0, f"f32 records: {len(card)} on the "
+          f"card, {len(cpu)} on the CPU")
+    worst = {"bbox_px": 0.0, "score": 0.0, "mask_iou": 1.0}
+    for a, b in zip(card, cpu):
+        worst["bbox_px"] = max(worst["bbox_px"], max(
+            abs(p - q) for p, q in zip(a["bbox"], b["bbox"])))
+        worst["score"] = max(worst["score"],
+                             abs(a["predicted_iou"] - b["predicted_iou"]),
+                             abs(a["stability_score"] - b["stability_score"]))
+        sa, sb = a["segmentation"], b["segmentation"]
+        union = int((sa | sb).sum())
+        iou = int((sa & sb).sum()) / union if union else 1.0
+        worst["mask_iou"] = min(worst["mask_iou"], iou)
+    print(f"{SAM} f32 automatic masks, card vs CPU, {len(card)} records in "
+          f"order: worst bbox {worst['bbox_px']!r} px, worst score "
+          f"{worst['score']!r}, worst mask IoU {worst['mask_iou']!r} (bars "
+          f"{AMG_CHECK_TOL})", flush=True)
+    check(worst["bbox_px"] <= AMG_CHECK_TOL["bbox_px"]
+          and worst["score"] <= AMG_CHECK_TOL["score"]
+          and worst["mask_iou"] >= AMG_CHECK_TOL["mask_iou"],
+          f"f32 card vs CPU records out of their bars: {worst}")
+
+
+def lora_state_dict(model, seed: int):
+    """``seeded_state_dict`` at std 0.05 (gammas near 1), with LoRA's B
+    drawn at LORA_B_STD (its init is zero, where the update vanishes)."""
+    import torch
+
+    sd = seeded_state_dict(model, seed=seed, std=0.05)
+    g = torch.Generator().manual_seed(seed + 1)
+    for name, t in sd.items():
+        if name.endswith("weight_lora_b"):
+            sd[name] = LORA_B_STD * torch.randn(t.shape, generator=g)
+    return sd
+
+
+def phase_lora_convnext(reports, gpu_line):
+    """Phase 45: LoRA-ConvNeXt-B serving through convnext_mlp and
+    convnext_block, and LoRA fine-tuning."""
+    import functools
+
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.architectures import lora
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    kw = dict(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
+    model = lora.create_model(CONVNEXT, device="cuda", dtype=torch.bfloat16,
+                              seed=0, **kw)
+    sd = lora_state_dict(model, seed=45)
+    model.load_state_dict(sd)
+    regular = lora.convert_to_regular_model(model)
+    base = tfm.create_model(CONVNEXT, device="cuda", dtype=torch.bfloat16,
+                            seed=0)
+    base.load_state_dict({k: v for k, v in sd.items()
+                          if not k.endswith(("weight_lora_a",
+                                             "weight_lora_b"))})
+    pp = tfm.create_preprocessing(CONVNEXT, dtype=torch.bfloat16,
+                                  device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(45)
+    requests = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    x = requests[0][:FAMILY_CHECK_IMAGES]
+
+    # The same LoRA weights in f32 on the card, every gate declined.
+    model32 = lora.create_model(CONVNEXT, device="cuda", dtype=torch.float32,
+                                seed=0, **kw)
+    model32.load_state_dict(sd)
+    pp32 = tfm.create_preprocessing(CONVNEXT, dtype=torch.float32,
+                                    device="cuda")
+    before = dict(dispatch.launch_counts)
+    with torch.enable_grad():
+        ref = model32(pp32(x)).detach()
+    check(dispatch.launch_counts == before,
+          "the f32 eager reference launched a kernel")
+    del model32
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    torch.cuda.synchronize()
+    with restored_env("TFIMM_TPU_FUSED_CONVNEXT"):
+        for switch, launches, path in LORA_RUNS:
+            os.environ["TFIMM_TPU_FUSED_CONVNEXT"] = switch
+            dispatch.reset_launch_counts()
+            seconds, logits = family_requests(model, pp, requests, launches,
+                                              batch=BATCH)
+            for name, report in reports.items():
+                report["launches_by_path"][path] = dispatch.launch_counts[name]
+            img_s = [BATCH / t for t in seconds[1:]]
+            how = "convnext_block" if switch == "1" else "convnext_mlp"
+            print(f"LoRA {CONVNEXT} (rank {LORA_RANK}) bs{BATCH} bf16 "
+                  f"through {how}: request seconds {seconds!r}", flush=True)
+            print(f"LoRA {CONVNEXT} bs{BATCH} bf16 ({how}): "
+                  f"{statistics.median(img_s)!r} img/s (median of requests "
+                  f"2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}), "
+                  f"launches a request {launches}; on {gpu_line}", flush=True)
+            got = logits[:FAMILY_CHECK_IMAGES]
+            with torch.inference_mode():
+                merged = regular.predict(pp(x))
+                control = base.predict(pp(x))
+            errs = {"merged": rel(got, merged), "f32": rel(got, ref),
+                    "control": rel(control, ref)}
+            print(f"LoRA {CONVNEXT} ({how}) logits: against the merged "
+                  f"base model {errs['merged']!r} (bar {LORA_MERGED_TOL}), "
+                  f"against the f32 plain reference {errs['f32']!r} (bar "
+                  f"{LORA_F32_TOL}); the base model without the update "
+                  f"against that reference {errs['control']!r} (must miss "
+                  f"the bar by {LORA_CONTROL_FACTOR}x)", flush=True)
+            check(errs["merged"] < LORA_MERGED_TOL,
+                  f"LoRA vs merged rel err {errs['merged']}")
+            check(errs["f32"] < LORA_F32_TOL,
+                  f"LoRA vs f32 rel err {errs['f32']}")
+            check(errs["control"] >= LORA_CONTROL_FACTOR * LORA_F32_TOL,
+                  f"the base model without the update is within "
+                  f"{errs['control']} of the LoRA reference")
+    del regular, base, model
+
+    # Fine-tuning: f32 parameters, the batch in bf16, AdamW on the
+    # trainable ones through lora_optimizer.
+    model = lora.create_model(CONVNEXT, device="cuda", dtype=torch.float32,
+                              seed=0, **kw)
+    model.load_state_dict(sd)
+    model.train()
+    opt = lora.lora_optimizer(
+        functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=0.05),
+        model, train_bias=model.cfg.lora_train_bias,
+        trainable_layers=[model.cfg.classifier])
+    trainable = set(model.trainable_weights)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(46)
+    batch = pp(torch.randint(0, 256, (LORA_TRAIN_BATCH, 224, 224, 3),
+                             generator=g, device="cuda", dtype=torch.uint8))
+    labels = torch.randint(0, model.cfg.nb_classes, (LORA_TRAIN_BATCH,),
+                           generator=g, device="cuda")
+    drop = torch.Generator(device="cuda").manual_seed(47)   # drop path
+    losses, seconds = [], []
+    launched = dict(dispatch.launch_counts)
+    for _ in range(LORA_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(
+            model(batch, generator=drop).float(), labels)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    check(dispatch.launch_counts == launched, "LoRA fine-tuning launched "
+          "a kernel")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    for k, p in model.named_parameters():
+        if k in trainable:
+            check(not torch.equal(p.detach(), before[k]), f"{k} did not move")
+        else:
+            check(torch.equal(p.detach(), before[k]), f"frozen {k} moved")
+    check(any(k.endswith("weight_lora_b") for k in trainable)
+          and any(k.startswith("head.fc") for k in trainable),
+          f"trainable {sorted(trainable)[:4]}")
+    print(f"LoRA {CONVNEXT} fine-tuning bs{LORA_TRAIN_BATCH} bf16 (f32 "
+          f"parameters, AdamW on {len(trainable)} of "
+          f"{len(before)} tensors): losses {losses!r}, step seconds "
+          f"{seconds!r}; no launch, frozen tensors unchanged; on {gpu_line}",
+          flush=True)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 44))
+    all_phases = list(range(2, 46))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 43",
+            print("chip_smoke: --phases takes numbers from 2 to 45",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -6465,6 +6891,8 @@ def main(argv) -> int:
                 phase_pit_mha(reports["fused_mha"], gpu_line,
                               HYBRID_MHA_SHAPES)),
             43: lambda: phase_mha_train(reports, gpu_line),
+            44: lambda: phase_sam_amg(reports, gpu_line),
+            45: lambda: phase_lora_convnext(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()

@@ -2591,3 +2591,132 @@ def test_fused_mha_at_the_hybrid_shape(card, dtype, tol):
     dref = fused_mha_bwd_reference(qkv, go, h, d ** -0.5).float()
     bar = (2e-2 if dtype == torch.bfloat16 else 1e-4) * dref.abs().max()
     assert (dqkv.float() - dref).abs().max() <= bar
+
+
+# -- SAM's automatic mask generator and LoRA-ConvNeXt ------------------------
+
+_TINY_SAM = dict(input_size=(64, 64), encoder_embed_dim=16, encoder_nb_blocks=2,
+                 encoder_nb_heads=2, embed_dim=8, encoder_global_attn_indices=(1,),
+                 encoder_window_size=2, prompt_mask_hidden_dim=4,
+                 decoder_nb_blocks=2, decoder_nb_heads=2,
+                 decoder_mlp_channels=16, decoder_iou_hidden_dim=8)
+
+
+def _seeded_sam(device, seed=4):
+    """The tiny SAM of tests/models/test_amg.py with every tensor drawn
+    from a seed: norm weights near 1, rel-pos tables and the position
+    embedding at std 0.5, the rest 0.2."""
+    import tfimm_tpu_torch as tfm
+
+    model = tfm.create_model("sam_vit_b", device="cpu", **_TINY_SAM)
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, t in model.state_dict().items():
+        r = torch.randn(t.shape, generator=g)
+        if "norm" in name and name.endswith("weight"):
+            sd[name] = 1.0 + 0.1 * r
+        elif name.endswith(("rel_pos_h", "rel_pos_w", "pos_embed")):
+            sd[name] = 0.5 * r
+        else:
+            sd[name] = 0.2 * r
+    model.load_state_dict(sd)
+    return model.to(device)
+
+
+def test_mask_generator_batch_on_the_card_matches_the_cpu(card):
+    """One batch of ``_process_points`` in f32 with TF32 off, on the card
+    and on the CPU, against one embedding: a mask pixel may differ only
+    where the CPU logit lies within 1e-4 of the threshold; IoU predictions
+    and stability scores within 1e-4; boxes equal where the masks are."""
+    from tfimm_tpu_torch.architectures.segment_anything import (
+        SAMAutomaticMaskGenerator,
+    )
+    from tfimm_tpu_torch.architectures.segment_anything.amg import (
+        build_point_grid,
+    )
+    from tfimm_tpu_torch.ops.resize import resize_linear
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        image = np.random.default_rng(7).integers(0, 255, (44, 36, 3)).astype(
+            np.uint8)
+        gens = {}
+        for device in ("cpu", card):
+            gen = SAMAutomaticMaskGenerator(_seeded_sam(device))
+            gen.predictor.set_image(image)
+            gens[str(device)] = gen
+        cpu, gpu = gens["cpu"], gens[str(card)]
+        gpu.predictor.image_embedding = cpu.predictor.image_embedding.to(card)
+        points = build_point_grid(8) * np.array([36, 44], np.float32)
+        scaled = torch.as_tensor(cpu.predictor.resizer.scale_points(
+            points.astype(np.float32)))
+        crop = (44, 36)
+        before = dict(dispatch.launch_counts)
+        got = gpu._process_points(scaled.to(card), crop)
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts == before   # the decode runs no kernel
+        want = cpu._process_points(scaled, crop)
+        masks, iou, stability, boxes = (t.cpu() for t in got)
+        assert masks.shape == want[0].shape == (3 * 64, *crop)
+
+        pred = cpu.predictor
+        n = len(scaled)
+        up, _, _ = pred._decode(
+            scaled[:, None], torch.ones(n, 1, dtype=torch.int32),
+            torch.zeros(n, 0, 4), torch.zeros(n, 0, *pred.mask_size()), True)
+        rh, rw = pred.resizer.rescaled_size
+        logits = resize_linear(up.reshape(-1, *up.shape[2:])[:, :rh, :rw],
+                               (3 * n, *crop))
+        near = (logits - pred.model.mask_threshold).abs() < 1e-4
+        differ = masks != want[0]
+        assert not (differ & ~near).any()
+        torch.testing.assert_close(iou.float(), want[1].float(), atol=1e-4,
+                                   rtol=0)
+        torch.testing.assert_close(stability, want[2], atol=1e-4, rtol=0)
+        same = ~differ.any(dim=(1, 2))
+        assert torch.equal(boxes[same], want[3][same])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_lora_convnext_block_feeds_convnext_mlp_the_merged_weights(card):
+    """A bf16 ConvNeXt block whose MLP layers are LoRA layers with a
+    nonzero B, at inference on the card: one ``convnext_mlp`` launch,
+    within 2e-2 * max|plain| of the kernel's plain version fed the merged
+    weights; the plain version fed the base weights misses that bar."""
+    from tfimm_tpu_torch.architectures.convnext import ConvNeXtBlock
+    from tfimm_tpu_torch.architectures.lora import convert_to_lora_layer
+
+    g = torch.Generator().manual_seed(14)
+    block = ConvNeXtBlock(128, 4.0, False, 0.0, 0.0, "layer_norm_eps_1e-6",
+                          "gelu", 1.0, generator=g)
+    block.mlp.fc1 = convert_to_lora_layer(block.mlp.fc1, lora_rank=4,
+                                          lora_alpha=4.0, generator=g)
+    block.mlp.fc2 = convert_to_lora_layer(block.mlp.fc2, lora_rank=4,
+                                          lora_alpha=4.0, generator=g)
+    with torch.no_grad():
+        for fc in (block.mlp.fc1, block.mlp.fc2):
+            fc.weight_lora_b.normal_(0.0, 0.1, generator=g)
+    block = block.to(card, torch.bfloat16).eval()
+    x = torch.randn(4, 14, 14, 128, generator=g).to(card, torch.bfloat16)
+    before = dispatch.launch_counts["convnext_mlp"]
+    with torch.inference_mode():
+        got = block(x).float()
+        y = block.conv_dw(x).reshape(-1, 128)
+        mlp = block.mlp
+        common = (x.reshape(-1, 128), block.norm.weight, block.norm.bias)
+
+        def plain(w1, w2):
+            return convnext_mlp_reference(
+                y, *common, w1, mlp.fc1.bias, w2, mlp.fc2.bias, block.gamma,
+                block.norm.eps).float().reshape(got.shape)
+
+        merged = plain(mlp.fc1._kernel(torch.bfloat16),
+                       mlp.fc2._kernel(torch.bfloat16))
+        unmerged = plain(mlp.fc1.weight, mlp.fc2.weight)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["convnext_mlp"] == before + 1
+    bar = 2e-2 * merged.abs().max()
+    assert (got - merged).abs().max() <= bar
+    assert (got - unmerged).abs().max() > 5 * bar

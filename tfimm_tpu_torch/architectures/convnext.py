@@ -17,6 +17,12 @@ one call of ``convnext_block`` (``ConvNeXtBlock.fused_kernel_ok``); that
 function keeps the conv's output in f32 and takes the tanh GELU, as the
 Pallas kernel does.
 
+Both kernels take fc1's and fc2's effective weights, ``_kernel(x.dtype)``:
+a LoRA layer (``architectures/lora``) merges its update there. The JAX
+package hands its kernels the raw ``kernel`` leaves, so its kernel path
+drops a LoRA update that its XLA path applies; the port computes what
+the XLA path computes.
+
 Paper: A ConvNet for the 2020s, https://arxiv.org/abs/2201.03545.
 """
 
@@ -142,8 +148,9 @@ class ConvNeXtBlock(nn.Module):
             log_dispatch("convnext_block")
             return convnext_block(
                 x.contiguous(), self.conv_dw.weight, self.conv_dw.bias,
-                self.norm.weight, self.norm.bias, mlp.fc1.weight, mlp.fc1.bias,
-                mlp.fc2.weight, mlp.fc2.bias, self.gamma, self.norm.eps)
+                self.norm.weight, self.norm.bias, mlp.fc1._kernel(x.dtype),
+                mlp.fc1.bias, mlp.fc2._kernel(x.dtype), mlp.fc2.bias,
+                self.gamma, self.norm.eps)
         shortcut = x
         x = self.conv_dw(x)
         if self._mlp_kernel_ok(x):
@@ -151,8 +158,9 @@ class ConvNeXtBlock(nn.Module):
             c = x.shape[-1]
             out = convnext_mlp(x.reshape(-1, c), shortcut.reshape(-1, c),
                                self.norm.weight, self.norm.bias,
-                               mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
-                               mlp.fc2.bias, self.gamma, self.norm.eps)
+                               mlp.fc1._kernel(x.dtype), mlp.fc1.bias,
+                               mlp.fc2._kernel(x.dtype), mlp.fc2.bias,
+                               self.gamma, self.norm.eps)
             return out.reshape(shortcut.shape)
         ctx = current_context()
         x = self.mlp(self.norm(x))

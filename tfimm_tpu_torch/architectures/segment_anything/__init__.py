@@ -1,9 +1,9 @@
 """Segment Anything (SAM); mirror of
-tfimm_tpu/architectures/segment_anything/__init__.py. The automatic mask
-generator (``amg.py``) is not ported yet (ROADMAP.md, queue A, item 7)."""
+tfimm_tpu/architectures/segment_anything/__init__.py: the model, the
+interactive ``SAMPredictor`` and the automatic mask generator."""
 
 __all__ = ["SegmentAnythingModel", "SegmentAnythingModelConfig",
-           "ImageResizer", "SAMPredictor"]
+           "ImageResizer", "SAMPredictor", "SAMAutomaticMaskGenerator"]
 
 from tfimm_tpu_torch.architectures.segment_anything.sam import (  # noqa: F401
     SegmentAnythingModel,
@@ -12,4 +12,7 @@ from tfimm_tpu_torch.architectures.segment_anything.sam import (  # noqa: F401
 from tfimm_tpu_torch.architectures.segment_anything.predictor import (  # noqa: F401
     ImageResizer,
     SAMPredictor,
+)
+from tfimm_tpu_torch.architectures.segment_anything.amg import (  # noqa: F401
+    SAMAutomaticMaskGenerator,
 )

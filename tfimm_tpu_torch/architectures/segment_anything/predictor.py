@@ -104,6 +104,22 @@ class SAMPredictor:
                                           device=self.device)
 
     # -- prediction -----------------------------------------------------------
+    def _decode(self, points: torch.Tensor, labels: torch.Tensor,
+                boxes: torch.Tensor, masks: torch.Tensor,
+                multimask_output: bool):
+        """Prompts on the model's device, in model-input coordinates, with
+        a leading batch axis -> (masks upscaled to the input size as f32
+        logits, scores, low-resolution logits), tensors on the device."""
+        with torch.inference_mode():
+            n = points.shape[0]
+            emb = self.image_embedding.expand(n, *self.image_embedding.shape[1:])
+            logits, scores = self.model.forward_prompts(
+                emb, {"points": points, "labels": labels, "boxes": boxes,
+                      "masks": masks}, multimask_output)
+            upscaled = self.model.postprocess_logits(
+                logits, input_size=self.input_size(), return_logits=True)
+        return upscaled, scores, logits
+
     def __call__(self, points=None, labels=None, boxes=None, masks=None,
                  multimask_output: bool = True, return_logits: bool = False):
         """Masks at the original image size (booleans, or logits with
@@ -139,15 +155,11 @@ class SAMPredictor:
                    "labels": labels,
                    "boxes": self.resizer.scale_boxes(boxes),
                    "masks": masks}
+        prompts = {k: torch.as_tensor(v, device=self.device)
+                   for k, v in prompts.items()}
+        upscaled, scores, logits = self._decode(multimask_output=multimask_output,
+                                                **prompts)
         with torch.inference_mode():
-            prompts = {k: torch.as_tensor(v, device=self.device)
-                       for k, v in prompts.items()}
-            n = prompts["points"].shape[0]
-            emb = self.image_embedding.expand(n, *self.image_embedding.shape[1:])
-            logits, scores = self.model.forward_prompts(emb, prompts,
-                                                        multimask_output)
-            upscaled = self.model.postprocess_logits(
-                logits, input_size=self.input_size(), return_logits=True)
             out_masks = self.resizer.postprocess_mask(upscaled)
             if not return_logits:
                 out_masks = out_masks > self.model.mask_threshold

@@ -56,9 +56,14 @@ class Dense(nn.Module):
                 else:
                     self.bias.uniform_(-bound, bound, generator=generator)
 
+    def _kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight the layer multiplies by, in ``dtype`` (LoRA's
+        ``LoRADense`` merges its factors here)."""
+        return self.weight.to(dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return F.linear(x, self._kernel(x.dtype), bias)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,11 @@ leaf rename, plus a layout transpose for ``kernel`` leaves:
     scale  -> weight
     mean   -> running_mean
     var    -> running_var
+    kernel_lora_a -> weight_lora_a, kernel_lora_b -> weight_lora_b (LoRA's
+                        factors, by the kernel transposes: Dense (in, r)
+                        -> (r, in) and (r, out) -> (out, r); conv
+                        (kh, kw, in / g, r) -> (r, in / g, kh, kw) and
+                        (kh, kw, r, out) -> (out, r, kh, kw))
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts, so this
 module needs no JAX. ``jax_from_state_dict`` goes the other way, naming
@@ -33,6 +38,8 @@ __all__ = ["state_dict_from_jax", "jax_from_state_dict"]
 
 _LEAF_RENAMES = {
     "kernel": "weight",
+    "kernel_lora_a": "weight_lora_a",
+    "kernel_lora_b": "weight_lora_b",
     "scale": "weight",
     "mean": "running_mean",
     "var": "running_var",
@@ -58,7 +65,7 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(params):
         head, _, leaf = path.rpartition(".")
         arr = np.array(value, dtype=np.float32)  # a writable copy
-        if leaf == "kernel":
+        if leaf in ("kernel", "kernel_lora_a", "kernel_lora_b"):
             if arr.ndim not in _KERNEL_TRANSPOSES:
                 raise ValueError(f"{path}: no layout rule for a {arr.ndim}-D kernel")
             if arr.ndim == 4 and "output_upscaling" in path:
@@ -84,6 +91,12 @@ def _jax_leaf(module, name: str):
     )
     from tfimm_tpu_torch.ops.norm import Affine, BatchNorm, GroupNorm, LayerNorm
 
+    if name in ("weight_lora_a", "weight_lora_b"):   # LoRA's factors
+        leaf = "kernel" + name[len("weight"):]
+        if isinstance(module, Dense):
+            return leaf, (1, 0)
+        if isinstance(module, Conv2d):
+            return leaf, (2, 3, 1, 0)
     if name == "weight":
         if isinstance(module, Dense):
             return "kernel", (1, 0)

@@ -426,6 +426,34 @@ which ends the run with a non-zero exit code on failure:
    (f32 parameters, a bs64 batch in bf16): finite losses, no launch, every
    frozen tensor unchanged, every trainable one (the factors, the head)
    moved; the step times.
+46. int8 quantization (``quantize_int8``). (a) ``int8_dense_matmul`` at
+   ViT-B/16 bs128's qkv (M = 25,216, 768 -> 2,304) and fc2 (3,072 ->
+   768) and at an odd shape (M = 5, K = 100, N = 36: the zero padding to
+   ``torch._int_mm``'s shapes), and ``int8_conv`` at ResNet-50's stage-3
+   3x3 (bs128, 14x14, 256 -> 256, pad 1) and its strided stage-2 entry
+   (56x56, 128 -> 128, stride 2), on the card and on the CPU from the
+   same seeded inputs, in f32 and bf16 activations: the int32 products
+   and the outputs equal bit for bit. Each bf16 product's parts
+   (quantise, ``_int_mm``, rescale; the conv's im2col) timed with CUDA
+   events beside ``F.linear`` and cuDNN's conv in bf16 at the same shape,
+   and the profile's kernels. (b) ViT-B/16 quantized at the defaults (48
+   int8 layers) answers 5 bf16 bs128 requests through ``predict``: 12
+   ``fused_mha`` launches and 48 int8 products a request, nothing else;
+   img/s beside the float model's in the same process; finite logits; each
+   block of the int8 model in bf16 within 5e-2 of the same block of the
+   same int8 model in f32 fed the bf16 block's input, and the logits'
+   distance end to end and from the float model printed. (c) ResNet-50
+   with calibrated BatchNorm, quantized with ``convs=True`` (its 13 3x3
+   convs of stages 2-4), 5 bf16 bs128 requests: 13 int8 convs a request,
+   no launch, finite logits, img/s beside the float model. (d) ConvNeXt-B
+   and Swin-T at the defaults, 2 bf16 bs128 requests each: ConvNeXt-B's 3
+   float blocks of stage 1 launch ``convnext_mlp`` (or ``convnext_block``
+   with ``TFIMM_TPU_FUSED_CONVNEXT=1``) and its 33 int8 blocks decline;
+   Swin-T's 4 float blocks of stages 1-2 launch ``swin_block`` and its int8
+   stages 3-4 neither it nor ``window_mha``; finite logits. (e) SAM-B with
+   its image encoder quantized: one 1024x1024 ``set_image`` with 12
+   ``flash_attention_relpos`` launches, three prompt calls with none, the
+   latencies beside the float model's.
 
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
@@ -435,7 +463,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-45) alone, for a quicker look at one
+runs phase 1 and the phases named (2-46) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -794,6 +822,29 @@ LORA_F32_TOL = 5e-2
 LORA_CONTROL_FACTOR = 10.0
 LORA_TRAIN_BATCH = 64
 LORA_TRAIN_STEPS = 3
+# int8 quantization (phase 46): int8_dense_matmul at ViT-B/16 bs128's qkv
+# and fc2 and an odd shape, (M, K, N); int8_conv at ResNet-50's stage-3 3x3
+# and its strided stage-2 entry at bs128, (B, H, W, C, O, stride, pad).
+INT8_DENSE_SHAPES = [(128 * 197, 768, 2304), (128 * 197, 3072, 768),
+                     (5, 100, 36)]
+INT8_CONV_SHAPES = [(128, 14, 14, 256, 256, 1, 1),
+                    (128, 56, 56, 128, 128, 2, 1)]
+INT8_VIT_LAUNCHES = {"fused_mha": 12}
+INT8_VIT_LAYERS = 48
+INT8_RESNET_CONVS = 13
+INT8_TOL = 5e-2
+# (model, TFIMM_TPU_FUSED_CONVNEXT, launches of an int8 request and of a
+# float one, path) at the default thresholds: the float blocks keep their
+# kernels (ConvNeXt-B's stage 1, Swin-T's stages 1-2).
+INT8_GATE_RUNS = [
+    (CONVNEXT, "0", {"convnext_mlp": 3}, {"convnext_mlp": 36},
+     "serve_convnext_int8"),
+    (CONVNEXT, "1", {"convnext_block": 3}, {"convnext_block": 36},
+     "serve_convnext_fused_int8"),
+    (SWIN, "0", {"swin_block": 4}, {"swin_block": 10, "window_mha": 2},
+     "serve_swin_int8")]
+INT8_GATE_REQUESTS = 2
+INT8_SAM_LAYERS = 48
 # cuDNN's conv kernels and layout transposes, by name.
 CONV_NET_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
                       "winograd", "nchwtonhwc", "nhwctonchw")
@@ -6637,13 +6688,365 @@ def phase_lora_convnext(reports, gpu_line):
           flush=True)
 
 
+def int8_products(dtype, shape, conv):
+    """Seeded int8 weights and scales and an activation of ``shape`` on the
+    CPU: (x, weight_q, weight_scale, conv arguments or None)."""
+    import torch
+
+    g = torch.Generator().manual_seed(sum(shape))
+    if conv:
+        b, h, w, c, o, stride, pad = shape
+        wq = torch.randint(-127, 128, (o, c, 3, 3), generator=g,
+                           dtype=torch.int8)
+        x = torch.randn(b, h, w, c, generator=g)
+        args = ((stride, stride), ((pad, pad), (pad, pad)), (1, 1))
+    else:
+        m, k, o = shape
+        wq = torch.randint(-127, 128, (o, k), generator=g, dtype=torch.int8)
+        x = torch.randn(m, k, generator=g)
+        args = None
+    ws = torch.rand(o, generator=g) * 1e-3 + 1e-4
+    return x.to(dtype), wq, ws, args
+
+
+def int8_parts(x, wq, ws, args):
+    """The stages of one int8 product on ``x``'s device, as callables:
+    quantise (the scale and the int8 activations), im2col (convs),
+    ``_int_mm`` and rescale, and the int32 accumulator."""
+    from tfimm_tpu_torch import quant
+
+    xf = x.float()
+    if args is None:
+        def scale():
+            return xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) \
+                * (1.0 / 127.0)
+    else:
+        def scale():
+            return xf.abs().amax().clamp_min(1e-6) * (1.0 / 127.0)
+    s = scale()
+    q = quant._quantize(xf, s)
+    parts = {"quantise": lambda: quant._quantize(x.float(), scale())}
+    if args is not None:
+        strides, pads, dilation = args
+        patches, _ = quant._im2col(q, wq.shape[2:], strides, pads, dilation)
+        parts["im2col"] = lambda: quant._im2col(q, wq.shape[2:], strides,
+                                                pads, dilation)
+        a, w2 = patches, wq.reshape(wq.shape[0], -1)
+        factor = s * ws
+        rescale = lambda acc: acc.float().mul_(factor).to(x.dtype)  # noqa: E731
+    else:
+        a, w2 = q, wq
+        rescale = lambda acc: acc.float().mul_(s).mul_(ws).to(x.dtype)  # noqa: E731
+    acc = quant.int_mm(a, w2)
+    parts["_int_mm"] = lambda: quant.int_mm(a, w2)
+    parts["rescale"] = lambda: rescale(acc)
+    return parts, acc
+
+
+def phase_int8_products(gpu_line):
+    """Phase 46 (a): the int8 products on the card against the CPU, and
+    the bf16 products' parts timed beside the bf16 library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfimm_tpu_torch import quant
+
+    cases = [(shape, False) for shape in INT8_DENSE_SHAPES] + \
+        [(shape, True) for shape in INT8_CONV_SHAPES]
+    for shape, conv in cases:
+        what = ("int8_conv (B, H, W, C, O, stride, pad)" if conv
+                else "int8_dense_matmul (M, K, N)")
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wq, ws, args = int8_products(dtype, shape, conv)
+
+            def product(x, wq, ws):
+                if conv:
+                    return quant.int8_conv((wq, ws), x, *args)
+                return quant.int8_dense_matmul((wq, ws), x)
+
+            want = product(x, wq, ws)
+            _, want_acc = int8_parts(x, wq, ws, args)
+            xc, wqc, wsc = x.cuda(), wq.cuda(), ws.cuda()
+            got = product(xc, wqc, wsc)
+            parts, got_acc = int8_parts(xc, wqc, wsc, args)
+            torch.cuda.synchronize()
+            got, got_acc = got.cpu(), got_acc.cpu()
+            differ = int((got != want).sum())
+            print(f"int8 {what} {shape} {str(dtype)[6:]}: card against CPU: "
+                  f"int32 products equal {torch.equal(got_acc, want_acc)}, "
+                  f"outputs differing {differ} of {want.numel()}, max|diff| "
+                  f"{(got.float() - want.float()).abs().max().item()!r}",
+                  flush=True)
+            check(torch.equal(got_acc, want_acc),
+                  f"int8 {shape}: the card's int32 products differ")
+            check(torch.equal(got, want),
+                  f"int8 {shape} {dtype}: the card's output differs from the "
+                  f"CPU's in {differ} places")
+            if dtype != torch.bfloat16 or shape[0] < 17:
+                continue
+            times = {name: cuda_time_ms(fn) for name, fn in parts.items()}
+            times["whole"] = cuda_time_ms(lambda: product(xc, wqc, wsc))
+            w = torch.randn(wq.shape, device="cuda", dtype=dtype)
+            if conv:
+                xn = xc.permute(0, 3, 1, 2)
+                (stride, _), ((pad, _), _), _ = args
+                library = "cuDNN conv2d bf16"
+                times[library] = cuda_time_ms(lambda: F.conv2d(
+                    xn, w, stride=stride, padding=pad))
+            else:
+                library = "F.linear bf16"
+                times[library] = cuda_time_ms(lambda: F.linear(xc, w))
+            parts_ms = sum(times[name] for name in parts)
+            print(f"int8 {what} {shape} bf16 on the card (CUDA events, ms): "
+                  f"{times!r}; the parts sum to {parts_ms!r}, the int8 GEMM "
+                  f"is {times['_int_mm'] / parts_ms!r} of them; the whole "
+                  f"product against {library}: "
+                  f"{times['whole'] / times[library]!r}x; on {gpu_line}",
+                  flush=True)
+            _, groups, names = device_split(lambda: product(xc, wqc, wsc))
+            for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
+                print(f"int8 {what} {shape} bf16 profile kernel: {ms!r} ms "
+                      f"{name[:120]}", flush=True)
+
+
+def int8_counted():
+    """Counts of the int8 products (``quant.int8_dense_matmul`` and
+    ``int8_conv``, which the layers look up at each call), and a function
+    that puts the originals back."""
+    from tfimm_tpu_torch import quant
+
+    counts = {"int8_dense_matmul": 0, "int8_conv": 0}
+    real = {name: getattr(quant, name) for name in counts}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(quant, name, counted(name))
+
+    def restore():
+        for name, fn in real.items():
+            setattr(quant, name, fn)
+
+    return counts, restore
+
+
+def int8_serving(reports, gpu_line, path, name, qmodel, fmodel, pp, requests,
+                 launches, float_launches, products):
+    """``qmodel`` (int8) and ``fmodel`` (float) answer ``requests``, each
+    request launching ``launches`` (``float_launches``) and nothing else;
+    ``qmodel``'s requests run ``products`` int8 products (name -> count)
+    each. Records the int8 launch counts under ``path``; returns the int8
+    model's first logits."""
+    from tfimm_tpu_torch.ops.kernels import dispatch
+
+    batch = requests[0].shape[0]
+    counts, restore = int8_counted()
+    try:
+        dispatch.reset_launch_counts()
+        seconds, logits = family_requests(qmodel, pp, requests, launches,
+                                          batch=batch)
+        for kname, report in reports.items():
+            report["launches_by_path"][path] = dispatch.launch_counts[kname]
+        want = {k: v * len(requests) for k, v in products.items()}
+        check(counts == {**dict.fromkeys(counts, 0), **want},
+              f"{name} int8 requests ran {counts}, expected {want}")
+    finally:
+        restore()
+    fseconds, _ = family_requests(fmodel, pp, requests, float_launches,
+                                  batch=batch)
+    rates = {}
+    for what, secs in (("int8", seconds), ("float", fseconds)):
+        img_s = [batch / t for t in secs[1:]] or [batch / secs[0]]
+        rates[what] = statistics.median(img_s)
+        print(f"int8 {name} bs{batch} bf16, {what} model: request seconds "
+              f"{secs!r}; {rates[what]!r} img/s (median of requests "
+              f"2-{len(secs)}); launches a request "
+              f"{(launches if what == 'int8' else float_launches) or 'none'};"
+              f" on {gpu_line}", flush=True)
+    print(f"int8 {name} bs{batch} bf16: int8 / float img/s "
+          f"{rates['int8'] / rates['float']!r}; int8 products a request "
+          f"{products}; on {gpu_line}", flush=True)
+    img = requests[-1]
+    wall_ms, groups, names = device_split(lambda: qmodel.predict(pp(img)),
+                                          steps=2)
+    busy_ms = sum(groups.values())
+    request_ms = statistics.median(seconds[1:] or seconds) * 1e3
+    int_mm_ms = sum(ms for kname, ms in names.items()
+                    if "gemm_s8" in kname or "imma" in kname)
+    print(f"int8 {name} request profile: device busy {busy_ms!r} ms, of it "
+          f"the int8 GEMMs {int_mm_ms!r}; wall {wall_ms!r} ms under the "
+          f"profiler, {request_ms!r} without; device idle share "
+          f"{1.0 - busy_ms / request_ms!r}; on {gpu_line}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"int8 {name} request profile: {group}: {ms!r} ms", flush=True)
+    return logits
+
+
+def phase_int8(reports, gpu_line):
+    """Phase 46: int8 quantization on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.architectures.segment_anything import SAMPredictor
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.quant import any_quantized, quantize_int8
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    def int8_layers(model):
+        return [n for n, m in model.named_modules() if any_quantized(m)]
+
+    phase_int8_products(gpu_line)
+    g = torch.Generator(device="cuda").manual_seed(46)
+
+    def requests_of(size, n=REQUESTS):
+        return [torch.randint(0, 256, (BATCH, *size, 3), generator=g,
+                              device="cuda", dtype=torch.uint8)
+                for _ in range(n)]
+
+    # (b) ViT-B/16.
+    model = tfm.create_model(MODEL, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    model.load_state_dict(seeded_state_dict(model, seed=46))
+    q = quantize_int8(model)
+    check(len(int8_layers(q)) == INT8_VIT_LAYERS,
+          f"{MODEL}: {len(int8_layers(q))} int8 layers")
+    pp = tfm.create_preprocessing(MODEL, dtype=torch.bfloat16, device="cuda")
+    requests = requests_of((224, 224))
+    logits = int8_serving(reports, gpu_line, "serve_vit_int8", MODEL, q,
+                          model, pp, requests, INT8_VIT_LAUNCHES,
+                          INT8_VIT_LAUNCHES,
+                          {"int8_dense_matmul": INT8_VIT_LAYERS})
+    x = pp(requests[0][:FAMILY_CHECK_IMAGES])
+    q32 = copy.deepcopy(q).float()
+    io = []
+    hooks = [blk.register_forward_hook(
+        lambda m, args, out: io.append((args[0], out))) for blk in q.blocks]
+    with torch.inference_mode():
+        got = q.predict(x)
+        for h in hooks:
+            h.remove()
+        blocks = [rel(out, blk32(inp.float()))
+                  for blk32, (inp, out) in zip(q32.blocks, io)]
+        ref32 = q32.predict(x.float())
+        float_ref = model.predict(x)
+    check(bool(torch.isfinite(got).all()), "non-finite int8 logits")
+    check(torch.equal(got, logits[:FAMILY_CHECK_IMAGES]),
+          "the check's int8 logits differ from the request's")
+    print(f"int8 {MODEL}: each block in bf16 against the same int8 block in "
+          f"f32 on the bf16 block's input, largest rel err {max(blocks)!r} "
+          f"(bar {INT8_TOL}): {blocks!r}; the logits end to end "
+          f"{rel(got, ref32)!r} (printed); the int8 model against the float "
+          f"model in bf16 {rel(got, float_ref)!r} (printed); on {gpu_line}",
+          flush=True)
+    check(max(blocks) < INT8_TOL, f"int8 ViT block rel err {max(blocks)}")
+    del model, q, q32
+
+    # (c) ResNet-50 with its 3x3 convs in int8.
+    requests = requests_of((224, 224))
+    model32, sd = calibrated_model(RESNET, 46, requests[-1][:32])
+    del model32
+    model = tfm.create_model(RESNET, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    model.load_state_dict(sd)
+    q = quantize_int8(model, convs=True)
+    convs = int8_layers(q)
+    check(len(convs) == INT8_RESNET_CONVS and all(
+        q.get_submodule(n).weight_q.dim() == 4 for n in convs),
+        f"{RESNET}: int8 layers {convs}")
+    pp = tfm.create_preprocessing(RESNET, dtype=torch.bfloat16, device="cuda")
+    logits = int8_serving(reports, gpu_line, "serve_resnet_int8", RESNET, q,
+                          model, pp, requests, {}, {},
+                          {"int8_conv": INT8_RESNET_CONVS})
+    with torch.inference_mode():
+        float_ref = model.predict(pp(requests[0][:FAMILY_CHECK_IMAGES]))
+    print(f"int8 {RESNET} (convs=True: {convs}): the int8 model against the "
+          f"float model in bf16 {rel(logits[:FAMILY_CHECK_IMAGES], float_ref)!r}"
+          f" (printed); on {gpu_line}", flush=True)
+    del model, q
+
+    # (d) ConvNeXt-B and Swin-T: the gates as found.
+    with restored_env("TFIMM_TPU_FUSED_CONVNEXT"):
+        built = {}
+        for name, switch, launches, float_launches, path in INT8_GATE_RUNS:
+            os.environ["TFIMM_TPU_FUSED_CONVNEXT"] = switch
+            if name not in built:
+                built.clear()
+                model = tfm.create_model(name, device="cuda",
+                                         dtype=torch.bfloat16, seed=0)
+                model.load_state_dict(seeded_state_dict(model, seed=47))
+                built[name] = (model, quantize_int8(model))
+            model, q = built[name]
+            layers = int8_layers(q)
+            pp = tfm.create_preprocessing(name, dtype=torch.bfloat16,
+                                          device="cuda")
+            requests = requests_of((224, 224), INT8_GATE_REQUESTS)
+            int8_serving(reports, gpu_line, path, name, q, model, pp,
+                         requests, launches, float_launches,
+                         {"int8_dense_matmul": len(layers)})
+            print(f"int8 {name} (TFIMM_TPU_FUSED_CONVNEXT={switch}): "
+                  f"{len(layers)} int8 layers, from {layers[0]}; launches a "
+                  f"request {launches}, the float model's {float_launches}",
+                  flush=True)
+        del built, model, q
+
+    # (e) SAM-B with its image encoder in int8.
+    model = tfm.create_model(SAM, device="cuda", dtype=torch.bfloat16, seed=0)
+    model.load_state_dict(sam_state_dict(model, seed=46))
+    qmodel = copy.deepcopy(model)
+    qmodel.image_encoder = quantize_int8(model.image_encoder)
+    check(len(int8_layers(qmodel.image_encoder)) == INT8_SAM_LAYERS,
+          f"{SAM} encoder int8 layers {len(int8_layers(qmodel.image_encoder))}")
+    image = np.random.default_rng(46).integers(0, 256, (1024, 1024, 3),
+                                               dtype=np.uint8)
+    ms = {}
+    dispatch.reset_launch_counts()
+    for what, m in (("int8", qmodel), ("float", model)):
+        predictor = SAMPredictor(m)
+        sam_request(predictor, image)   # warm-up
+        before = dict(dispatch.launch_counts)
+        results, set_l, prompt_l, set_ms, prompt_ms = sam_request(predictor,
+                                                                  image)
+        check(set_l == expected(**SAM_LAUNCHES), f"{what} set_image launched "
+              f"{set_l}, expected {SAM_LAUNCHES} and nothing else")
+        check(prompt_l == expected(), f"the prompt calls launched {prompt_l}")
+        check(bool(torch.isfinite(predictor.image_embedding).all()),
+              "non-finite image embedding")
+        check(all(np.isfinite(r[2]).all() for r in results),
+              "non-finite decoder logits")
+        if what == "int8":
+            for kname, report in reports.items():
+                report["launches_by_path"]["serve_sam_int8"] = \
+                    dispatch.launch_counts[kname] - before[kname]
+            emb = predictor.image_embedding.float()
+        ms[what] = (set_ms, prompt_ms)
+        print(f"int8 {SAM} ({what} image encoder) 1024x1024: set_image "
+              f"{set_ms!r} ms, prompt calls {prompt_ms!r} ms (CUDA events); "
+              f"launches {set_l['flash_attention_relpos']} + "
+              f"{prompt_l['flash_attention_relpos']}; on {gpu_line}",
+              flush=True)
+    print(f"int8 {SAM}: set_image int8 / float {ms['int8'][0] / ms['float'][0]!r};"
+          f" the int8 embedding against the float one "
+          f"{rel(emb, predictor.image_embedding)!r} (printed)", flush=True)
+    del model, qmodel
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 46))
+    all_phases = list(range(2, 47))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 45",
+            print("chip_smoke: --phases takes numbers from 2 to 46",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -6893,6 +7296,7 @@ def main(argv) -> int:
             43: lambda: phase_mha_train(reports, gpu_line),
             44: lambda: phase_sam_amg(reports, gpu_line),
             45: lambda: phase_lora_convnext(reports, gpu_line),
+            46: lambda: phase_int8(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()

@@ -2720,3 +2720,107 @@ def test_lora_convnext_block_feeds_convnext_mlp_the_merged_weights(card):
     bar = 2e-2 * merged.abs().max()
     assert (got - merged).abs().max() <= bar
     assert (got - unmerged).abs().max() > 5 * bar
+
+
+# -- int8 quantization ----------------------------------------------------------
+
+# int8_dense_matmul (M, K, N): ViT-B/16's qkv rows at batch 2, fc2, the
+# padded shapes (M <= 16, K and N off multiples of 8); int8_conv (B, H, W,
+# C, O, k, stride, padding).
+INT8_DENSE_CASES = [(394, 768, 2304), (394, 3072, 768), (5, 100, 36),
+                    (16, 8, 8), (17, 7, 9)]
+INT8_CONV_CASES = [(2, 14, 14, 256, 256, 3, 1, "SAME"),
+                   (2, 15, 15, 128, 128, 3, 2, "SAME"),
+                   (2, 8, 8, 64, 64, 2, 2, "VALID"),
+                   (1, 9, 11, 5, 7, 3, 1, ((1, 2), (0, 1)))]
+
+
+def _int8_weight(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    wq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    ws = torch.rand(shape[0], generator=g) * 1e-3 + 1e-4
+    return wq, ws, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8_DENSE_CASES)
+def test_int8_dense_matmul_on_the_card_equals_the_cpu(card, m, k, n, dtype):
+    """The same seeded int8 weight and activations: the card's output
+    equals the CPU's bit for bit (integer sums are exact in any order, and
+    the roundings are the same)."""
+    from tfimm_tpu_torch.quant import int8_dense_matmul
+
+    wq, ws, g = _int8_weight((n, k), m + k + n)
+    x = (torch.randn(m, k, generator=g) * 3).to(dtype)
+    want = int8_dense_matmul((wq, ws), x)
+    got = int8_dense_matmul((wq.to(card), ws.to(card)), x.to(card))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,o,k,s,pad", INT8_CONV_CASES)
+def test_int8_conv_on_the_card_equals_the_cpu(card, b, h, w, c, o, k, s, pad,
+                                              dtype):
+    from tfimm_tpu_torch.quant import int8_conv
+
+    wq, ws, g = _int8_weight((o, c, k, k), b * h + c)
+    x = torch.randn(b, h, w, c, generator=g).to(dtype)
+    want = int8_conv((wq, ws), x, (s, s), pad, (1, 1))
+    got = int8_conv((wq.to(card), ws.to(card)), x.to(card), (s, s), pad,
+                    (1, 1))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def test_int8_layers_give_gradients_on_the_card(card):
+    """The straight-through backward on the card: the input gradient of a
+    quantized Dense and conv equals g against the dequantized weight."""
+    from tfimm_tpu_torch.quant import int8_conv, int8_dense_matmul
+
+    wq, ws, g = _int8_weight((48, 64), 3)
+    x = torch.randn(20, 64, generator=g, device="cpu").to(card)
+    x.requires_grad_()
+    int8_dense_matmul((wq.to(card), ws.to(card)), x).sum().backward()
+    w = wq.float() * ws[:, None]
+    assert torch.allclose(x.grad.cpu(), w.sum(0).expand(20, 64), rtol=1e-5,
+                          atol=1e-5)
+    wq, ws, g = _int8_weight((16, 8, 3, 3), 4)
+    x = torch.randn(2, 6, 6, 8, generator=g).to(card).requires_grad_()
+    int8_conv((wq.to(card), ws.to(card)), x, (1, 1), "SAME",
+              (1, 1)).sum().backward()
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("name,overrides,rules,env,launches", [
+    ("swin_tiny_patch4_window7_224",
+     dict(input_size=(56, 56), embed_dim=64, nb_heads=(2, 4),
+          nb_blocks=(2, 2)), dict(min_features=128), {},
+     {"swin_block": 2, "window_mha": 0}),
+    ("convnext_base", dict(input_size=(32, 32), embed_dim=(128, 256),
+                           nb_blocks=(1, 1)), dict(min_features=256),
+     {"TFIMM_TPU_FUSED_CONVNEXT": "0"}, {"convnext_mlp": 1}),
+    ("convnext_base", dict(input_size=(32, 32), embed_dim=(128, 256),
+                           nb_blocks=(1, 1)), dict(min_features=256),
+     {"TFIMM_TPU_FUSED_CONVNEXT": "1"}, {"convnext_block": 1})])
+def test_int8_models_launch_where_their_float_blocks_are(
+        card, monkeypatch, name, overrides, rules, env, launches):
+    """A small bf16 model quantized in its second stage: the float stage
+    launches its kernel, the int8 stage declines it, on the card; finite
+    logits."""
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.quant import quantize_int8
+
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    model = tfm.create_model(name, device=card, dtype=torch.bfloat16, seed=0,
+                             **overrides)
+    q = quantize_int8(model, **rules)
+    x = torch.randn(2, *overrides["input_size"], 3,
+                    generator=torch.Generator().manual_seed(5))
+    before = dict(dispatch.launch_counts)
+    out = q.predict(x.to(card, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert {k: dispatch.launch_counts[k] - before[k] for k in launches} \
+        == launches
+    assert torch.isfinite(out).all()

@@ -13,6 +13,9 @@ each kernel wrapper runs its plain PyTorch version.
                                   dtype=torch.bfloat16, device="cuda")
     logits = model.predict(pp(images_uint8_nhwc))
 
+    q = tfm.quantize_int8(model)               # a copy with int8 Dense layers
+    logits = q.predict(pp(images_uint8_nhwc))
+
     tfm.save_model(model, "vit_dir")           # the JAX package's format
     model = tfm.load_model("vit_dir", device="cuda")
     big = tfm.create_model("vit_base_patch16_224", model_path="vit_dir",
@@ -41,6 +44,7 @@ from tfimm_tpu_torch.models.serialization import (  # noqa: F401
     save_model,
 )
 from tfimm_tpu_torch.models.embedding import EmbeddingModel  # noqa: F401
+from tfimm_tpu_torch.quant import quantize_int8  # noqa: F401
 from tfimm_tpu_torch.utils.cache import (  # noqa: F401
     cached_model_path,
     clear_model_cache,

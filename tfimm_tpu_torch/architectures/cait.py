@@ -42,6 +42,7 @@ from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.mlp import MLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
+from tfimm_tpu_torch.quant import any_quantized
 from tfimm_tpu_torch.utils.constants import (
     IMAGENET_DEFAULT_MEAN,
     IMAGENET_DEFAULT_STD,
@@ -153,9 +154,12 @@ class TalkingHeadAttention(nn.Module):
     def kernel_ok(self, x: torch.Tensor) -> bool:
         """The JAX package's gate: the talking-head kernel (differentiable,
         through its backward kernel) unless attention dropout is live in
-        training; and a shape the kernels take."""
+        training; a shape the kernels take; and neither head mix int8
+        (the kernel reads both raw)."""
         _, n, d = x.shape
         if current_context().training and self.attn_drop_rate > 0.0:
+            return False
+        if any_quantized(self.proj_l, self.proj_w):
             return False
         return x.dtype in KERNEL_DTYPES and talking_head_attention_supports(
             n, d, self.nb_heads)

@@ -48,6 +48,7 @@ from tfimm_tpu_torch.ops.kernels.dispatch import KERNEL_DTYPES, log_dispatch
 from tfimm_tpu_torch.ops.mlp import MLP, ConvMLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
+from tfimm_tpu_torch.quant import any_quantized
 from tfimm_tpu_torch.utils.constants import (
     IMAGENET_DEFAULT_MEAN,
     IMAGENET_DEFAULT_STD,
@@ -118,10 +119,12 @@ class ConvNeXtBlock(nn.Module):
         f16, which the JAX gate takes (the port has no f16 kernel), and has
         no VMEM estimate (the TPU's layout) and no backend test (on the CPU
         the kernel's plain version runs). The kernel has no backward, so
-        where autograd records the block it takes the per-op path. The JAX
-        package's int8 check (``any_quantized``) waits for the port of
-        quantization."""
+        where autograd records the block it takes the per-op path. As the
+        JAX block's ``__call__``, it declines where fc1 or fc2 is int8
+        (``any_quantized``): the kernel reads both weights raw."""
         if os.environ.get("TFIMM_TPU_FUSED_CONVNEXT", "0") != "1":
+            return False
+        if any_quantized(self.mlp.fc1, self.mlp.fc2):
             return False
         if os.environ.get("TFIMM_TPU_EXACT_GELU", "0") == "1":
             return False
@@ -134,8 +137,11 @@ class ConvNeXtBlock(nn.Module):
         path and dropout are the identity), Dense MLP, LayerNorm + GELU. The
         kernel has no backward, so where autograd records the block it takes
         the eager composition, as the JAX package runs its XLA twin under
-        differentiation."""
+        differentiation. As the JAX block's ``__call__``, it declines where
+        fc1 or fc2 is int8."""
         if current_context().training or self.conv_mlp_block or self.drop_rate:
+            return False
+        if any_quantized(self.mlp.fc1, self.mlp.fc2):
             return False
         if not (self.norm_name.startswith("layer_norm")
                 and self.act_name == "gelu") or x.dtype not in KERNEL_DTYPES:

@@ -37,6 +37,7 @@ from tfimm_tpu_torch.ops.mlp import ConvMLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.pool import avg_pool_2d_exclude_pad
 from tfimm_tpu_torch.ops.stochastic import drop_path
+from tfimm_tpu_torch.quant import any_quantized
 from tfimm_tpu_torch.utils.constants import (
     IMAGENET_DEFAULT_MEAN,
     IMAGENET_DEFAULT_STD,
@@ -90,10 +91,10 @@ class PoolFormerBlock(nn.Module):
     def kernel_ok(self, x: torch.Tensor) -> bool:
         """Gate for ``poolformer_block``, as the JAX package's: the default
         norm and activation, inference and the opt-in, the JAX package's
-        variable, off by default; and x in a dtype the kernel takes. The
-        JAX package's int8 check (``any_quantized``) waits for the port of
-        quantization."""
+        variable, off by default; x in a dtype the kernel takes; and
+        neither fc1 nor fc2 int8 (the kernel reads both weights raw)."""
         return (self.fusable and not current_context().training
+                and not any_quantized(self.mlp.fc1, self.mlp.fc2)
                 and x.dtype in KERNEL_DTYPES
                 and os.environ.get("TFIMM_TPU_FUSED_POOLFORMER", "0") == "1")
 

@@ -39,6 +39,7 @@ from tfimm_tpu_torch.ops.mlp import MLP
 from tfimm_tpu_torch.ops.norm import norm_layer_factory
 from tfimm_tpu_torch.ops.pool import adaptive_avg_pool_2d
 from tfimm_tpu_torch.ops.stochastic import drop_path, dropout
+from tfimm_tpu_torch.quant import any_quantized
 from tfimm_tpu_torch.utils.constants import (
     IMAGENET_DEFAULT_MEAN,
     IMAGENET_DEFAULT_STD,
@@ -130,9 +131,10 @@ class SpatialReductionAttention(nn.Module):
     def kernel_ok(self, x: torch.Tensor) -> bool:
         """Gate for ``pvt_sra``, as the JAX package's: one head, inference
         and the opt-in, the JAX package's variable, off by default; and x in
-        a dtype the kernel takes. The JAX package's int8 check
-        (``kernel_q``) waits for the port of quantization."""
+        a dtype the kernel takes; and neither q nor proj int8 (the kernel
+        reads both weights raw; the JAX gate's ``kernel_q`` checks)."""
         return (self.nb_heads == 1 and not current_context().training
+                and not any_quantized(self.q, self.proj)
                 and x.dtype in KERNEL_DTYPES
                 and os.environ.get("TFIMM_TPU_FUSED_PVT_SRA", "0") == "1")
 

@@ -53,6 +53,7 @@ from tfimm_tpu_torch.ops.window_gather import (
     repack_windows,
     unpack_windows,
 )
+from tfimm_tpu_torch.quant import any_quantized
 from tfimm_tpu_torch.utils.constants import (
     IMAGENET_DEFAULT_MEAN,
     IMAGENET_DEFAULT_STD,
@@ -205,9 +206,12 @@ class WindowAttention(nn.Module):
     def _kernel_ok(self, x: torch.Tensor) -> bool:
         """The JAX package's gate: the window_mha kernel (differentiable,
         through its backward kernel) unless attention dropout is live in
-        training; and a shape the kernel takes."""
+        training; a shape the kernel takes; and qkv not int8 (the JAX gate
+        checks qkv alone)."""
         _, n, c = x.shape
         if current_context().training and self.attn_drop_rate > 0.0:
+            return False
+        if any_quantized(self.qkv):
             return False
         return x.dtype in KERNEL_DTYPES and window_mha_supports(
             n, c, self.nb_heads)
@@ -287,12 +291,17 @@ class SwinTransformerBlock(nn.Module):
         """Gate for ``swin_block``: inference, as in the JAX package (drop
         path and dropout are the identity), LayerNorm + GELU, windows that
         tile the map, shapes the attention takes, matrices within
-        ``SWIN_BLOCK_MAX_WEIGHT_BYTES`` in x's dtype, and autograd not
-        recording (the kernel has no backward)."""
+        ``SWIN_BLOCK_MAX_WEIGHT_BYTES`` in x's dtype, autograd not
+        recording (the kernel has no backward), and none of the four
+        weights the kernel reads raw int8 (qkv, proj, fc1, fc2: the JAX
+        block's and stage's ``any_quantized`` checks)."""
         h, w = self.input_size
         ws, c = self.window_size, x.shape[-1]
         if current_context().training or not self.fused_block_ok or h % ws \
                 or w % ws or x.dtype not in KERNEL_DTYPES:
+            return False
+        if any_quantized(self.attn.qkv, self.attn.proj, self.mlp.fc1,
+                         self.mlp.fc2):
             return False
         if not window_mha_supports(ws * ws, c, self.attn.nb_heads):
             return False

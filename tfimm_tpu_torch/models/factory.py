@@ -125,8 +125,18 @@ def transfer_weights(src_model, dst_model,
       carry shape-dependent weights (position embeddings, rel-pos tables);
     - any other shape mismatch raises.
     Keys missing from the source, or listed in ``weights_to_ignore``, keep
-    dst's values.
+    dst's values. An int8-quantized source raises ``ValueError``: transfer
+    the float weights, then quantize the destination.
     """
+    from tfimm_tpu_torch.quant import is_quantized
+
+    if is_quantized(src_model):
+        # The source holds weight_q / weight_scale, not weight: a copy by
+        # key would leave every such destination weight at its init.
+        raise ValueError(
+            "transfer_weights does not support int8-quantized source "
+            "models; transfer the float weights, then quantize_int8 the "
+            "destination.")
     src = src_model.state_dict()
     dst = dst_model.state_dict()
     ignore = set(weights_to_ignore or [])

@@ -11,6 +11,11 @@ float32 (exact) and notes the model's dtype under ``dtype`` in
 ``config.json``, a key the JAX loader ignores. A bf16 model saved by the
 JAX package holds ml_dtypes bfloat16 arrays, which numpy reads back as
 two-byte voids (``|V2``); they are read here as their bits, exactly.
+
+An int8-quantized model (``quant.quantize_int8``) is saved as the JAX
+package saves one: int8 ``kernel_q`` and float32 ``kernel_scale`` leaves.
+``load_model`` converts the layers that the file holds as quantized before
+it loads their tensors; the scales never set the model's dtype.
 """
 
 from __future__ import annotations
@@ -92,7 +97,9 @@ def _read_params(path: str):
     with np.load(os.path.join(path, _PARAMS_FILE)) as data:
         for key in data.files:
             a = data[key]
-            if _is_bfloat16(a):
+            if key.endswith(".kernel_scale"):
+                pass   # float32 whatever the model's dtype
+            elif _is_bfloat16(a):
                 saved.add(torch.bfloat16)
                 a = (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
             elif a.dtype.kind == "f":
@@ -108,7 +115,14 @@ def _load_into(model: torch.nn.Module, path: str, payload: dict, device,
     """``model`` with the parameters under ``path``, on ``device`` in
     ``dtype``, or else the dtype the payload names, or else the saved
     arrays' dtype; in eval mode."""
+    from tfimm_tpu_torch.quant import set_int8
+
     state, saved = _read_params(path)
+    for key, weight_q in state.items():
+        if key.endswith(".weight_q"):
+            prefix = key[:-len(".weight_q")]
+            set_int8(model.get_submodule(prefix), weight_q,
+                     state[f"{prefix}.weight_scale"])
     model.load_state_dict(state)
     name = payload.get("dtype")
     dtype = dtype or (getattr(torch, name) if isinstance(name, str) else saved)

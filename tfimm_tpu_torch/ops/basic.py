@@ -2,6 +2,13 @@
 
 ``Dense`` keeps timm's ``weight`` (out, in) / ``bias`` (out,) names and casts
 both to the input dtype before the product, as the JAX layer does.
+
+``Int8Layer`` is the base of the layers that ``quantize_int8``
+(``tfimm_tpu_torch/quant.py``) converts: a converted layer holds an int8
+``weight_q`` and a float32 ``weight_scale`` (one per output channel) in
+place of its ``weight`` parameter, the JAX package's ``kernel_q`` and
+``kernel_scale`` leaves, and ``weight_scale`` stays float32 whatever dtype
+the model is cast to, as ``tfimm_tpu/utils/tree.py · tree_cast`` keeps it.
 """
 
 from __future__ import annotations
@@ -14,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Dense", "act_layer_factory", "trunc_normal_"]
+__all__ = ["Dense", "Int8Layer", "act_layer_factory", "dequantize",
+           "trunc_normal_"]
 
 
 def trunc_normal_(t: torch.Tensor, std: float,
@@ -24,12 +32,49 @@ def trunc_normal_(t: torch.Tensor, std: float,
                                  generator=generator)
 
 
-class Dense(nn.Module):
+def dequantize(weight_q: torch.Tensor,
+               weight_scale: torch.Tensor) -> torch.Tensor:
+    """float32 ``weight_q * weight_scale``, one scale per output channel
+    (the first axis)."""
+    scale = weight_scale.float().reshape(-1, *[1] * (weight_q.dim() - 1))
+    return weight_q.float() * scale
+
+
+class Int8Layer(nn.Module):
+    """A layer ``quantize_int8`` may convert. Converted, it has persistent
+    buffers ``weight_q`` (int8: ``weight``'s layout, a 1x1 conv's as
+    (out, in)) and ``weight_scale`` (float32, (out,)), and no ``weight``
+    parameter (``tfimm_tpu_torch.quant.set_int8``)."""
+
+    @property
+    def quantized(self) -> bool:
+        return "weight_q" in self._buffers
+
+    def _dequantized(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight dequantized, in ``weight``'s shape, then ``dtype``:
+        the JAX conv's ``_kernel`` of a quantized kernel."""
+        w = dequantize(self.weight_q, self.weight_scale)
+        return w.reshape(self.int8_weight_shape).to(dtype)
+
+    def _apply(self, fn, recurse=True):
+        # ``.to(dtype)``, ``.half()`` and the like cast floating buffers:
+        # ``weight_scale`` only moves, exact, as tree_cast leaves it.
+        scale = self._buffers.get("weight_scale")
+        out = super()._apply(fn, recurse)
+        moved = self._buffers.get("weight_scale")
+        if scale is not None and moved.dtype != torch.float32:
+            self._buffers["weight_scale"] = scale.to(moved.device)
+        return out
+
+
+class Dense(Int8Layer):
     """Linear layer. Parameters: ``weight`` (out, in), ``bias`` (out,).
 
     Default initialisation is PyTorch's ``nn.Linear`` one (uniform in
     +-1/sqrt(in)); ``weight_std`` selects a truncated normal instead and
-    ``zero_init`` zeros both (ViT's classifier heads).
+    ``zero_init`` zeros both (ViT's classifier heads). Quantized
+    (``Int8Layer``), it multiplies through ``quant.int8_dense_matmul`` and
+    adds the bias after, as the JAX layer does.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -63,6 +108,11 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(x.dtype) if self.bias is not None else None
+        if self.quantized:
+            from tfimm_tpu_torch.quant import int8_dense_matmul
+
+            y = int8_dense_matmul(self, x)
+            return y if bias is None else y + bias
         return F.linear(x, self._kernel(x.dtype), bias)
 
 

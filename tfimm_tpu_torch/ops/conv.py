@@ -26,6 +26,17 @@ call.
 ``ConvTranspose2d`` is SAM's mask-decoder upscaling, ``F.conv_transpose2d``
 on the channels-first view (the JAX package's ``ConvTranspose2d`` in
 ``segment_anything/mask_decoder.py``).
+
+A conv that ``quantize_int8`` converted (``basic.Int8Layer``) takes the JAX
+layer's three ways, not the routes above: a 1x1, stride-1, undilated,
+unpadded, ungrouped conv is a matmul through ``quant.int8_dense_matmul``
+(a scale a position); a 4-D ``weight_q`` with one group goes through
+``quant.int8_conv`` (one scale for the whole tensor), a KxK stride-K conv
+the reshape route would take included; any other (a grouped conv, a 1x1
+off the matmul geometry) is dequantized in ``_kernel`` and convolved in
+float. ``StdConv2d`` declines both int8 products: standardisation must see
+the float weight. A quantized ``ConvTranspose2d`` raises, as the JAX
+decoder, which reads its ``kernel`` leaf, fails.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tfimm_tpu_torch.ops.basic import trunc_normal_
+from tfimm_tpu_torch.ops.basic import Int8Layer, trunc_normal_
 from tfimm_tpu_torch.utils.etc import to_2tuple
 
 __all__ = ["Conv2d", "StdConv2d", "DepthwiseConv2d", "Conv1d",
@@ -51,7 +62,7 @@ def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class Conv2d(nn.Module):
+class Conv2d(Int8Layer):
     """2-D convolution of (B, H, W, C) maps. Parameters: ``weight`` (out,
     in / groups, kh, kw) and ``bias`` (out,), or no bias with
     ``use_bias=False``.
@@ -127,11 +138,53 @@ class Conv2d(nn.Module):
                          and self.padding in (0, (0, 0))
                          and self.dilation == (1, 1) and groups == 1)
 
+    # Weight-standardised subclasses clear this: a quantized weight is then
+    # dequantized in ``_kernel`` and never takes an int8 product.
+    _INT8_CONV = True
+
     def _kernel(self, dtype: torch.dtype) -> torch.Tensor:
-        """The weight the conv multiplies by, in ``dtype``."""
+        """The weight the conv multiplies by, in ``dtype`` (a quantized
+        one dequantized)."""
+        if self.quantized:
+            return self._dequantized(dtype)
         return self.weight.to(dtype)
 
+    def _int8_matmul_ok(self) -> bool:
+        """1x1, stride 1, undilated, ungrouped, no padding: the conv is a
+        matmul over channels."""
+        return (self.kernel_size == (1, 1) and self.stride == (1, 1)
+                and self.dilation == (1, 1) and self.groups == 1
+                and self.padding in (0, (0, 0), "same"))
+
+    def int8_pads(self, x: torch.Tensor):
+        """((top, bottom), (left, right)) zero padding of the (B, H, W, C)
+        input ``x``."""
+        if self.padding == "same":
+            return tuple(same_pads(size, d * (k - 1) + 1, s) for size, k, d, s
+                         in zip(x.shape[1:3], self.kernel_size, self.dilation,
+                                self.stride))
+        ph, pw = to_2tuple(self.padding)
+        return (ph, ph), (pw, pw)
+
+    def _int8_forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The JAX layer's int8 products, or None where it convolves in
+        float."""
+        from tfimm_tpu_torch.quant import int8_conv, int8_dense_matmul
+
+        if self._int8_matmul_ok():
+            y = int8_dense_matmul(self, x)
+        elif self.weight_q.dim() == 4 and self.groups == 1:
+            y = int8_conv(self, x, self.stride, self.int8_pads(x),
+                          self.dilation)
+        else:
+            return None
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized and self._INT8_CONV:
+            y = self._int8_forward(x)
+            if y is not None:
+                return y
         weight = self._kernel(x.dtype)
         bias = self.bias.to(x.dtype) if self.bias is not None else None
         if self.patchify:
@@ -167,18 +220,21 @@ class StdConv2d(Conv2d):
     through the standardisation to the raw ``weight``, which is what the
     optimizer and the L2 penalty see (the JAX ``kernel`` leaf)."""
 
+    _INT8_CONV = False
+
     def __init__(self, *args, eps: float = 1e-8, **kwargs):
         super().__init__(*args, **kwargs)
         self.eps = eps
 
     def _kernel(self, dtype: torch.dtype) -> torch.Tensor:
-        w = self.weight.float()
+        w = self._dequantized(torch.float32) if self.quantized \
+            else self.weight.float()
         var, mean = torch.var_mean(w, dim=(1, 2, 3), keepdim=True,
                                    correction=0)
         return ((w - mean) * torch.rsqrt(var + self.eps)).to(dtype)
 
 
-class DepthwiseConv2d(nn.Module):
+class DepthwiseConv2d(Int8Layer):
     """Depthwise ``kernel_size`` x ``kernel_size`` conv, stride 1, "same"
     padding, one filter per channel. Parameters: ``weight`` (C, 1, k, k),
     initialised as ConvNeXt does (truncated normal, std 0.02), and ``bias``
@@ -196,7 +252,9 @@ class DepthwiseConv2d(nn.Module):
             trunc_normal_(self.weight, 0.02, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+        weight = (self._dequantized(x.dtype) if self.quantized
+                  else self.weight.to(x.dtype))
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight,
                      self.bias.to(x.dtype), padding=self.padding,
                      groups=self.channels)
         return y.permute(0, 2, 3, 1)
@@ -223,7 +281,7 @@ class Conv1d(nn.Module):
         return F.conv1d(x, self.weight.to(x.dtype), padding=self.padding)
 
 
-class ConvTranspose2d(nn.Module):
+class ConvTranspose2d(Int8Layer):
     """Transposed conv on NHWC maps, no padding. Parameters: ``weight``
     (in, out, k, k), PyTorch's ``nn.ConvTranspose2d`` layout, and ``bias``.
 
@@ -246,6 +304,13 @@ class ConvTranspose2d(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized:
+            raise NotImplementedError(
+                "an int8-quantized ConvTranspose2d has no int8 or float path "
+                "(the JAX decoder reads its float kernel): quantize_int8 "
+                "converts SAM's output_upscaling only with convs=True and "
+                "min_conv_features <= 64; leave it out with "
+                "skip=DEFAULT_SKIP + ('output_upscaling',)")
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
                                self.bias.to(x.dtype), stride=self.stride)
         return y.permute(0, 2, 3, 1)

@@ -62,9 +62,11 @@ def l2_weights(model: nn.Module) -> List[torch.Tensor]:
     ConvTranspose2d (SAM) and Conv1d (ECA) layers (CaiT's head mixes
     ``proj_l`` and ``proj_w`` are Dense). Norm
     parameters, biases, layer scales, tokens and position embeddings are
-    left out (LayerNorm's parameter is also called ``weight``)."""
+    left out (LayerNorm's parameter is also called ``weight``), and so are
+    int8-quantized layers, whose frozen ``weight_q`` is no ``kernel``
+    leaf."""
     return [m.weight for m in model.modules()
-            if isinstance(m, _KERNEL_MODULES)]
+            if isinstance(m, _KERNEL_MODULES) and "weight" in m._parameters]
 
 
 def make_train_step(

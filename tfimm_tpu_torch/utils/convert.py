@@ -20,10 +20,14 @@ leaf rename, plus a layout transpose for ``kernel`` leaves:
                         -> (r, in) and (r, out) -> (out, r); conv
                         (kh, kw, in / g, r) -> (r, in / g, kh, kw) and
                         (kh, kw, r, out) -> (out, r, kh, kw))
+    kernel_q -> weight_q   int8, by the kernel transposes (a 1x1 conv's is
+                        stored 2-D, (in, out) -> (out, in)); ``quant.py``
+    kernel_scale -> weight_scale   float32, (out,)
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts, so this
 module needs no JAX. ``jax_from_state_dict`` goes the other way, naming
-each leaf by the module that holds it. A timm state dict's
+each leaf by the module that holds it. Every leaf is float32 but the
+int8 ``kernel_q``. A timm state dict's
 ``num_batches_tracked`` has no JAX leaf: ``BatchNorm`` drops it on load.
 """
 
@@ -40,6 +44,8 @@ _LEAF_RENAMES = {
     "kernel": "weight",
     "kernel_lora_a": "weight_lora_a",
     "kernel_lora_b": "weight_lora_b",
+    "kernel_q": "weight_q",
+    "kernel_scale": "weight_scale",
     "scale": "weight",
     "mean": "running_mean",
     "var": "running_var",
@@ -60,12 +66,14 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dicts of arrays) -> timm-keyed state dict
-    of float32 CPU tensors."""
+    of float32 CPU tensors (int8 for ``kernel_q``)."""
     out = {}
     for path, value in _flatten(params):
         head, _, leaf = path.rpartition(".")
-        arr = np.array(value, dtype=np.float32)  # a writable copy
-        if leaf in ("kernel", "kernel_lora_a", "kernel_lora_b"):
+        # A writable copy.
+        arr = np.array(value, dtype=np.int8 if leaf == "kernel_q"
+                       else np.float32)
+        if leaf in ("kernel", "kernel_q", "kernel_lora_a", "kernel_lora_b"):
             if arr.ndim not in _KERNEL_TRANSPOSES:
                 raise ValueError(f"{path}: no layout rule for a {arr.ndim}-D kernel")
             if arr.ndim == 4 and "output_upscaling" in path:
@@ -97,6 +105,12 @@ def _jax_leaf(module, name: str):
             return leaf, (1, 0)
         if isinstance(module, Conv2d):
             return leaf, (2, 3, 1, 0)
+    if name == "weight_q":   # quantize_int8's
+        if isinstance(module, ConvTranspose2d):
+            return "kernel_q", _CONV_TRANSPOSE_KERNEL
+        return "kernel_q", (1, 0) if module.weight_q.dim() == 2 else (2, 3, 1, 0)
+    if name == "weight_scale":
+        return "kernel_scale", None
     if name == "weight":
         if isinstance(module, Dense):
             return "kernel", (1, 0)

@@ -454,6 +454,40 @@ which ends the run with a non-zero exit code on failure:
    its image encoder quantized: one 1024x1024 ``set_image`` with 12
    ``flash_attention_relpos`` launches, three prompt calls with none, the
    latencies beside the float model's.
+47. Checkpoints, the deployment artifact, distillation and the embedding
+   factory, through ``run()``. (a) ViT-B/16 at bs64, bf16 mixed precision,
+   AdamW at lr 1e-4, 3 steps an epoch on 192 fixed synthetic images, with
+   ``ckpt_dir`` in a temporary directory, ``ckpt_every_it=2`` and
+   ``ckpt_to_keep=2``: run A trains one epoch, run B resumes from A's
+   directory for two, run C trains both in a directory of its own. B's
+   restore must give A's epoch, optimizer step count and Adam moments bit
+   for bit; B must end bit for bit where C ends (``fused_mha_bwd`` is
+   first checked to repeat bit for bit on the card; the largest
+   difference is printed); both directories must keep the steps orbax's
+   rules keep (steps 2, 4 and 6; step 6 holding epoch 1, its epoch-end
+   save skipped), and ``<ckpt_dir>/model`` must hold the parameters and
+   ``model.pt2``; every step must launch ``fused_mha`` and its backward 12
+   times each and nothing else. The checkpoint's size and the seconds a
+   save and a restore take. (b) C's ``model/`` loaded on the card equals
+   C's parameters bit for bit; ``export_model`` (f32, symbolic batch,
+   log-softmax) and ``load_exported`` then answer 5 requests of 128 uint8
+   images and one of 7: 12 ``fused_mha`` launches a call and nothing else,
+   log-probabilities within 1e-4 of the eager f32 model's on the same
+   images; the exported program's img/s beside ``model.predict``'s in
+   f32, and the host time of one no-grad ``fused_mha`` call through the
+   custom op beside one of its wrapper called directly (bf16, bs128).
+   (c) ``DistillationProblem`` through ``run()``: C's ``model/`` as a
+   ``SavedModel`` teacher, a ``vit_base_patch32_224`` student without a
+   head, bs128, bf16 mixed precision, Adam at lr 1e-4, 6 steps on one
+   fixed batch: 24 ``fused_mha`` launches a step (12 at N = 197, 12 at
+   N = 50) and 12 ``fused_mha_bwd``, finite losses, the last below the
+   first; with seeded weights one ``train_step`` through the bf16 kernels
+   within 2e-2 (loss) and 1e-1 (two gradients) of the same step in f32
+   through the plain attention; img/s over steps 2-6 and the device's idle
+   share. (d) ``EmbeddingModelFactory`` (ViT-B/16, ``embed_dim=512``)
+   builds on the card; a bs128 bf16 eval forward launches 12 ``fused_mha``
+   and nothing else and is within 5e-2 of the same weights in f32 through
+   the plain attention.
 
 Phase 6 pins ``TFIMM_TPU_FUSED_CONVNEXT`` to 0 for its run, so that its
 launch counts hold whatever the environment says.
@@ -463,7 +497,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases 17,18
 
-runs phase 1 and the phases named (2-46) alone, for a quicker look at one
+runs phase 1 and the phases named (2-47) alone, for a quicker look at one
 path, and lists only the kernels those phases measured in full.
 """
 
@@ -845,6 +879,20 @@ INT8_GATE_RUNS = [
      "serve_swin_int8")]
 INT8_GATE_REQUESTS = 2
 INT8_SAM_LAYERS = 48
+# Checkpoints and distillation (phase 47): steps an epoch of runs A-C, the
+# saving cadence and how many of the newest steps orbax keeps; the
+# exported program's batches; the distillation student and its run; the
+# embedding factory's width.
+CKPT_STEPS = 3
+CKPT_EVERY = 2
+CKPT_KEEP = 2
+EXPORT_BATCHES = (BATCH, 7)
+EXPORT_TOL = 1e-4
+DISTILL_STUDENT = "vit_base_patch32_224"
+DISTILL_BATCH = 128
+DISTILL_STEPS = 6
+DISTILL_LAUNCHES = {"fused_mha": 24, "fused_mha_bwd": 12}
+EMBED_FACTORY_DIM = 512
 # cuDNN's conv kernels and layout transposes, by name.
 CONV_NET_CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
                       "winograd", "nchwtonhwc", "nhwctonchw")
@@ -1570,16 +1618,17 @@ def cold_call_kernels(fn, calls: int = 3, need=()) -> dict:
     return launch_means(cold_device_events(fn, calls, need=need), calls)
 
 
-def run_watched(config):
+def run_watched(config, problem="ClassificationProblem"):
     """``train.run(config)`` with every step it takes watched: its loss, its
     wall time (the step ends by reading the loss, which synchronises) and
-    its kernel launches. Returns (trainer, steps, the run's launch counts);
-    the counts start at 0 just before the run."""
+    its kernel launches (``problem`` names the problem class). Returns
+    (trainer, steps, the run's launch counts); the counts start at 0 just
+    before the run."""
     import tfimm_tpu_torch.train as ttrain
     from tfimm_tpu_torch.ops.kernels import dispatch
 
     steps = []
-    problem_cls = ttrain.ClassificationProblem
+    problem_cls = getattr(ttrain, problem)
     train_step = problem_cls.train_step
 
     def watched_step(self, data, it):
@@ -7040,13 +7089,481 @@ def phase_int8(reports, gpu_line):
     del model, qmodel
 
 
+def ckpt_config(ckpt_dir, nb_epochs) -> dict:
+    """Phase 4's ViT-B/16 recipe, CKPT_STEPS steps an epoch on CKPT_STEPS x
+    TRAIN_BATCH fixed synthetic images, checkpointed into ``ckpt_dir``."""
+    config = train_config()
+    images = CKPT_STEPS * TRAIN_BATCH
+    config["trainer"] = dict(config["trainer"], ckpt_dir=ckpt_dir,
+                             ckpt_every_it=CKPT_EVERY, ckpt_to_keep=CKPT_KEEP)
+    config["train_dataset"] = dict(config["train_dataset"], nb_samples=images)
+    config["timekeeping"] = {"nb_epochs": nb_epochs, "batch_size": TRAIN_BATCH,
+                             "nb_samples_per_epoch": images}
+    return config
+
+
+def orbax_kept(saves) -> list:
+    """The steps orbax's manager keeps of the trainer's ``saves`` (in
+    order) with ``max_to_keep=CKPT_KEEP`` and a 12 h
+    ``keep_time_interval``, every save within 12 h of the first: a save
+    not above the latest step is skipped, and after each save the first
+    step and the CKPT_KEEP newest stay."""
+    kept = []
+    for step in saves:
+        if kept and step <= kept[-1]:
+            continue
+        kept.append(step)
+        kept = sorted({kept[0], *kept[-CKPT_KEEP:]})
+    return kept
+
+
+def stored_epoch(ckpt_dir, step) -> int:
+    import torch
+
+    return torch.load(os.path.join(ckpt_dir, str(step), "state.pt"),
+                      map_location="cpu", weights_only=True, mmap=True)["epoch"]
+
+
+def check_steps(what, steps, nb_blocks):
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"{what} step {it}: loss {loss!r}, {seconds!r} s, launches "
+              f"{rose}", flush=True)
+        check(rose == expected(fused_mha=nb_blocks, fused_mha_bwd=nb_blocks),
+              f"{what} step {it} launched {rose}, expected {nb_blocks} of "
+              f"each attention kernel")
+        check(math.isfinite(loss), f"{what} step {it}: loss {loss}")
+
+
+def ckpt_resume(reports, gpu_line, root):
+    """Phase 47 (a): runs A, B (resumed from A) and C (uninterrupted) of
+    ViT-B/16 through run() with checkpoints. Returns run C's trainer."""
+    import torch
+
+    import tfimm_tpu_torch.train as ttrain
+    from tfimm_tpu_torch.ops.kernels.fused_mha import fused_mha_bwd
+    from tfimm_tpu_torch.train import checkpoint
+
+    # B can end bit for bit where C ends only if the backward repeats.
+    qkv = mha_input(TRAIN_BATCH, 197, 12, 64, torch.bfloat16, seed=47)
+    g = mha_input(TRAIN_BATCH, 197, 4, 64, torch.bfloat16, seed=48)
+    repeats = torch.equal(fused_mha_bwd(qkv, g, 12, 0.125),
+                          fused_mha_bwd(qkv, g, 12, 0.125))
+    print(f"ckpt: fused_mha_bwd at (B, N, H, d) = ({TRAIN_BATCH}, 197, 12, "
+          f"64) repeats bit for bit: {repeats}", flush=True)
+    check(repeats, "fused_mha_bwd does not repeat bit for bit on the card")
+    del qkv, g
+
+    a_dir, c_dir = os.path.join(root, "a"), os.path.join(root, "c")
+    saves, loads = [], []
+    real_save, real_load = checkpoint.CheckpointManager.save, \
+        ttrain.Trainer._load_ckpt
+    run_a = {}
+
+    def timed_save(self, step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = real_save(self, step, state)
+        saves.append((self.directory, step, time.perf_counter() - t0,
+                      written))
+        return written
+
+    def checked_load(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_load(self)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        loads.append(seconds)
+        if self.cfg.ckpt_dir != a_dir or "problem" not in run_a:
+            return
+        # Run B, just restored: A's state at its last step, bit for bit.
+        was, now = run_a["problem"], self.problem
+        check(now.epoch == was.epoch == 1
+              and now.optimizer.step_count == was.optimizer.step_count
+              == CKPT_STEPS, f"B restored epoch {now.epoch} and step count "
+              f"{now.optimizer.step_count}; A ended at {was.epoch} and "
+              f"{was.optimizer.step_count}")
+        sw, sn = was.model.state_dict(), now.model.state_dict()
+        check(all(torch.equal(sn[k], v) for k, v in sw.items()),
+              "B's restored parameters differ from A's")
+        ow = was.optimizer.state_dict()["optimizer"]["state"]
+        on = now.optimizer.state_dict()["optimizer"]["state"]
+        check(len(on) == len(ow) and all(
+            torch.equal(on[i][k], v.to(on[i][k].device)) for i in ow
+            for k, v in ow[i].items()), "B's restored Adam moments differ "
+            "from A's")
+        print(f"ckpt: B restored step {was.optimizer.step_count}, epoch "
+              f"{now.epoch} and the Adam moments of {len(on)} tensors bit "
+              f"for bit in {seconds!r} s (torch.load of the latest step to "
+              f"the card, warm page cache, and load_state_dict) on "
+              f"{gpu_line}", flush=True)
+
+    checkpoint.CheckpointManager.save = timed_save
+    ttrain.Trainer._load_ckpt = checked_load
+    try:
+        a, steps, _ = run_watched(ckpt_config(a_dir, 1))
+        nb_blocks = a.problem.model.cfg.nb_blocks
+        check(len(steps) == CKPT_STEPS, f"run A took {len(steps)} steps")
+        check_steps("ckpt run A", steps, nb_blocks)
+        check(sorted(int(n) for n in os.listdir(a_dir) if n.isdigit())
+              == orbax_kept([2, 3]), f"A kept {sorted(os.listdir(a_dir))}")
+        run_a["problem"] = a.problem
+        b, steps_b, counts = run_watched(ckpt_config(a_dir, 2))
+        check(len(loads) == 2 and "problem" in run_a, "B was not restored")
+        check(len(steps_b) == CKPT_STEPS, f"run B took {len(steps_b)} steps")
+        check_steps("ckpt run B", steps_b, nb_blocks)
+        for name, report in reports.items():
+            report["launches_by_path"]["train_vit_resumed"] = counts[name]
+        del a, run_a["problem"]
+        c, steps_c, _ = run_watched(ckpt_config(c_dir, 2))
+        check(len(steps_c) == 2 * CKPT_STEPS, f"run C took {len(steps_c)} "
+              f"steps")
+        check_steps("ckpt run C", steps_c, nb_blocks)
+    finally:
+        checkpoint.CheckpointManager.save = real_save
+        ttrain.Trainer._load_ckpt = real_load
+
+    # The trainer saves at every CKPT_EVERY-th step and at each epoch's end:
+    # A at 2 and 3, B at 4, 6 and 6 (skipped), C at all five.
+    for what, directory, made in (("A and B", a_dir, [2, 3, 4, 6, 6]),
+                                  ("C", c_dir, [2, 3, 4, 6, 6])):
+        kept = sorted(int(n) for n in os.listdir(directory) if n.isdigit())
+        written = [step for d, step, _, w in saves if d == directory and w]
+        skipped = [step for d, step, _, w in saves if d == directory and not w]
+        print(f"ckpt {what}: saves {made}, written {written}, skipped "
+              f"{skipped}, kept {kept}; epochs stored "
+              f"{ {s: stored_epoch(directory, s) for s in kept} }", flush=True)
+        check([s for d, s, _, _ in saves if d == directory] == made,
+              f"{what}: the trainer saved at {saves}")
+        check(kept == orbax_kept(made), f"{what} kept {kept}, orbax's rules "
+              f"keep {orbax_kept(made)}")
+        check(skipped == [6] and stored_epoch(directory, 6) == 1,
+              f"{what}: skipped {skipped}, step 6 holds epoch "
+              f"{stored_epoch(directory, 6)}, expected the skipped epoch-end "
+              f"save to leave epoch 1")
+        check(sorted(os.listdir(os.path.join(directory, "model")))
+              == ["config.json", "model.pt2", "params.npz"],
+              f"{what}: save_model wrote {os.listdir(os.path.join(directory, 'model'))}"
+              f" (no model.pt2: its export failed, see the warning above)")
+
+    sb, sc = b.problem.model.state_dict(), c.problem.model.state_dict()
+    diff = max((sb[k].float() - v.float()).abs().max().item()
+               for k, v in sc.items())
+    ob = b.problem.optimizer.state_dict()["optimizer"]["state"]
+    oc = c.problem.optimizer.state_dict()["optimizer"]["state"]
+    print(f"ckpt: B (resumed) against C (uninterrupted) after "
+          f"{2 * CKPT_STEPS} steps: largest parameter difference {diff!r}",
+          flush=True)
+    check(diff == 0.0 and all(torch.equal(sb[k], v) for k, v in sc.items()),
+          f"B's parameters differ from C's by up to {diff}")
+    check(all(torch.equal(ob[i][k], v.to(ob[i][k].device)) for i in oc
+              for k, v in oc[i].items()), "B's Adam moments differ from C's")
+    check(b.problem.optimizer.step_count == c.problem.optimizer.step_count
+          == 2 * CKPT_STEPS and b.problem.epoch == c.problem.epoch == 2,
+          "B and C ended at different steps or epochs")
+    del b
+    step_dir = os.path.join(c_dir, "6")
+    size = sum(os.path.getsize(os.path.join(step_dir, n))
+               for n in os.listdir(step_dir))
+    params = sum(t.numel() * t.element_size() for t in sc.values())
+    save_s = [s for _, _, s, w in saves if w]
+    print(f"ckpt {MODEL} bs{TRAIN_BATCH} adamw: a step's checkpoint "
+          f"{size!r} bytes ({params!r} of f32 parameters and buffers); "
+          f"{len(save_s)} saves {save_s!r} s (median "
+          f"{statistics.median(save_s)!r}); restore {loads[1]!r} s; "
+          f"train img/s (steps 2-{2 * CKPT_STEPS} of C) "
+          f"{TRAIN_BATCH * (len(steps_c) - 1) / sum(s for _, s, _ in steps_c[1:])!r}"
+          f" on {gpu_line}", flush=True)
+    return c
+
+
+def export_serving(reports, gpu_line, c):
+    """Phase 47 (b): C's model/ loaded on the card, exported and served."""
+    import importlib
+
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.ops.kernels import dispatch
+    from tfimm_tpu_torch.ops.kernels.fused_mha import fused_mha
+    from tfimm_tpu_torch.utils.export import export_model, load_exported
+
+    model_dir = os.path.join(c.cfg.ckpt_dir, "model")
+    loaded = tfm.load_model(model_dir, device="cuda")
+    want = c.problem.model.state_dict()
+    got = loaded.state_dict()
+    check(set(got) == set(want) and all(torch.equal(got[k], v)
+                                        for k, v in want.items()),
+          "load_model of C's model/ differs from C's parameters")
+    print(f"export: load_model of C's model/ on the card equals C's "
+          f"parameters bit for bit", flush=True)
+    path = os.path.join(model_dir, "exported_here.pt2")
+    t0 = time.perf_counter()
+    export_model(loaded, path, normalize_logits=True)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exported = load_exported(path)
+    load_s = time.perf_counter() - t0
+    check(exported.device.type == "cuda", f"load_exported gave a program on "
+          f"{exported.device}")
+    nb_blocks = loaded.cfg.nb_blocks
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    requests = [torch.randint(0, 256, (EXPORT_BATCHES[0], 224, 224, 3),
+                              generator=gen, device="cuda", dtype=torch.uint8)
+                for _ in range(REQUESTS)]
+    odd = torch.randint(0, 256, (EXPORT_BATCHES[1], 224, 224, 3),
+                        generator=gen, device="cuda", dtype=torch.uint8)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    seconds, outputs = [], []
+    for img in requests + [odd]:
+        before = dict(dispatch.launch_counts)
+        t0 = time.perf_counter()
+        out = exported(img)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        rose = {k: dispatch.launch_counts[k] - before[k] for k in before}
+        check(rose == expected(fused_mha=nb_blocks), f"one call of the "
+              f"exported program launched {rose}, expected {nb_blocks} "
+              f"fused_mha and nothing else")
+        check(tuple(out.shape) == (len(img), loaded.cfg.nb_classes)
+              and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()),
+              f"the exported program gave {tuple(out.shape)} {out.dtype}")
+        outputs.append(out)
+    counts = dict(dispatch.launch_counts)
+    for name, report in reports.items():
+        report["launches_by_path"]["serve_vit_exported"] = counts[name]
+    pp = tfm.create_preprocessing(MODEL, device="cuda")
+    for img, out in ((requests[0], outputs[0]), (odd, outputs[-1])):
+        with torch.no_grad():
+            ref = torch.log_softmax(loaded(pp(img)).float(), dim=-1)
+        err = (out - ref).abs().max().item()
+        print(f"export: bs{len(img)} log-probabilities of the exported "
+              f"program vs the eager f32 model: max abs diff {err!r} (bar "
+              f"{EXPORT_TOL})", flush=True)
+        check(err <= EXPORT_TOL, f"bs{len(img)}: the exported program is "
+              f"{err} from the eager model")
+    eager = []
+    for img in requests:
+        t0 = time.perf_counter()
+        loaded.predict(pp(img))
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t0)
+    img_s = [EXPORT_BATCHES[0] / t for t in seconds[1:REQUESTS]]
+    eager_s = [EXPORT_BATCHES[0] / t for t in eager[1:]]
+    print(f"export {MODEL} f32: export_model {export_s!r} s, load_exported "
+          f"{load_s!r} s; bs{EXPORT_BATCHES[0]} exported program "
+          f"{statistics.median(img_s)!r} img/s (median of requests "
+          f"2-{REQUESTS}; range {min(img_s)!r}-{max(img_s)!r}) against "
+          f"model.predict {statistics.median(eager_s)!r} img/s (range "
+          f"{min(eager_s)!r}-{max(eager_s)!r}); bs{EXPORT_BATCHES[1]} "
+          f"{seconds[-1] * 1e3!r} ms; on {gpu_line}", flush=True)
+    del exported, loaded, requests
+
+    # What the op adds to a no-grad call: the host time of fused_mha through
+    # tfimm_tpu_torch::fused_mha beside its wrapper called directly.
+    module = importlib.import_module("tfimm_tpu_torch.ops.kernels.fused_mha")
+    qkv = mha_input(BATCH, 197, 12, 64, torch.bfloat16, seed=49)
+    with torch.no_grad():
+        op_ms = host_ms_per_call("fused_mha through the custom op",
+                                 lambda: fused_mha(qkv, 12, 0.125))
+        direct_ms = host_ms_per_call(
+            "fused_mha's wrapper called directly",
+            lambda: module._fused_mha_forward(qkv, 12, 0.125))
+    print(f"export: fused_mha bf16 (B, N, H, d) = ({BATCH}, 197, 12, 64) host "
+          f"ms a call through the op {op_ms!r}, the wrapper directly "
+          f"{direct_ms!r}: the dispatcher adds {op_ms - direct_ms!r} ms a "
+          f"call, {nb_blocks * (op_ms - direct_ms)!r} ms a request; on "
+          f"{gpu_line}", flush=True)
+
+
+def distill_config(teacher_dir) -> dict:
+    """A ViT-B/32 student without a head distilled from the saved ViT-B/16
+    (a ``SavedModel`` with the teacher's own mean and std on the 0-255
+    scale): bs128, bf16 mixed precision, Adam at lr 1e-4, DISTILL_STEPS
+    epochs of one step on the same synthetic images."""
+    import tfimm_tpu_torch as tfm
+
+    cfg = tfm.model_config(MODEL)
+    data = {"batch_size": DISTILL_BATCH, "nb_samples": DISTILL_BATCH,
+            "input_size": (224, 224), "nb_classes": 1000, "seed": 0}
+    return {
+        "trainer_class": "Trainer",
+        "trainer": {"validation_before_training": False,
+                    "display_loss_every_it": 1},
+        "problem_class": "DistillationProblem",
+        "problem": {"teacher_class": "SavedModel",
+                    "teacher": {"path": teacher_dir,
+                                "mean": tuple(255.0 * m for m in cfg.mean),
+                                "std": tuple(255.0 * s for s in cfg.std)},
+                    "student_class": "ModelFactory",
+                    "student": {"model_name": DISTILL_STUDENT,
+                                "nb_classes": 0},
+                    "optimizer_class": "OptimizerFactory",
+                    "optimizer": {"optimizer": "adam",
+                                  "lr_schedule_class": "LRConstFactory",
+                                  "lr_schedule": {"lr": 1e-4}},
+                    "mixed_precision": True},
+        "train_dataset_class": "SyntheticDataset", "train_dataset": data,
+        "timekeeping_class": "Timekeeping",
+        "timekeeping": {"nb_epochs": DISTILL_STEPS,
+                        "batch_size": DISTILL_BATCH,
+                        "nb_samples_per_epoch": DISTILL_BATCH},
+        "device": "cuda",
+    }
+
+
+def distillation(reports, gpu_line, teacher_dir):
+    """Phase 47 (c): ViT-B/16 -> ViT-B/32 distillation through run()."""
+    import torch
+
+    trainer, steps, counts = run_watched(distill_config(teacher_dir),
+                                         problem="DistillationProblem")
+    problem = trainer.problem
+    check(len(steps) == DISTILL_STEPS, f"{len(steps)} distillation steps")
+    for it, (loss, seconds, rose) in enumerate(steps):
+        print(f"distill step {it}: loss {loss!r}, {seconds!r} s, launches "
+              f"{rose}", flush=True)
+        check(rose == expected(**DISTILL_LAUNCHES), f"distillation step {it} "
+              f"launched {rose}, expected {DISTILL_LAUNCHES}")
+        check(math.isfinite(loss), f"distillation step {it}: loss {loss}")
+    check(steps[-1][0] < steps[0][0], f"the distillation loss did not fall: "
+          f"{steps[0][0]} -> {steps[-1][0]}")
+    for name, report in reports.items():
+        report["launches_by_path"]["train_distill"] = counts[name]
+    timed = [s for _, s, _ in steps[1:]]
+    step_s = sum(timed) / len(timed)
+    print(f"distill {MODEL} -> {DISTILL_STUDENT} bs{DISTILL_BATCH} bf16 "
+          f"adam: {DISTILL_BATCH * len(timed) / sum(timed)!r} img/s "
+          f"({len(timed)} steps 2-{DISTILL_STEPS} in {sum(timed) * 1e3!r} ms; "
+          f"median step {statistics.median(timed) * 1e3!r} ms) on {gpu_line}",
+          flush=True)
+
+    # One seeded step: bf16 through the kernels (train_step) against f32
+    # through the plain attention (capturing the attention weights makes
+    # every block decline the kernels), both teacher and student.
+    student, teacher = problem.student, problem.teacher
+    student.load_state_dict(seeded_state_dict(student, seed=47))
+    teacher.load_state_dict(seeded_state_dict(teacher, seed=48))
+    images, labels = next(iter(trainer.train_ds))
+    x = torch.as_tensor(images, device="cuda")
+    names = ("blocks.0.attn.qkv.weight", "blocks.11.mlp.fc2.weight")
+
+    def plain_embeddings(model, pp):
+        emb = model(pp(x), features_only=True, return_features=True)[0]
+        emb = emb.float()
+        return emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+                      + 1e-8)
+
+    def reference():
+        teacher.eval()
+        with torch.no_grad():
+            target = plain_embeddings(teacher, problem.teacher_preprocessing)
+        student.train()
+        student.zero_grad(set_to_none=True)
+        loss = torch.mean(torch.square(
+            plain_embeddings(student, problem.student_preprocessing) - target))
+        loss.backward()
+        params = dict(student.named_parameters())
+        return loss.item(), {n: params[n].grad.float().clone() for n in names}
+
+    (loss_r, grads_r), rose = launches_of(reference)
+    check(rose == expected(), f"the f32 reference launched {rose}")
+    (loss_k, _), rose = launches_of(lambda: problem.train_step(
+        (images, labels), 0))
+    check(rose == expected(**DISTILL_LAUNCHES), f"the seeded bf16 step "
+          f"launched {rose}")
+    params = dict(student.named_parameters())
+    rel = abs(loss_k - loss_r) / abs(loss_r)
+    print(f"distill loss: bf16 kernel path {loss_k!r} vs f32 plain path "
+          f"{loss_r!r}, rel err {rel!r} (bar 2e-2)", flush=True)
+    check(rel < 2e-2, f"distillation loss rel err {rel} >= 2e-2")
+    for name in names:
+        ref = grads_r[name]
+        rel = ((params[name].grad.float() - ref).abs().max()
+               / ref.abs().max()).item()
+        print(f"distill grad {name}: max|diff| / max|ref| {rel!r} (bar 1e-1)",
+              flush=True)
+        check(rel < 1e-1, f"{name} gradient rel err {rel} >= 1e-1")
+        check(ref.abs().max().item() > 0, f"{name}: zero reference gradient")
+
+    batch = (images, labels)
+    wall_ms, groups, _ = device_split(lambda: problem.train_step(batch, 0))
+    busy_ms = sum(groups.values())
+    print(f"distill step profile: device busy {busy_ms!r} ms per step; wall "
+          f"{wall_ms!r} ms under the profiler, {step_s * 1e3!r} ms without; "
+          f"device idle share {1.0 - busy_ms / (step_s * 1e3)!r}", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"distill step profile: {group}: {ms!r} ms per step",
+              flush=True)
+
+
+def embedding_factory(gpu_line):
+    """Phase 47 (d): EmbeddingModelFactory over ViT-B/16 on the card."""
+    import copy
+
+    import torch
+
+    import tfimm_tpu_torch as tfm
+    import tfimm_tpu_torch.train as ttrain
+
+    factory = ttrain.get_class("EmbeddingModelFactory")(
+        cfg=ttrain.EmbeddingModelConfig(backbone_name=MODEL,
+                                        embed_dim=EMBED_FACTORY_DIM))
+    model, pp = factory(device="cuda")
+    check(isinstance(model, tfm.EmbeddingModel)
+          and model.backbone.cfg.nb_classes == 0,
+          f"EmbeddingModelFactory built {type(model).__name__}")
+    model.backbone.load_state_dict(seeded_state_dict(model.backbone, seed=50))
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    x = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    with torch.inference_mode():
+        out, rose = launches_of(lambda: model16(pp(x).to(torch.bfloat16)))
+        torch.cuda.synchronize()
+        check(rose == expected(fused_mha=model.backbone.cfg.nb_blocks),
+              f"the bf16 embedding forward launched {rose}")
+        (ref, _), rose = launches_of(lambda: model(pp(x),
+                                                   return_features=True))
+        check(rose == expected(), f"the f32 reference launched {rose}")
+    check(tuple(out.shape) == (BATCH, EMBED_FACTORY_DIM)
+          and bool(torch.isfinite(out).all()),
+          f"the factory's model gave {tuple(out.shape)}")
+    rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+    print(f"EmbeddingModelFactory({MODEL}, embed_dim={EMBED_FACTORY_DIM}) "
+          f"bs{BATCH} bf16: {tuple(out.shape)}, 12 fused_mha, vs f32 plain "
+          f"path rel err {rel!r} (bar 5e-2) on {gpu_line}", flush=True)
+    check(rel < 5e-2, f"embedding rel err {rel} >= 5e-2")
+
+
+def phase_ckpt_export_distill(reports, gpu_line):
+    """Phase 47: checkpoints, the deployment artifact, distillation and the
+    embedding factory (``ckpt_resume``, ``export_serving``,
+    ``distillation``, ``embedding_factory``), in a temporary directory."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as root:
+        c = ckpt_resume(reports, gpu_line, root)
+        export_serving(reports, gpu_line, c)
+        teacher_dir = os.path.join(c.cfg.ckpt_dir, "model")
+        del c
+        torch.cuda.empty_cache()
+        distillation(reports, gpu_line, teacher_dir)
+    torch.cuda.empty_cache()
+    embedding_factory(gpu_line)
+
+
 def main(argv) -> int:
-    all_phases = list(range(2, 47))
+    all_phases = list(range(2, 48))
     phases = all_phases
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = sorted({int(p) for p in argv[1].split(",")})
         if not set(phases) <= set(all_phases):
-            print("chip_smoke: --phases takes numbers from 2 to 46",
+            print("chip_smoke: --phases takes numbers from 2 to 47",
                   file=sys.stderr)
             return 2
     elif argv:
@@ -7297,6 +7814,7 @@ def main(argv) -> int:
             44: lambda: phase_sam_amg(reports, gpu_line),
             45: lambda: phase_lora_convnext(reports, gpu_line),
             46: lambda: phase_int8(reports, gpu_line),
+            47: lambda: phase_ckpt_export_distill(reports, gpu_line),
         }
         for number in phases:
             run_phase[number]()

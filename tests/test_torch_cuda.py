@@ -55,8 +55,13 @@ a next row (image or head) of inf that a box running past N or d would
 carry in as NaN, qkv (and g) at a storage offset, packed strided q, k, v
 and bit-identical repeats, at the same bars; the backward also the clamp
 input at every shape, with the unmasked backward missing the bar.
+``fused_mha``'s no-grad op (``torch.ops.tfimm_tpu_torch.fused_mha``): its
+fake function's shape, dtype and device are the real output's, its output
+is bit for bit the wrapper's, and a small ViT exported on the card launches
+the kernel once a block.
 """
 
+import importlib
 import itertools
 import threading
 
@@ -2824,3 +2829,52 @@ def test_int8_models_launch_where_their_float_blocks_are(
     assert {k: dispatch.launch_counts[k] - before[k] for k in launches} \
         == launches
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_fused_mha_op_is_the_kernel(card, dtype):
+    """The no-grad op ``tfimm_tpu_torch::fused_mha``: its fake function
+    gives the real output's shape, dtype and device, and its output is bit
+    for bit the kernel wrapper's, with one launch a call."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    module = importlib.import_module("tfimm_tpu_torch.ops.kernels.fused_mha")
+    g = torch.Generator(device=card).manual_seed(26)
+    qkv = torch.randn(4, 197, 3 * 768, generator=g, device=card).to(dtype)
+    before = dispatch.launch_counts["fused_mha"]
+    with torch.no_grad():
+        out = torch.ops.tfimm_tpu_torch.fused_mha(qkv, 12, 0.125)
+    direct = module._fused_mha_forward(qkv, 12, 0.125)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["fused_mha"] == before + 2
+    assert torch.equal(out, direct)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.tfimm_tpu_torch.fused_mha(mode.from_tensor(qkv), 12,
+                                                   0.125)
+    assert (fake.shape, fake.dtype, fake.device) == (out.shape, out.dtype,
+                                                     out.device)
+
+
+def test_an_exported_vit_launches_the_kernel(card, tmp_path):
+    """A small f32 ViT exported on the card: its program launches
+    fused_mha once a block at run time and matches the eager model."""
+    import tfimm_tpu_torch as tfm
+    from tfimm_tpu_torch.utils.export import export_model, load_exported
+
+    model = tfm.create_model("vit_tiny_patch16_224", device=card, seed=0,
+                             input_size=(64, 64), nb_blocks=2)
+    path = str(tmp_path / "model.pt2")
+    export_model(model, path, normalize_logits=True)
+    exported = load_exported(path)
+    assert exported.device.type == "cuda"
+    x = torch.randint(0, 256, (5, 64, 64, 3),
+                      generator=torch.Generator().manual_seed(3),
+                      dtype=torch.uint8)
+    before = dispatch.launch_counts["fused_mha"]
+    got = exported(x)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["fused_mha"] == before + 2
+    pp = tfm.create_preprocessing("vit_tiny_patch16_224", device=card)
+    with torch.no_grad():
+        want = torch.log_softmax(model(pp(x)), dim=-1)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

@@ -9,10 +9,8 @@ encoder's attention runs the ``flash_attention_relpos`` kernel on the card
 (see ``image_encoder.py``); the rest is plain PyTorch in both packages.
 The config's ``transform_weights`` resizes the position embedding and the
 global blocks' rel-pos tables when ``transfer_weights`` moves the weights
-to another input size.
-
-Not ported here: the automatic mask generator (``amg.py``, ROADMAP.md
-queue A).
+to another input size. The automatic mask generator, over the predictor,
+is ``amg.py · SAMAutomaticMaskGenerator``.
 
 Paper: Segment Anything, https://arxiv.org/abs/2304.02643.
 """

@@ -11,7 +11,11 @@ design and what bounds it); on a CPU tensor it runs ``fused_mha_reference``.
 When ``qkv`` requires grad, the call goes through a ``torch.autograd.Function``
 whose backward is ``fused_mha_bwd``: the kernel of
 ``tfimm_tpu_torch/csrc/fused_mha_bwd.cu`` on a CUDA tensor,
-``fused_mha_bwd_reference`` on a CPU one. The kernels take bf16 and f32, any
+``fused_mha_bwd_reference`` on a CPU one. Every other call (no grad wanted)
+goes through the custom op ``torch.ops.tfimm_tpu_torch.fused_mha``, whose
+body is the same forward and whose fake function gives the (B, N, D) shape,
+so that ``torch.export`` records the op rather than tracing into the kernel's
+wrapper (``utils/export.py``). The kernels take bf16 and f32, any
 B, N and H, and head dims that are multiples of 8 up to 128;
 ``fused_mha_or_none`` declines anything else so that the attention layer can
 take its plain path.
@@ -116,6 +120,8 @@ def _check_kernel_input(name: str, qkv: torch.Tensor, nb_heads: int) -> None:
 
 def _fused_mha_forward(qkv: torch.Tensor, nb_heads: int,
                        scale: float) -> torch.Tensor:
+    # Logged here, where an exported program's forward runs too.
+    log_dispatch("fused_mha")
     if qkv.device.type == "cpu":
         return fused_mha_reference(qkv, nb_heads, scale)
     _check_kernel_input("fused_mha", qkv, nb_heads)
@@ -171,6 +177,22 @@ def fused_mha_bwd(qkv: torch.Tensor, g: torch.Tensor, nb_heads: int,
     return dqkv
 
 
+@torch.library.custom_op("tfimm_tpu_torch::fused_mha", mutates_args=())
+def _fused_mha_op(qkv: torch.Tensor, nb_heads: int,
+                  scale: float) -> torch.Tensor:
+    """The no-grad forward as a dispatcher op: the plain version on the
+    CPU, the kernel on the card, as ``_fused_mha_forward``. An exported
+    program calls it, and its dispatch log and launches count, at run
+    time."""
+    return _fused_mha_forward(qkv, nb_heads, scale)
+
+
+@_fused_mha_op.register_fake
+def _fused_mha_fake(qkv, nb_heads, scale):
+    b, n, three_d = qkv.shape
+    return qkv.new_empty((b, n, three_d // 3))
+
+
 class _FusedMHA(torch.autograd.Function):
     """fused_mha with ``fused_mha_bwd`` as its backward (the custom VJP of
     ``fused_mha_diff`` in the JAX package). Saves only qkv: the backward
@@ -192,10 +214,11 @@ class _FusedMHA(torch.autograd.Function):
 
 def fused_mha(qkv: torch.Tensor, nb_heads: int, scale: float) -> torch.Tensor:
     """qkv: (B, N, 3*D), last dim (3, H, d). Returns (B, N, D);
-    differentiable with respect to qkv."""
+    differentiable with respect to qkv (``_FusedMHA``); without grad through
+    the op ``tfimm_tpu_torch::fused_mha``."""
     if qkv.requires_grad and torch.is_grad_enabled():
         return _FusedMHA.apply(qkv, nb_heads, scale)
-    return _fused_mha_forward(qkv, nb_heads, scale)
+    return _fused_mha_op(qkv, nb_heads, float(scale))
 
 
 def fused_mha_or_none(qkv: torch.Tensor, nb_heads: int,
@@ -203,5 +226,4 @@ def fused_mha_or_none(qkv: torch.Tensor, nb_heads: int,
     """Run ``fused_mha`` when it takes the input, else return None."""
     if not fused_mha_supports(qkv, nb_heads):
         return None
-    log_dispatch("fused_mha")
     return fused_mha(qkv, nb_heads, scale)

@@ -2,9 +2,10 @@
 
 Importing this package registers all @cfg_serializable classes, under the
 JAX package's class names. Entry point: ``run(ExperimentConfig)`` ->
-``Trainer`` -> ``ClassificationProblem.train_step``. Distillation, the
-TFDS/Grain/ImageFolder pipelines and checkpoints are not ported yet
-(ROADMAP.md, queue A, item 13).
+``Trainer`` (checkpoints, ``save_model`` at the end) -> the problem's
+``train_step`` (``ClassificationProblem``, ``DistillationProblem``). The
+TFDS/Grain/ImageFolder pipelines are not ported yet (ROADMAP.md, queue A,
+item 13).
 """
 
 from tfimm_tpu_torch.train.config import (  # noqa: F401
@@ -22,7 +23,14 @@ from tfimm_tpu_torch.train.datasets import (  # noqa: F401
     SyntheticDatasetConfig,
 )
 from tfimm_tpu_torch.train.interface import ProblemBase  # noqa: F401
-from tfimm_tpu_torch.train.model import ModelConfig, ModelFactory  # noqa: F401
+from tfimm_tpu_torch.train.model import (  # noqa: F401
+    EmbeddingModelConfig,
+    EmbeddingModelFactory,
+    ModelConfig,
+    ModelFactory,
+    SavedModel,
+    SavedModelConfig,
+)
 from tfimm_tpu_torch.train.optimizers import (  # noqa: F401
     LRConstFactory,
     LRCosineDecayFactory,
@@ -35,6 +43,8 @@ from tfimm_tpu_torch.train.optimizers import (  # noqa: F401
 from tfimm_tpu_torch.train.problems import (  # noqa: F401
     ClassificationConfig,
     ClassificationProblem,
+    DistillationConfig,
+    DistillationProblem,
 )
 from tfimm_tpu_torch.train.registry import cfg_serializable, get_class, get_cfg_class  # noqa: F401
 from tfimm_tpu_torch.train.timekeeping import Timekeeping  # noqa: F401

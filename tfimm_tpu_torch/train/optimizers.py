@@ -162,6 +162,16 @@ class Optimizer:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
+        # torch.optim keeps a step count on the CPU unless the group is
+        # capturable or fused; a checkpoint read onto the card brings it
+        # there, where every update would read it back with a sync.
+        for group in self.optimizer.param_groups:
+            if group.get("capturable") or group.get("fused"):
+                continue
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                if isinstance(st.get("step"), torch.Tensor):
+                    st["step"] = st["step"].cpu()
         self.step_count = int(state["step_count"])
 
 

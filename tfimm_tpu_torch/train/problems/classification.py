@@ -15,12 +15,16 @@ the loss; their per-batch draws come from a seeded ``numpy`` generator the
 problem owns (the JAX package draws them with ``jax.random`` in its step).
 
 The problem runs on the device it is given; a CUDA device without a card
-raises, there is no CPU fallback. Meshes and ``save_model`` are not ported
-yet (ROADMAP.md, queue A, items 14 and 13).
+raises, there is no CPU fallback. ``save_model`` writes the parameters in
+the JAX package's format and a ``torch.export`` artifact (``model.pt2``,
+where the JAX package writes ``model.stablehlo``). Meshes are not ported
+yet (ROADMAP.md, queue A, item 14).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Union
 
@@ -209,5 +213,30 @@ class ClassificationProblem(ProblemBase):
         pass
 
     def save_model(self, save_dir: str):
-        raise NotImplementedError(
-            "save_model is not ported yet (ROADMAP.md, queue A, item 13)")
+        """The parameter checkpoint and a deployment artifact
+        (preprocessing + forward + log-softmax, f32), from the EMA weights
+        when averaging is on, BatchNorm's statistics included. As in the
+        JAX package a failed export is logged and the parameters stand."""
+        from tfimm_tpu_torch.models.serialization import save_model
+        from tfimm_tpu_torch.utils.export import export_model
+
+        live = None
+        if self.ema_params is not None:
+            live = self._param_copy()
+            self._load_averaged(self.ema_params)
+        try:
+            save_model(self.model, save_dir)
+            try:
+                export_model(self.model, os.path.join(save_dir, "model.pt2"),
+                             preprocessing=self.preprocessing,
+                             normalize_logits=True)
+            except Exception as e:  # the parameters stand without it
+                logging.warning(f"torch.export deployment artifact failed: {e}")
+        finally:
+            if live is not None:
+                self._load_averaged(live)
+
+    def _load_averaged(self, values):
+        with torch.no_grad():
+            for name, t in self._averaged().items():
+                t.copy_(values[name])

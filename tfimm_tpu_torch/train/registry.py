@@ -31,11 +31,9 @@ def cfg_serializable(cls):
 # Classes of the JAX package's training framework that are not ported yet,
 # with the ROADMAP.md item that brings them.
 _NOT_PORTED = {
-    **dict.fromkeys(("DistillationProblem", "DistillationConfig", "TFDSWrapper",
-                     "TFDSConfig", "GrainDataset", "GrainDatasetConfig",
-                     "ImageFolderDataset", "ImageFolderConfig", "SavedModel",
-                     "SavedModelConfig", "EmbeddingModelFactory",
-                     "EmbeddingModelConfig"), "queue A, item 13"),
+    **dict.fromkeys(("TFDSWrapper", "TFDSConfig", "GrainDataset",
+                     "GrainDatasetConfig", "ImageFolderDataset",
+                     "ImageFolderConfig"), "queue A, item 13"),
 }
 
 

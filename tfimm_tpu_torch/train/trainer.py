@@ -1,9 +1,11 @@
 """Trainer; mirror of tfimm_tpu/train/trainer.py.
 
 The problem owns the training step; the trainer owns the epoch/step loop,
-the validation cadence, throughput logging (img/s per epoch) and metric
-forwarding. Checkpoints (``ckpt_dir``, ``init_ckpt``; orbax in the JAX
-package) raise until they are ported (ROADMAP.md, queue A, item 13).
+checkpoints, the validation cadence, throughput logging (img/s per epoch)
+and metric forwarding. Checkpoints go through ``train/checkpoint.py``,
+which keeps the rules of the orbax manager the JAX trainer uses; at the end
+of a run with ``ckpt_dir`` the problem's ``save_model`` writes
+``<ckpt_dir>/model``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import logging
 import time
 from dataclasses import dataclass
 
+from tfimm_tpu_torch.train.checkpoint import CheckpointManager
 from tfimm_tpu_torch.train.registry import cfg_serializable
 
 __all__ = ["TrainerConfig", "Trainer", "SingleDeviceTrainer"]
@@ -45,14 +48,42 @@ class Trainer:
         self.timekeeping = timekeeping
         self.cfg = cfg
         self.log_wandb = log_wandb
-        if cfg.ckpt_dir or cfg.init_ckpt:
-            raise NotImplementedError(
-                "ckpt_dir / init_ckpt: checkpoints are not ported yet "
-                "(ROADMAP.md, queue A, item 13)")
+        self._ckpt_manager = None
+        if cfg.ckpt_dir:
+            self._ckpt_manager = CheckpointManager(
+                cfg.ckpt_dir, max_to_keep=cfg.ckpt_to_keep)
+
+    # -- checkpointing ---------------------------------------------------------
+    def _save_ckpt(self, step: int):
+        if self._ckpt_manager is None:
+            return
+        self._ckpt_manager.save(step, self.problem.state)
+
+    def _load_ckpt(self):
+        """``init_ckpt`` is a model-only warm start; ``resume_from_ckpt``
+        restores the full state from ckpt_dir and takes precedence."""
+        device = self.problem.device
+        if self.cfg.init_ckpt:
+            mgr = CheckpointManager(self.cfg.init_ckpt)
+            step = mgr.latest_step()
+            if step is None:
+                raise ValueError(f"No checkpoint found in {self.cfg.init_ckpt}")
+            self.problem.set_state(mgr.restore(step, map_location=device),
+                                   model_only=True)
+            logging.info(f"Warm start from {self.cfg.init_ckpt} step {step}.")
+
+        if self.cfg.resume_from_ckpt and self._ckpt_manager is not None:
+            step = self._ckpt_manager.latest_step()
+            if step is not None:
+                self.problem.set_state(
+                    self._ckpt_manager.restore(step, map_location=device),
+                    model_only=False)
+                logging.info(f"Resumed from checkpoint step {step}.")
 
     # -- loop -------------------------------------------------------------------
     def train(self):
         cfg = self.cfg
+        self._load_ckpt()
         first_epoch = getattr(self.problem, "epoch", 0)
         it = first_epoch * (self.timekeeping.nb_steps_per_epoch
                             if self.timekeeping.nb_samples_per_epoch != -1 else 0)
@@ -80,6 +111,8 @@ class Trainer:
                         and it % cfg.validation_every_it == 0 \
                         and self.val_ds is not None:
                     self._log(self.problem.validation(self.val_ds), it)
+                if cfg.ckpt_every_it > 0 and it % cfg.ckpt_every_it == 0:
+                    self._save_ckpt(it)
                 if samples_per_epoch != -1 and epoch_samples >= samples_per_epoch:
                     break
 
@@ -92,6 +125,10 @@ class Trainer:
             if self.val_ds is not None:
                 self._log(self.problem.validation(self.val_ds), it)
             self.problem.epoch = epoch + 1
+            self._save_ckpt(it if it > 0 else epoch + 1)
+
+        if cfg.ckpt_dir:
+            self.problem.save_model(f"{cfg.ckpt_dir}/model")
 
     def _log(self, logs, it):
         if not logs:
